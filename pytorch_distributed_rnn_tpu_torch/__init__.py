@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of ``pytorch_distributed_rnn_tpu``.
+
+The JAX package beside it is the reference; this package imports
+nothing of it (nor of JAX).  Its layers: ``ops`` (losses, initializers,
+the RNN scan path and the hand-written CUDA kernels of ``ops/fused_rnn.py``
+built from ``csrc/``), ``models``, ``data``, ``training`` and the
+``main`` CLI.  Entry points run on the CUDA card unless the caller passes
+``--device cpu``.
+"""

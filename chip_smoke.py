@@ -9,23 +9,33 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. build: compiles every kernel of ``pytorch_distributed_rnn_tpu_torch/
    csrc/`` with nvcc, one process per source, all at once.
 3. kernels: holds each kernel against its plain PyTorch version on the
-   card, forward and backward, at the batch sizes the main path gives
-   them (T=128, H=32, x_proj from input widths 9 and 32, O(1) random
-   cotangents), f32 and bf16, at the tolerances of ``TOLERANCES``.
-4. main path: writes full-size synthetic HAR data (7352 train and 2947
-   test windows of 128 x 9) and runs ``main ... local`` in-process for 2
-   epochs with the default flags (batch 1440, 2 x 32 LSTM, lr 0.0025,
-   dropout 0.1); checks finite losses, the perf line, that both kernels
-   were launched, and that the trained model's fused logits agree with
-   the plain scan path.  Each kernel's launches per train step come from
-   this run's counts.
-5. step profile: five more epochs of the trained model, each timed on
-   the host clock, and one under ``torch.profiler`` (device time by
-   kernel).
+   card, forward and backward, at the batch sizes the main paths give
+   them (T=128, O(1) random cotangents, f32 and bf16, the tolerances of
+   ``TOLERANCES``): the LSTM kernels at H=32 (x_proj from input widths 9
+   and 32), the GRU kernels at H=32 (the same) and at H=512 (input 512).
+4. main paths, each driven with the launch counts set to 0 just before it
+   and read just after, through ``main ... local`` in-process for 2
+   epochs, on synthetic data at full size:
+   a. the motion LSTM with the default flags (batch 1440, 2 x 32 LSTM, lr
+      0.0025, dropout 0.1) on 7352 train and 2947 test HAR windows;
+   b. the same with ``--cell gru``;
+   c. the char LM ``--model char --cell gru --hidden-units 512
+      --stacked-layer 2 --seq-length 128 --batch-size 256 --dropout 0`` on
+      the synthetic motif corpus (1640 train, 204 validation, 204 test
+      windows), then greedy ``generate`` of 32 tokens from 8 test prompts.
+   Each checks finite losses, the perf line, that its kernels were
+   launched (and no others), and that the trained model's fused logits
+   agree with the plain scan path; (c) also that greedy generation gives
+   the same tokens through the kernels and the scan path, or, where not,
+   that the first differing step was a near tie.  Each kernel's launches
+   per train step come from the run's counts.
+5. step profile: more epochs of each trained model, timed on the host
+   clock, and one under ``torch.profiler`` (device time by kernel).
 6. timing: CUDA-event times of each kernel, its plain version and
-   cuDNN's LSTM (``torch.nn.LSTM``, timed here only, never called by the
-   port) at the main shape, beside each kernel's bound; and each kernel
-   at one batch tile (one block), its serial floor.
+   cuDNN's LSTM or GRU (``torch.nn.LSTM`` / ``torch.nn.GRU``, timed here
+   only, never called by the port) at each main shape, beside each
+   kernel's bound; and each kernel at one batch tile (one block), its
+   serial floor.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}`` as its last line.
@@ -42,6 +52,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -52,10 +63,18 @@ sys.path.insert(0, str(ROOT))
 SEQ_LEN = 128
 HIDDEN = 32
 MAIN_BATCH = 1440
-# the batch sizes of the main path: full and final train batches, the
+# the batch sizes of the motion paths: full and final train batches, the
 # validation and the test evaluation (forward only)
 FWD_BATCHES = (1440, 768, 735, 2947)
 BWD_BATCHES = (1440, 768)
+# the char path: 512 wide, batch 256; 1640 train windows end in a batch of
+# 104; validation and test hold 204 windows each
+CHAR_HIDDEN = 512
+CHAR_BATCH = 256
+CHAR_FWD_BATCHES = (256, 104, 204)
+CHAR_BWD_BATCHES = (256, 104)
+GENERATE_PROMPTS, GENERATE_PROMPT_LEN, GENERATE_TOKENS = 8, 64, 32
+LOGIT_TOL = 1e-4  # trained fused logits against the scan path, f32
 TOLERANCES = {  # (forward, backward)
     # the JAX kernel tests' (test_pallas_rnn.py), elementwise:
     # |got - want| <= tol + tol * |want|
@@ -71,11 +90,10 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 REPLACES = {
     "lstm_fwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:100",
     "lstm_bwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:166",
+    "gru_fwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:375",
+    "gru_bwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:422",
 }
-SOURCES = {
-    "lstm_fwd": "pytorch_distributed_rnn_tpu_torch/csrc/lstm_fwd.cu",
-    "lstm_bwd": "pytorch_distributed_rnn_tpu_torch/csrc/lstm_bwd.cu",
-}
+SOURCES = {name: f"pytorch_distributed_rnn_tpu_torch/csrc/{name}.cu" for name in REPLACES}
 
 
 def phase_device():
@@ -113,23 +131,48 @@ def _scaled_err(got, want) -> float:
     return diff.max().item() / max(want.float().abs().max().item(), 1e-30)
 
 
-def _layer_inputs(batch, in_width, dtype, seed):
-    """x_proj (T, B, 4H) from a random layer and input, plus h0, c0, w_hh_t."""
-    from pytorch_distributed_rnn_tpu_torch.ops.rnn import init_rnn_layer, lstm_input_proj
+def _shape(batch: int, hidden: int) -> str:
+    return f"T={SEQ_LEN} B={batch} H={hidden} float32"
+
+
+def _layer_inputs(batch, in_width, dtype, seed, cell="lstm", hidden=HIDDEN):
+    """A random layer's (T, B, G*H) ``x_proj`` from a random input, and a
+    random initial state: LSTM ``(x_proj, h0, c0, w_hh_t, gen)``, GRU
+    ``(x_proj, h0, w_hh_t, b_hh, gen)``."""
+    from pytorch_distributed_rnn_tpu_torch.ops.rnn import (
+        gru_input_proj,
+        init_rnn_layer,
+        lstm_input_proj,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = init_rnn_layer(gen, in_width, HIDDEN)
+    params = init_rnn_layer(gen, in_width, hidden, cell)
     params = {k: v.to(dtype) for k, v in params.items()}
     x = torch.randn((batch, SEQ_LEN, in_width), generator=gen, device="cuda").to(dtype)
-    x_proj = lstm_input_proj(params, x).transpose(0, 1).contiguous()
-    h0 = (0.5 * torch.randn((batch, HIDDEN), generator=gen, device="cuda")).to(dtype)
-    c0 = (0.5 * torch.randn((batch, HIDDEN), generator=gen, device="cuda")).to(dtype)
-    return x_proj, h0, c0, params["w_hh"].T.contiguous(), gen
+    proj = lstm_input_proj if cell == "lstm" else gru_input_proj
+    x_proj = proj(params, x).transpose(0, 1).contiguous()
+    h0 = (0.5 * torch.randn((batch, hidden), generator=gen, device="cuda")).to(dtype)
+    w_hh_t = params["w_hh"].T.contiguous()
+    if cell == "gru":
+        return x_proj, h0, w_hh_t, params["b_hh"], gen
+    c0 = (0.5 * torch.randn((batch, hidden), generator=gen, device="cuda")).to(dtype)
+    return x_proj, h0, c0, w_hh_t, gen
+
+
+def _report(name, dtype, label, got, want, tol, failures) -> float:
+    err = max(_max_err(a, b) for a, b in zip(got, want))
+    scaled = max(_scaled_err(a, b) for a, b in zip(got, want))
+    ok = scaled <= tol
+    print(f"{name} {str(dtype)[6:]} {label}: max_abs_err={err:.3e} "
+          f"scaled_err={scaled:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{name} {dtype} {label}")
+    return err
 
 
 def phase_kernels() -> dict:
-    """Each kernel against its plain version; returns max abs errors at
-    the main shape (f32, B=1440, input width 32) for the kernels line."""
+    """Each kernel against its plain version; returns the max abs errors
+    at each main shape (f32, input width = H), keyed ``(name, shape)``."""
     from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
     main_errs = {}
@@ -137,35 +180,44 @@ def phase_kernels() -> dict:
     for dtype, (tol_f, tol_b) in TOLERANCES.items():
         for in_width in (9, 32):
             for batch in FWD_BATCHES:
+                label = f"B={batch} in={in_width}"
                 x_proj, h0, c0, w, gen = _layer_inputs(batch, in_width, dtype, seed=batch + in_width)
-                h_k, c_k = fr.lstm_fwd(x_proj, h0, c0, w)
                 h_p, c_p = fr.lstm_fwd_plain(x_proj, h0, c0, w)
-                err = max(_max_err(h_k, h_p), _max_err(c_k, c_p))
-                scaled = max(_scaled_err(h_k, h_p), _scaled_err(c_k, c_p))
-                ok = scaled <= tol_f
-                print(f"lstm_fwd {str(dtype)[6:]} B={batch} in={in_width}: "
-                      f"max_abs_err={err:.3e} scaled_err={scaled:.3e} tol={tol_f:g} "
-                      f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    failures.append(f"lstm_fwd {dtype} B={batch} in={in_width}")
+                err = _report("lstm_fwd", dtype, label, fr.lstm_fwd(x_proj, h0, c0, w),
+                              (h_p, c_p), tol_f, failures)
                 if batch not in BWD_BATCHES:
                     continue
                 dh_all = torch.randn(h_p.shape, generator=gen, device="cuda").to(dtype)
                 dh_t = torch.randn(h0.shape, generator=gen, device="cuda").to(dtype)
                 dc_t = torch.randn(h0.shape, generator=gen, device="cuda").to(dtype)
                 args = (x_proj, h_p, c_p, h0, c0, w, dh_all, dh_t, dc_t)
-                got = fr.lstm_bwd(*args)
-                want = fr.lstm_bwd_plain(*args)
-                errb = max(_max_err(a, b) for a, b in zip(got, want))
-                scaledb = max(_scaled_err(a, b) for a, b in zip(got, want))
-                okb = scaledb <= tol_b
-                print(f"lstm_bwd {str(dtype)[6:]} B={batch} in={in_width}: "
-                      f"max_abs_err={errb:.3e} scaled_err={scaledb:.3e} tol={tol_b:g} "
-                      f"{'ok' if okb else 'FAIL'}")
-                if not okb:
-                    failures.append(f"lstm_bwd {dtype} B={batch} in={in_width}")
+                errb = _report("lstm_bwd", dtype, label, fr.lstm_bwd(*args),
+                               fr.lstm_bwd_plain(*args), tol_b, failures)
                 if dtype == torch.float32 and batch == MAIN_BATCH and in_width == HIDDEN:
-                    main_errs = {"lstm_fwd": err, "lstm_bwd": errb}
+                    main_errs[("lstm_fwd", _shape(batch, HIDDEN))] = err
+                    main_errs[("lstm_bwd", _shape(batch, HIDDEN))] = errb
+        for hidden, widths, fwd_batches, bwd_batches, main_batch in (
+            (HIDDEN, (9, 32), FWD_BATCHES, BWD_BATCHES, MAIN_BATCH),
+            (CHAR_HIDDEN, (CHAR_HIDDEN,), CHAR_FWD_BATCHES, CHAR_BWD_BATCHES, CHAR_BATCH),
+        ):
+            for in_width in widths:
+                for batch in fwd_batches:
+                    label = f"B={batch} H={hidden} in={in_width}"
+                    x_proj, h0, w, b, gen = _layer_inputs(
+                        batch, in_width, dtype, seed=batch + in_width, cell="gru", hidden=hidden)
+                    h_p = fr.gru_fwd_plain(x_proj, h0, w, b)
+                    err = _report("gru_fwd", dtype, label, (fr.gru_fwd(x_proj, h0, w, b),),
+                                  (h_p,), tol_f, failures)
+                    if batch not in bwd_batches:
+                        continue
+                    dh_all = torch.randn(h_p.shape, generator=gen, device="cuda").to(dtype)
+                    dh_t = torch.randn(h0.shape, generator=gen, device="cuda").to(dtype)
+                    args = (x_proj, h_p, h0, w, b, dh_all, dh_t)
+                    errb = _report("gru_bwd", dtype, label, fr.gru_bwd(*args),
+                                   fr.gru_bwd_plain(*args), tol_b, failures)
+                    if dtype == torch.float32 and batch == main_batch and in_width == hidden:
+                        main_errs[("gru_fwd", _shape(batch, hidden))] = err
+                        main_errs[("gru_bwd", _shape(batch, hidden))] = errb
     torch.cuda.synchronize()
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
@@ -181,16 +233,27 @@ class _Capture(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def phase_main_path(workdir: Path) -> tuple:
-    """``main ... local`` at full width; returns the trainer, the kernel
-    launch counts of the run and each kernel's launches per train step,
-    worked out from those counts."""
+@dataclass
+class PathRun:
+    """One main path's run: its trainer, the kernels it must launch, the
+    launch counts of the run and each kernel's launches per train step."""
+
+    name: str
+    trainer: object
+    batch: int
+    kernels: tuple
+    launches: dict
+    per_step: dict
+
+
+def _drive(workdir: Path, argv: list, after=None) -> tuple:
+    """``main ... local`` in-process with the launch counts set to 0 just
+    before it; ``after(trainer)`` (part of the path, e.g. generation) runs
+    before the counts are read.  Returns the trainer, ``history.json`` and
+    the launch counts."""
     from pytorch_distributed_rnn_tpu_torch import main as port_main
-    from pytorch_distributed_rnn_tpu_torch.data.synthetic import write_synthetic_har_cache
     from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
-    data = workdir / "data"
-    write_synthetic_har_cache(data, num_train=7352, num_test=2947, seed=0)
     capture = _Capture()
     logging.getLogger().addHandler(capture)
     cwd = os.getcwd()
@@ -198,11 +261,8 @@ def phase_main_path(workdir: Path) -> tuple:
     try:
         fr.reset_launch_counts()
         t0 = time.perf_counter()
-        trainer = port_main.main([
-            "--dataset-path", str(data),
-            "--checkpoint-directory", str(workdir / "models"),
-            "--epochs", "2", "--seed", "0", "local",
-        ])
+        trainer = port_main.main(argv)
+        extra = after(trainer) if after is not None else None
         torch.cuda.synchronize()
         launches = dict(fr.LAUNCHES)
         wall = time.perf_counter() - t0
@@ -211,7 +271,7 @@ def phase_main_path(workdir: Path) -> tuple:
         logging.getLogger().removeHandler(capture)
     history = json.loads((workdir / "history.json").read_text())
     losses = history["train_history"] + history["validation_history"]
-    print(f"main path: {wall:.2f} s, train_history={history['train_history']}, "
+    print(f"  {wall:.2f} s, train_history={history['train_history']}, "
           f"validation_history={history['validation_history']}, launches={launches}")
     if len(history["train_history"]) != 2 or not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"main path losses not finite: {history}")
@@ -219,50 +279,133 @@ def phase_main_path(workdir: Path) -> tuple:
             if re.fullmatch(r"0: Memory Usage: \S+, Training Duration: \S+", m)]
     if len(perf) != 1:
         raise RuntimeError("main path printed no perf line")
-    print(f"perf line: {perf[0]}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise RuntimeError(f"main path never launched kernel {name}")
-    if not (workdir / "models" / "best-model.ckpt").exists():
-        raise RuntimeError("main path wrote no best-model checkpoint")
+    print(f"  perf line: {perf[0]}")
+    return trainer, history, launches, extra
 
-    # the trained model's fused logits against the plain scan path
-    model = trainer.model.eval()
-    x = torch.from_numpy(trainer.test_set.features[:64]).cuda()
+
+def _check_path(name, trainer, history, launches, kernels, batch, extra_fwd_layers=0):
+    """Its kernels launched, no others; launches per train step from the
+    counts: every train step runs each layer forward and backward once,
+    every evaluation (one per epoch, then the test set) and
+    ``extra_fwd_layers`` more layer calls run forward only."""
+    fwd, bwd = kernels
+    for kernel, count in launches.items():
+        if kernel in kernels and count <= 0:
+            raise RuntimeError(f"{name}: main path never launched kernel {kernel}")
+        if kernel not in kernels and count != 0:
+            raise RuntimeError(f"{name}: main path launched {kernel} {count} times")
+    steps = -(-len(trainer.training_set) // batch) * len(history["train_history"])
+    layers = len(trainer.model.rnn)
+    evaluations = len(history["validation_history"]) + 1
+    train_fwd = launches[fwd] - evaluations * layers - extra_fwd_layers
+    if train_fwd != launches[bwd]:
+        raise RuntimeError(f"{name}: train-step forwards {train_fwd} != backwards {launches[bwd]}")
+    per_step = {fwd: train_fwd / steps, bwd: launches[bwd] / steps}
+    print(f"  train steps: {steps}, evaluations: {evaluations}, launches per train step: {per_step}")
+    return PathRun(name, trainer, batch, kernels, launches, per_step)
+
+
+def _fused_vs_scan(model, x, what: str):
+    """The trained model's fused logits against its plain scan path."""
+    model.eval()
     with torch.no_grad():
         fused = model(x)
         model.impl = "scan"
         plain = model(x)
         model.impl = "auto"
     err = _max_err(fused, plain)
-    print(f"trained logits fused vs scan: shape={tuple(fused.shape)} max_abs_err={err:.3e} tol=1e-4")
-    if fused.shape != (64, 6) or not torch.isfinite(fused).all() or err > 1e-4:
-        raise RuntimeError("trained model's fused logits disagree with the scan path")
-    # every train step runs each layer forward and backward once; every
-    # evaluation (one per epoch, then the test set) runs each layer forward
-    steps = -(-len(trainer.training_set) // MAIN_BATCH) * len(history["train_history"])
-    layers = len(model.rnn)
-    evaluations = len(history["validation_history"]) + 1
-    train_fwd = launches["lstm_fwd"] - evaluations * layers
-    if train_fwd != launches["lstm_bwd"]:
-        raise RuntimeError(f"train-step forwards {train_fwd} != backwards {launches['lstm_bwd']}")
-    per_step = {"lstm_fwd": train_fwd / steps, "lstm_bwd": launches["lstm_bwd"] / steps}
-    print(f"train steps: {steps}, evaluations: {evaluations}, launches per train step: {per_step}")
-    return trainer, launches, per_step
+    print(f"  trained logits fused vs scan ({what}): shape={tuple(fused.shape)} "
+          f"max_abs_err={err:.3e} tol={LOGIT_TOL:g}")
+    if not torch.isfinite(fused).all() or err > LOGIT_TOL:
+        raise RuntimeError(f"{what}: trained model's fused logits disagree with the scan path")
+    return fused
 
 
-def phase_step_profile(trainer):
-    """More training epochs of the trained model: each timed on the host
+def phase_motion(workdir: Path, cell: str) -> PathRun:
+    """``main [--cell gru] ... local`` at the reference width."""
+    print(f"main path: motion {cell}")
+    argv = ["--dataset-path", str(workdir / "data"),
+            "--checkpoint-directory", str(workdir / f"models-{cell}"),
+            "--epochs", "2", "--seed", "0", "--cell", cell, "local"]
+    trainer, history, launches, _ = _drive(workdir, argv)
+    if not (workdir / f"models-{cell}" / "best-model.ckpt").exists():
+        raise RuntimeError("main path wrote no best-model checkpoint")
+    kernels = (f"{cell}_fwd", f"{cell}_bwd")
+    run = _check_path(f"motion {cell}", trainer, history, launches, kernels, MAIN_BATCH)
+    x = torch.from_numpy(trainer.test_set.features[:64]).cuda()
+    fused = _fused_vs_scan(trainer.model, x, f"motion {cell}")
+    if fused.shape != (64, 6):
+        raise RuntimeError(f"motion {cell}: logits of shape {tuple(fused.shape)}")
+    return run
+
+
+def _top2_gap(logits) -> torch.Tensor:
+    top = logits.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def phase_char(workdir: Path) -> PathRun:
+    """The char LM at its chip width, then greedy generation of the
+    trained model through the kernels (counted) and the scan path."""
+    print("main path: char gru")
+    argv = ["--model", "char", "--cell", "gru", "--hidden-units", str(CHAR_HIDDEN),
+            "--stacked-layer", "2", "--seq-length", str(SEQ_LEN),
+            "--batch-size", str(CHAR_BATCH), "--dropout", "0",
+            "--dataset-path", str(workdir / "no-corpus"),
+            "--checkpoint-directory", str(workdir / "models-char"),
+            "--epochs", "2", "--seed", "0", "local"]
+
+    def generate(trainer):
+        prompt = torch.from_numpy(
+            trainer.test_set.features[:GENERATE_PROMPTS, :GENERATE_PROMPT_LEN]).cuda()
+        return prompt, trainer.model.eval().generate(prompt, GENERATE_TOKENS, temperature=0.0)
+
+    trainer, history, launches, (prompt, fused_out) = _drive(workdir, argv, after=generate)
+    model = trainer.model
+    run = _check_path("char gru", trainer, history, launches, ("gru_fwd", "gru_bwd"),
+                      CHAR_BATCH, extra_fwd_layers=len(model.rnn))  # the generate prefill
+    windows = torch.from_numpy(trainer.test_set.features[:GENERATE_PROMPTS]).cuda()
+    fused = _fused_vs_scan(model, windows[:, :-1], "char gru")
+    if fused.shape != (GENERATE_PROMPTS, SEQ_LEN, 256):
+        raise RuntimeError(f"char gru: logits of shape {tuple(fused.shape)}")
+
+    model.impl = "scan"
+    scan_out = model.generate(prompt, GENERATE_TOKENS, temperature=0.0)
+    with torch.no_grad():  # the scan path's logits behind each generated token
+        logits = model(scan_out[:, :-1])[:, GENERATE_PROMPT_LEN - 1:]
+    model.impl = "auto"
+    gaps = _top2_gap(logits)
+    shape_ok = fused_out.shape == (GENERATE_PROMPTS, GENERATE_PROMPT_LEN + GENERATE_TOKENS)
+    if not shape_ok or not torch.equal(fused_out[:, :GENERATE_PROMPT_LEN], prompt):
+        raise RuntimeError("char gru: generate did not extend the prompts")
+    differ = (fused_out != scan_out)[:, GENERATE_PROMPT_LEN:]
+    if differ.any():
+        step = int(differ.any(dim=0).nonzero()[0])
+        row = int(differ[:, step].nonzero()[0])
+        gap = gaps[row, step].item()
+        print(f"  generate fused vs scan: first differing step {step} (prompt {row}), "
+              f"its top-2 logit gap {gap:.3e} (must be below {LOGIT_TOL:g})")
+        if gap >= LOGIT_TOL:
+            raise RuntimeError("char gru: greedy tokens differ between fused and scan")
+    else:
+        print(f"  generate fused vs scan: {GENERATE_PROMPTS} x {GENERATE_TOKENS} tokens "
+              f"identical; smallest top-2 logit gap {gaps.min().item():.3e}")
+    return run
+
+
+def phase_step_profile(run: PathRun, epochs: int):
+    """More training epochs of a trained model: each timed on the host
     clock (the steady-state step time), then one under ``torch.profiler``
     (where the device time goes, by kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     from pytorch_distributed_rnn_tpu_torch.training.formatter import TrainingMessageFormatter
 
+    trainer = run.trainer
     formatter = TrainingMessageFormatter(1)
-    steps = -(-len(trainer.training_set) // MAIN_BATCH)
+    steps = -(-len(trainer.training_set) // run.batch)
     host_ms = []
-    for _ in range(PROFILE_EPOCHS):
+    for _ in range(epochs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         trainer._train_epoch(formatter)  # ends on a host read of the loss
@@ -273,8 +416,8 @@ def phase_step_profile(trainer):
               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     device_us = {e.key: e.self_device_time_total for e in events}
     total_us = sum(device_us.values())
-    print(f"step profile: {steps} steps per epoch; host clock per step over {PROFILE_EPOCHS} "
-          f"epochs: {', '.join(f'{ms:.3f}' for ms in host_ms)} ms; device time "
+    print(f"step profile ({run.name}): {steps} steps per epoch; host clock per step over "
+          f"{epochs} epochs: {', '.join(f'{ms:.3f}' for ms in host_ms)} ms; device time "
           f"{total_us / 1e3 / steps:.3f} ms per step (one profiled epoch)")
     for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / 1e3 / steps:8.3f} ms/step  {100 * us / max(total_us, 1):5.1f}%  {key[:90]}")
@@ -300,95 +443,137 @@ def _bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def _timing_args(batch: int):
-    """f32 arguments of both kernels at ``batch`` rows: (fwd, bwd, generator)."""
+def _timing_args(cell: str, batch: int, hidden: int):
+    """f32 arguments of a cell's two kernels at ``batch`` rows (input width
+    = H, zero final-state cotangents): (fwd, bwd, dh_all, generator)."""
     from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
-    x_proj, h0, c0, w, gen = _layer_inputs(batch, HIDDEN, torch.float32, seed=7)
-    h_all, c_all = fr.lstm_fwd_plain(x_proj, h0, c0, w)
+    if cell == "lstm":
+        x_proj, h0, c0, w, gen = _layer_inputs(batch, hidden, torch.float32, seed=7)
+        h_all, c_all = fr.lstm_fwd_plain(x_proj, h0, c0, w)
+        dh_all = 0.1 * torch.randn(h_all.shape, generator=gen, device="cuda")
+        bwd = (x_proj, h_all, c_all, h0, c0, w, dh_all, torch.zeros_like(h0),
+               torch.zeros_like(c0))
+        return (x_proj, h0, c0, w), bwd, dh_all, gen
+    x_proj, h0, w, b, gen = _layer_inputs(batch, hidden, torch.float32, seed=7, cell="gru",
+                                          hidden=hidden)
+    h_all = fr.gru_fwd_plain(x_proj, h0, w, b)
     dh_all = 0.1 * torch.randn(h_all.shape, generator=gen, device="cuda")
-    bwd = (x_proj, h_all, c_all, h0, c0, w, dh_all, torch.zeros_like(h0), torch.zeros_like(c0))
-    return (x_proj, h0, c0, w), bwd, gen
+    bwd = (x_proj, h_all, h0, w, b, dh_all, torch.zeros_like(h0))
+    return (x_proj, h0, w, b), bwd, dh_all, gen
 
 
-def phase_timing(launches: dict, per_step: dict, errs: dict) -> list:
-    """Each kernel at the main shape beside its bound, its plain version
+def _kernel_bounds(cell: str, batch: int, hidden: int) -> tuple:
+    """Each kernel's least time at f32: every input read once, every
+    output written once, and the f32 FMAs of its recurrent products (the
+    backward recomputes the forward's and adds the contraction)."""
+    gates = (4 if cell == "lstm" else 3) * hidden
+    item = 4
+    seq = SEQ_LEN * batch * hidden * item
+    state = batch * hidden * item
+    gate_seq = SEQ_LEN * batch * gates * item
+    weight = hidden * gates * item
+    flops = 2 * SEQ_LEN * batch * hidden * gates
+    if cell == "lstm":
+        # x_proj, h0, c0, w in; h_all, c_all out
+        fwd = _bound_ms(gate_seq + 2 * state + weight + 2 * seq, flops)
+        # x_proj, h_all, c_all, dh_all, h0, c0, dh_T, dc_T, w in; dx_proj, dh0, dc0 out
+        bwd = _bound_ms(2 * gate_seq + 3 * seq + 6 * state + weight, 2 * flops)
+    else:
+        bias = gates * item
+        # x_proj, h0, w, b in; h_all out
+        fwd = _bound_ms(gate_seq + state + weight + bias + seq, flops)
+        # x_proj, h_all, dh_all, h0, dh_T, w, b in; dx_proj, dhgates, dh0 out
+        bwd = _bound_ms(3 * gate_seq + 2 * seq + 3 * state + weight + bias, 2 * flops)
+    return fwd, bwd
+
+
+def _library_calls(cell: str, batch: int, hidden: int, dh_all, gen):
+    """cuDNN's whole layer (``torch.nn.LSTM``/``torch.nn.GRU``, input
+    projection included) forward and backward at the same shape."""
+    module = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(hidden, hidden).cuda()
+    x_seq = torch.randn((SEQ_LEN, batch, hidden), generator=gen, device="cuda",
+                        requires_grad=True)
+    h0 = 0.5 * torch.randn((1, batch, hidden), generator=gen, device="cuda")
+    state = (h0, torch.zeros_like(h0)) if cell == "lstm" else h0
+
+    def fwd():
+        with torch.no_grad():
+            module(x_seq, state)
+
+    out, _ = module(x_seq, state)
+    inputs = [x_seq, *module.parameters()]
+
+    def bwd():
+        torch.autograd.grad(out, inputs, dh_all, retain_graph=True)
+
+    return fwd, bwd
+
+
+def phase_timing(runs: dict, errs: dict) -> list:
+    """Each kernel at each main shape beside its bound, its plain version
     and cuDNN; ``serial_ms`` is the kernel at one batch tile (one block),
     where only its chain of T dependent steps is left."""
     from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
-    fwd_args, bwd_args, gen = _timing_args(MAIN_BATCH)
-    x_proj, h0, c0, _ = fwd_args
-    dh_all = bwd_args[6]
-    tile_fwd, tile_bwd, _ = _timing_args(fr.BLOCK_B)
-
-    # cuDNN's LSTM at the same shapes (its input projection included)
-    lstm = torch.nn.LSTM(HIDDEN, HIDDEN).cuda()
-    x_seq = torch.randn((SEQ_LEN, MAIN_BATCH, HIDDEN), generator=gen, device="cuda",
-                        requires_grad=True)
-    state = (h0[None].clone(), c0[None].clone())
-
-    def cudnn_fwd():
-        with torch.no_grad():
-            lstm(x_seq, state)
-
-    out, _ = lstm(x_seq, state)
-    inputs = [x_seq, *lstm.parameters()]
-
-    def cudnn_bwd():
-        torch.autograd.grad(out, inputs, dh_all, retain_graph=True)
-
-    item = x_proj.element_size()
-    t, b, g = x_proj.shape
-    hid = g // 4
-    seq_bytes = t * b * hid * item
-    state_bytes = b * hid * item
-    w_bytes = hid * g * item
-    gates_bytes = t * b * g * item
-    fwd_bound = _bound_ms(
-        gates_bytes + 2 * state_bytes + w_bytes + 2 * seq_bytes,  # x_proj, h0, c0, w in; h_all, c_all out
-        2 * t * b * hid * g,
-    )
-    bwd_bound = _bound_ms(
-        # x_proj, h_all, c_all, dh_all, h0, c0, dh_T, dc_T, w in; dx_proj, dh0, dc0 out
-        2 * gates_bytes + 3 * seq_bytes + 6 * state_bytes + w_bytes,
-        4 * t * b * hid * g,
-    )
     rows = []
-    for name, kernel, plain, cudnn, bound, tile_args in (
-        ("lstm_fwd", fr.lstm_fwd, fr.lstm_fwd_plain, cudnn_fwd, fwd_bound, tile_fwd),
-        ("lstm_bwd", fr.lstm_bwd, fr.lstm_bwd_plain, cudnn_bwd, bwd_bound, tile_bwd),
+    for cell, batch, hidden, run in (
+        ("lstm", MAIN_BATCH, HIDDEN, runs["motion_lstm"]),
+        ("gru", MAIN_BATCH, HIDDEN, runs["motion_gru"]),
+        ("gru", CHAR_BATCH, CHAR_HIDDEN, runs["char_gru"]),
     ):
-        args = fwd_args if name == "lstm_fwd" else bwd_args
-        rows.append({
-            "name": name,
-            "route": "cuda",
-            "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": launches[name],
-            "launches_per_step": per_step[name],
-            "max_abs_err": errs[name],
-            "ms": _time_ms(lambda: kernel(*args), 20),
-            "serial_ms": _time_ms(lambda: kernel(*tile_args), 20),
-            "plain_ms": _time_ms(lambda: plain(*args), 3, warmup=1),
-            "bound_ms": bound[0],
-            "bound_by": bound[1],
-            "library_ms": _time_ms(cudnn, 20),
-        })
-    print(f"timing at T={SEQ_LEN} B={MAIN_BATCH} H={HIDDEN} f32; serial_ms at "
-          f"B={fr.BLOCK_B} (one block); library_ms is torch.nn.LSTM (cuDNN) "
-          "forward / backward incl. its input projection")
+        tile = fr.BLOCK_B if cell == "lstm" else fr.gru_tile(hidden)[0]
+        fwd_args, bwd_args, dh_all, gen = _timing_args(cell, batch, hidden)
+        tile_fwd, tile_bwd, _, _ = _timing_args(cell, tile, hidden)
+        lib_fwd, lib_bwd = _library_calls(cell, batch, hidden, dh_all, gen)
+        bounds = _kernel_bounds(cell, batch, hidden)
+        shape = _shape(batch, hidden)
+        for name, kernel, plain, library, bound, args, tile_args in (
+            (f"{cell}_fwd", getattr(fr, f"{cell}_fwd"), getattr(fr, f"{cell}_fwd_plain"),
+             lib_fwd, bounds[0], fwd_args, tile_fwd),
+            (f"{cell}_bwd", getattr(fr, f"{cell}_bwd"), getattr(fr, f"{cell}_bwd_plain"),
+             lib_bwd, bounds[1], bwd_args, tile_bwd),
+        ):
+            rows.append({
+                "name": name,
+                "route": "cuda",
+                "source": SOURCES[name],
+                "replaces": REPLACES[name],
+                "shape": shape,
+                "path": run.name,
+                "launches": run.launches[name],
+                "launches_per_step": run.per_step[name],
+                "max_abs_err": errs[(name, shape)],
+                "ms": _time_ms(lambda: kernel(*args), 20),
+                "serial_ms": _time_ms(lambda: kernel(*tile_args), 20),
+                "plain_ms": _time_ms(lambda: plain(*args), 3, warmup=1),
+                "bound_ms": bound[0],
+                "bound_by": bound[1],
+                "library_ms": _time_ms(library, 20),
+            })
+        print(f"timing {cell} at {shape}; serial_ms at B={tile} (one block); library_ms is "
+              f"torch.nn.{cell.upper()} (cuDNN) forward / backward incl. its input projection")
     return rows
 
 
 def main() -> int:
+    from pytorch_distributed_rnn_tpu_torch.data.synthetic import write_synthetic_har_cache
+
     phase_device()
     phase_build()
     errs = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        trainer, launches, per_step = phase_main_path(Path(tmp))
-    phase_step_profile(trainer)
-    rows = phase_timing(launches, per_step, errs)
+        workdir = Path(tmp)
+        write_synthetic_har_cache(workdir / "data", num_train=7352, num_test=2947, seed=0)
+        runs = {
+            "motion_lstm": phase_motion(workdir, "lstm"),
+            "motion_gru": phase_motion(workdir, "gru"),
+            "char_gru": phase_char(workdir),
+        }
+    phase_step_profile(runs["motion_lstm"], PROFILE_EPOCHS)
+    phase_step_profile(runs["motion_gru"], 3)
+    phase_step_profile(runs["char_gru"], 2)
+    rows = phase_timing(runs, errs)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-KERNELS = ("lstm_fwd", "lstm_bwd")
+KERNELS = ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -45,7 +45,7 @@ def nvcc_path() -> str:
             return str(path)
     raise RuntimeError(
         "nvcc not found (set CUDA_HOME or put nvcc on PATH): the fused "
-        "LSTM kernels build from csrc/ at first use"
+        "RNN kernels build from csrc/ at first use"
     )
 
 

@@ -1,11 +1,12 @@
-"""Synthetic UCI-HAR-format data (the HAR half of the JAX package's
-``data/synthetic.py``, with the same arrays for the same seed).
+"""Synthetic data, a copy of the JAX package's ``data/synthetic.py`` with
+the same arrays for the same seed.
 
-Per-class sinusoid motifs plus noise over 9 channels x 128 steps, as
+HAR: per-class sinusoid motifs plus noise over 9 channels x 128 steps, as
 arrays, as a raw-text directory tree in the UCI layout, or straight into
 the ``X_*.npy``/``y_*.npy`` cache that ``MotionDataset.load`` reads
 (after the processor's seeded validation split and x96 truncation), which
-skips text parsing at full size.
+skips text parsing at full size.  Char LM: token windows of repeated
+motifs and noise (:func:`generate_char_tokens`).
 """
 
 from __future__ import annotations
@@ -91,3 +92,23 @@ def write_synthetic_har_cache(
         np.save(base_path / f"X_{name}.npy", X)
         np.save(base_path / f"y_{name}.npy", y)
     return base_path
+
+
+def generate_char_tokens(num_sequences: int, seq_length: int,
+                         vocab_size: int = 256, seed: int = 0):
+    """Synthetic character streams for the char-RNN LM family: a mixture of
+    repeated motifs and noise so a language model has real structure to
+    learn (uniform-random tokens would pin the loss at log(vocab)).
+    Returns (num_sequences, seq_length + 1) int32 windows."""
+    rng = np.random.RandomState(seed)
+    motifs = rng.randint(0, vocab_size, size=(8, 16))
+    rows = []
+    for _ in range(num_sequences):
+        row = []
+        while len(row) < seq_length + 1:
+            if rng.rand() < 0.8:
+                row.extend(motifs[rng.randint(len(motifs))])
+            else:
+                row.extend(rng.randint(0, vocab_size, size=4))
+        rows.append(row[: seq_length + 1])
+    return np.asarray(rows, dtype=np.int32)

@@ -2,12 +2,15 @@
 
 The flag surface of the JAX package's ``main.py``, plus ``--device
 {cuda,cpu}`` (default ``cuda``; without a card the run fails and says to
-pass ``--device cpu``).  Only ``local`` is registered as a subcommand.
+pass ``--device cpu``).  Only ``local`` is registered as a subcommand;
+``--model`` takes ``rnn`` and ``char``.
 Flags whose machinery is not ported yet are parsed and rejected loudly
 when set to anything but their default.
 
 Run:
   python -m pytorch_distributed_rnn_tpu_torch.main --dataset-path data local
+  python -m pytorch_distributed_rnn_tpu_torch.main --model char --cell gru \
+      --hidden-units 512 --seq-length 128 --batch-size 256 --dropout 0 local
 """
 
 from __future__ import annotations
@@ -43,11 +46,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", default=None, type=int)
     parser.add_argument("--no-validation", action="store_true")
     parser.add_argument("--cell", default="lstm", choices=["lstm", "gru"],
-                        help="gru runs the scan path (no fused GRU kernel yet)")
+                        help="recurrent cell; both run the fused kernels on the card "
+                        "where they take the width (GRU up to 512, LSTM up to 110)")
     parser.add_argument("--model", default="rnn", choices=["rnn", "attention", "char", "moe"],
-                        help="model family; the port trains rnn only")
+                        help="model family; the port trains rnn (motion classifier) "
+                        "and char (char LM)")
     parser.add_argument("--seq-length", default=None, type=int, metavar="T",
-                        help="--model char only")
+                        help="--model char only: tokens per window (default 128)")
     parser.add_argument("--num-heads", default=4, type=int, help="--model attention only")
     parser.add_argument("--num-experts", default=4, type=int, help="--model moe only")
     parser.add_argument("--moe-top-k", default=1, type=int, choices=[1, 2],

@@ -1,2 +1,2 @@
 """Numerics of the port: losses, initializers, RNN layers and the fused
-LSTM kernels."""
+LSTM and GRU kernels."""

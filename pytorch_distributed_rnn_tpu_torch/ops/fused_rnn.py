@@ -1,8 +1,7 @@
-"""Fused LSTM time loop: hand-written Hopper kernels plus plain twins.
+"""Fused LSTM and GRU time loops: hand-written Hopper kernels plus plain twins.
 
-The port of the LSTM half of ``pytorch_distributed_rnn_tpu/ops/
-pallas_rnn.py``.  Two CUDA kernels carry the serial part of every LSTM
-layer on the card:
+The port of ``pytorch_distributed_rnn_tpu/ops/pallas_rnn.py``.  Four CUDA
+kernels carry the serial part of every LSTM and GRU layer on the card:
 
 - ``lstm_fwd`` (``csrc/lstm_fwd.cu``) replaces ``pallas_rnn.py:
   _lstm_fwd_kernel``: the forward recurrence, h and c in float32, h_all
@@ -10,21 +9,28 @@ layer on the card:
 - ``lstm_bwd`` (``csrc/lstm_bwd.cu``) replaces ``pallas_rnn.py:
   _lstm_bwd_kernel``: the reverse sweep that recomputes the gates and
   emits the gate cotangents (= ``dx_proj``), ``dh0`` and ``dc0``.
+- ``gru_fwd`` (``csrc/gru_fwd.cu``) replaces ``pallas_rnn.py:
+  _gru_fwd_kernel``: the GRU forward recurrence, ``b_hh`` inside the
+  hidden-side product, h in float32, h_all stored in the input dtype.
+- ``gru_bwd`` (``csrc/gru_bwd.cu``) replaces ``pallas_rnn.py:
+  _gru_bwd_kernel``: the reverse sweep that emits ``dx_proj``, the
+  hidden-side gate cotangents ``dhgates`` and ``dh0``.
 
-Both are bound by bytes at the motion model's shape (the notes in the
-sources give the arithmetic); both keep W_hh^T resident in shared memory
-and loop over T inside one block per batch tile.  The input projection
-and ``dW_hh`` stay plain matrix products (``torch.matmul``), as the JAX
-package leaves them to XLA.
+The LSTM kernels keep W_hh^T resident in shared memory (up to H=110); the
+GRU kernels do so up to H=126 and beyond that read it from device memory
+(L2) every step, up to H=512 (``gru_kernel_supports``).  All loop over T
+inside one block per batch tile.  The input projection, ``dW_hh`` and
+``db_hh`` stay plain matrix products and sums (``torch.matmul``), as the
+JAX package leaves them to XLA.
 
-Each wrapper takes the kernel's plain PyTorch version (``lstm_fwd_plain``
-/ ``lstm_bwd_plain``) only for CPU tensors; on CUDA tensors it launches
-the kernel or raises.  ``LAUNCHES`` counts kernel launches, so a run can
-show its main path went through the kernels.
+Each wrapper takes the kernel's plain PyTorch version (``*_plain``) only
+for CPU tensors; on CUDA tensors it launches the kernel or raises.
+``LAUNCHES`` counts kernel launches, so a run can show its main path went
+through the kernels.
 
-Mixed precision follows the JAX *fused* kernel: the recurrent product is
+Mixed precision follows the JAX *fused* kernels: the recurrent product is
 ``h_f32 @ w`` in float32 even for bf16 weights, and the backward reads the
-stored (bf16) h and c.
+stored (bf16) h (and c).
 """
 
 from __future__ import annotations
@@ -34,13 +40,20 @@ import ctypes
 import torch
 
 # kernel launches since the last reset_launch_counts(), by kernel name
-LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0}
+LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0, "gru_fwd": 0, "gru_bwd": 0}
 
 BLOCK_B = 16  # batch rows per block: 1440 rows -> 90 blocks on the card's 132 SMs
+# GRU tile where W_hh^T is read from device memory: every block reads all
+# of W from L2 each step, so more, smaller tiles pull from L2 in parallel
+# (256 rows -> 64 blocks)
+GRU_L2_BLOCK_B = 4
+GRU_MAX_HIDDEN = 512
 _ROWS_PER_THREAD = 4  # kRowsPerThread in csrc/lstm_common.cuh
 _MAX_THREADS = 1024
 _MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may use
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# (pointer arguments, int arguments) of each kernel's C entry point
+_SIGNATURES = {"lstm_fwd": (6, 5), "lstm_bwd": (12, 5), "gru_fwd": (5, 6), "gru_bwd": (11, 6)}
 
 
 def reset_launch_counts():
@@ -60,6 +73,28 @@ def kernel_supports(hidden: int) -> bool:
         and hidden * (BLOCK_B // _ROWS_PER_THREAD) <= _MAX_THREADS
         and smem <= _MAX_SMEM_BYTES
     )
+
+
+def gru_kernel_supports(hidden: int) -> bool:
+    """Whether both GRU kernels take this hidden size: 1 <= H <= 512, in
+    float32 and bfloat16.  Up to H=126 W_hh^T is staged in shared memory;
+    above it the kernels read W from device memory and need only the
+    per-tile state there, so the range ends where a 4-row tile's thread
+    count and state stay small (512 threads, 40 KiB at H=512)."""
+    return 1 <= hidden <= GRU_MAX_HIDDEN
+
+
+def _gru_w_in_smem(hidden: int) -> bool:
+    """W_hh^T (row stride 3H + 1) plus the backward's per-tile state
+    (``csrc/gru_bwd.cu:bwd_smem_bytes``) fit one block: up to H=126."""
+    return 4 * (hidden * (3 * hidden + 1) + 5 * BLOCK_B * hidden) <= _MAX_SMEM_BYTES
+
+
+def gru_tile(hidden: int) -> tuple[int, bool]:
+    """The GRU kernels' ``(block_b, W in shared memory)`` at this width."""
+    if _gru_w_in_smem(hidden):
+        return BLOCK_B, True
+    return GRU_L2_BLOCK_B, False
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +150,53 @@ def lstm_bwd_plain(x_proj, h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T):
     return torch.stack(dx), dh.to(dtype), dc.to(dtype)
 
 
+def _gru_gates(x_proj_t, h_prev, w, b):
+    """r, z, n and the hidden-side n pre-activation h_n of one GRU step,
+    in float32; ``b_hh`` joins the hidden-side product."""
+    xr, xz, xn = x_proj_t.float().chunk(3, dim=-1)
+    hr, hz, hn = (h_prev @ w + b).chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    return r, z, torch.tanh(xn + r * hn), hn
+
+
+def gru_fwd_plain(x_proj, h0, w_hh_t, b_hh):
+    """``x_proj`` (T, B, 3H) with ``b_ih`` folded in, ``h0`` (B, H),
+    ``w_hh_t`` (H, 3H), ``b_hh`` (3H,) -> ``h_all`` (T, B, H) in
+    ``x_proj``'s dtype."""
+    dtype = x_proj.dtype
+    w, b = w_hh_t.float(), b_hh.float()
+    h = h0.float()
+    h_all = []
+    for t in range(x_proj.shape[0]):
+        _, z, n, _ = _gru_gates(x_proj[t], h, w, b)
+        h = (1.0 - z) * n + z * h
+        h_all.append(h.to(dtype))
+    return torch.stack(h_all)
+
+
+def gru_bwd_plain(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T):
+    """Reverse sweep, recomputing each step's gates from the stored
+    h_{t-1}: returns ``dx_proj`` and ``dhgates`` = [dr, dz, dn * r]
+    (T, B, 3H) and ``dh0`` (B, H), all in ``x_proj``'s dtype."""
+    dtype = x_proj.dtype
+    w, b = w_hh_t.float(), b_hh.float()
+    dh = dh_T.float()
+    dx, dhg = [None] * x_proj.shape[0], [None] * x_proj.shape[0]
+    for t in reversed(range(x_proj.shape[0])):
+        h_prev = (h_all[t - 1] if t > 0 else h0).float()
+        r, z, n, hn = _gru_gates(x_proj[t], h_prev, w, b)
+        dh = dh + dh_all[t].float()
+        dn = dh * (1.0 - z) * (1.0 - n * n)
+        dz = dh * (h_prev - n) * z * (1.0 - z)
+        dr = dn * hn * r * (1.0 - r)
+        d_hgates = torch.cat([dr, dz, dn * r], dim=-1)
+        dx[t] = torch.cat([dr, dz, dn], dim=-1).to(dtype)
+        dhg[t] = d_hgates.to(dtype)
+        dh = dh * z + d_hgates @ w.T
+    return torch.stack(dx), torch.stack(dhg), dh.to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -126,16 +208,17 @@ def _library(name: str):
     lib = _build.load(name)
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        n_ptr = {"lstm_fwd": 6, "lstm_bwd": 12}[name]
+        n_ptr, n_int = _SIGNATURES[name]
         fn.argtypes = (
-            [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
 
 
 def _check(name, tensors, shapes):
-    """Device, dtype, shape and contiguity checks before a launch."""
+    """Device, dtype, shape and contiguity checks before a launch; the
+    last shape is the gate tensor's (T, B, G*H)."""
     first = tensors[0]
     if first.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {first.dtype} not supported (float32, bfloat16)")
@@ -148,10 +231,12 @@ def _check(name, tensors, shapes):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    seq_len, batch, hidden = shapes[-1][0], shapes[-1][1], shapes[-1][2] // 4
-    if seq_len < 1 or batch < 1 or not kernel_supports(hidden):
+    lstm = name.startswith("lstm")
+    supports = kernel_supports if lstm else gru_kernel_supports
+    seq_len, batch, hidden = shapes[-1][0], shapes[-1][1], shapes[-1][2] // (4 if lstm else 3)
+    if seq_len < 1 or batch < 1 or not supports(hidden):
         raise ValueError(
-            f"{name}: no kernel for T={seq_len} B={batch} H={hidden} (see kernel_supports)"
+            f"{name}: no kernel for T={seq_len} B={batch} H={hidden} (see {supports.__name__})"
         )
 
 
@@ -223,6 +308,68 @@ def lstm_bwd(x_proj, h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T):
     return dx_proj, dh0, dc0
 
 
+def gru_fwd(x_proj, h0, w_hh_t, b_hh):
+    """GRU forward time loop: ``h_all`` (T, B, H).  CPU tensors take
+    :func:`gru_fwd_plain`; CUDA tensors launch ``csrc/gru_fwd.cu``."""
+    if x_proj.device.type == "cpu":
+        return gru_fwd_plain(x_proj, h0, w_hh_t, b_hh)
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"gru_fwd: runs on CPU or CUDA tensors, got {x_proj.device}")
+    seq_len, batch, gate_dim = x_proj.shape
+    hidden = gate_dim // 3
+    _check(
+        "gru_fwd", [h0, w_hh_t, b_hh, x_proj],
+        [(batch, hidden), (hidden, gate_dim), (gate_dim,), (seq_len, batch, 3 * hidden)],
+    )
+    block_b, w_smem = gru_tile(hidden)
+    h_all = torch.empty((seq_len, batch, hidden), dtype=x_proj.dtype, device=x_proj.device)
+    with torch.cuda.device(x_proj.device):
+        _launch(
+            "gru_fwd", _library("gru_fwd"),
+            x_proj.data_ptr(), h0.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
+            h_all.data_ptr(),
+            seq_len, batch, hidden, block_b, int(w_smem), _DTYPE_CODES[x_proj.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    return h_all
+
+
+def gru_bwd(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T):
+    """Reverse sweep: ``dx_proj``, ``dhgates`` (T, B, 3H) and ``dh0``
+    (B, H).  CPU tensors take :func:`gru_bwd_plain`; CUDA tensors launch
+    ``csrc/gru_bwd.cu``."""
+    if x_proj.device.type == "cpu":
+        return gru_bwd_plain(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T)
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"gru_bwd: runs on CPU or CUDA tensors, got {x_proj.device}")
+    seq_len, batch, gate_dim = x_proj.shape
+    hidden = gate_dim // 3
+    seq = (seq_len, batch, hidden)
+    state = (batch, hidden)
+    _check(
+        "gru_bwd", [h_all, h0, w_hh_t, b_hh, dh_all, dh_T, x_proj],
+        [seq, state, (hidden, gate_dim), (gate_dim,), seq, state, (seq_len, batch, gate_dim)],
+    )
+    block_b, w_smem = gru_tile(hidden)
+    # without the shared-memory copy, the contraction over the 3H gates
+    # reads W_hh (3H, H) itself, where neighbouring threads read
+    # neighbouring words; the kernel ignores this pointer otherwise
+    w_hh = w_hh_t if w_smem else w_hh_t.T.contiguous()
+    dx_proj = torch.empty_like(x_proj)
+    dhgates = torch.empty_like(x_proj)
+    dh0 = torch.empty_like(h0)
+    with torch.cuda.device(x_proj.device):
+        _launch(
+            "gru_bwd", _library("gru_bwd"),
+            x_proj.data_ptr(), h_all.data_ptr(), h0.data_ptr(), w_hh_t.data_ptr(),
+            w_hh.data_ptr(), b_hh.data_ptr(), dh_all.data_ptr(), dh_T.data_ptr(),
+            dx_proj.data_ptr(), dhgates.data_ptr(), dh0.data_ptr(),
+            seq_len, batch, hidden, block_b, int(w_smem), _DTYPE_CODES[x_proj.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    return dx_proj, dhgates, dh0
+
+
 # ---------------------------------------------------------------------------
 # Autograd binding and the layer API
 # ---------------------------------------------------------------------------
@@ -282,3 +429,52 @@ def lstm_layer_fused(params, x, h0=None, c0=None):
         c0.to(dtype).contiguous(),
     )
     return h_all.transpose(0, 1), (h_t, c_t)
+
+
+class FusedGRUScan(torch.autograd.Function):
+    """Differentiable fused GRU time loop, the semantics of the JAX
+    package's ``fused_gru_scan`` custom VJP.
+
+    ``forward(x_proj (T, B, 3H), w_hh_t (H, 3H), b_hh (3H,), h0 (B, H))``
+    returns ``(h_all (T, B, H), h_T)``."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh_t, b_hh, h0):
+        h_all = gru_fwd(x_proj, h0, w_hh_t, b_hh)
+        ctx.save_for_backward(x_proj, h_all, h0, w_hh_t, b_hh)
+        return h_all, h_all[-1].clone()
+
+    @staticmethod
+    def backward(ctx, dh_all, dh_T):
+        x_proj, h_all, h0, w_hh_t, b_hh = ctx.saved_tensors
+        dtype = x_proj.dtype
+        dx_proj, dhgates, dh0 = gru_bwd(
+            x_proj, h_all, h0, w_hh_t, b_hh,
+            dh_all.to(dtype).contiguous(), dh_T.to(dtype).contiguous(),
+        )
+        # dW_hh^T = sum_t h_{t-1}^T dhgates[t] and db_hh = sum dhgates:
+        # one product and one reduction over all (t, b)
+        h_prev = torch.cat([h0[None], h_all[:-1]])
+        dhg = dhgates.reshape(-1, dhgates.shape[-1]).float()
+        dw_hh_t = (h_prev.reshape(-1, h_prev.shape[-1]).float().T @ dhg).to(dtype)
+        db_hh = dhg.sum(dim=0).to(dtype)
+        return dx_proj, dw_hh_t, db_hh, dh0
+
+
+def gru_layer_fused(params, x, h0=None):
+    """Drop-in for ``ops.rnn.gru_layer`` running the time loop through the
+    fused kernels: ``x`` (B, T, in) -> ``(outputs (B, T, H), h_T)``.  As
+    :func:`lstm_layer_fused`: time-major projection, no padding."""
+    from pytorch_distributed_rnn_tpu_torch.ops.rnn import gru_input_proj
+
+    batch = x.shape[0]
+    hidden = params["w_hh"].shape[1]
+    dtype = x.dtype
+    x_proj = gru_input_proj(params, x.transpose(0, 1))  # (T, B, 3H), b_ih only
+    if h0 is None:
+        h0 = x.new_zeros((batch, hidden), dtype=dtype)
+    h_all, h_t = FusedGRUScan.apply(
+        x_proj, params["w_hh"].T.contiguous(), params["b_hh"].contiguous(),
+        h0.to(dtype).contiguous(),
+    )
+    return h_all.transpose(0, 1), h_t

@@ -3,7 +3,8 @@
 The counterpart of ``pytorch_distributed_rnn_tpu/ops/initializers.py``:
 ``nn.LSTM``/``nn.GRU`` draw every weight and bias from U(-k, k) with
 k = 1/sqrt(hidden_size); ``nn.Linear`` draws weight and bias from
-U(-1/sqrt(fan_in), 1/sqrt(fan_in)).  The distributions match the JAX
+U(-1/sqrt(fan_in), 1/sqrt(fan_in)); the char LM's embedding is
+N(0, 1) / sqrt(embed_dim).  The distributions match the JAX
 package's; the bitstreams do not (``torch.Generator`` is not
 ``jax.random``), so parity tests copy weights instead of re-seeding.
 """
@@ -27,6 +28,15 @@ def lstm_uniform(generator: torch.Generator, shape, hidden_size: int,
                  dtype=torch.float32) -> torch.Tensor:
     """torch.nn.LSTM / nn.GRU default: U(-1/sqrt(H), 1/sqrt(H))."""
     return uniform_bound(generator, shape, 1.0 / math.sqrt(hidden_size), dtype)
+
+
+def embedding_init(generator: torch.Generator, vocab_size: int,
+                   embed_dim: int, dtype=torch.float32) -> torch.Tensor:
+    """The char LM's embedding table: N(0, 1) scaled by
+    ``embed_dim ** -0.5``, shape (vocab, embed)."""
+    table = torch.randn((vocab_size, embed_dim), generator=generator,
+                        dtype=dtype, device=generator.device)
+    return table * embed_dim ** -0.5
 
 
 def linear_init(generator: torch.Generator, in_features: int,

@@ -12,15 +12,15 @@ r, z, n), the same as the JAX package, so parameters carry over by name.
 
 from __future__ import annotations
 
-import functools
-import logging
-
 import torch
 
-from pytorch_distributed_rnn_tpu_torch.ops.fused_rnn import kernel_supports, lstm_layer_fused
+from pytorch_distributed_rnn_tpu_torch.ops.fused_rnn import (
+    gru_kernel_supports,
+    gru_layer_fused,
+    kernel_supports,
+    lstm_layer_fused,
+)
 from pytorch_distributed_rnn_tpu_torch.ops.initializers import lstm_uniform
-
-log = logging.getLogger(__name__)
 
 
 # ---------------------------------------------------------------------------
@@ -142,34 +142,29 @@ def dtype_of(precision: str):
     return torch.bfloat16 if precision == "bf16" else None
 
 
-@functools.cache
-def _note_gru_scan():
-    log.info("rnn impl auto: GRU runs the scan path (no fused GRU kernel yet)")
-
-
 def resolve_rnn_impl(impl: str, cell: str, hidden: int | None = None,
                      device=None) -> str:
     """Resolve the recurrence implementation.
 
     ``"scan"``: the Python loop over T.  ``"fused"``: the hand-written
     kernels of ``ops/fused_rnn.py`` (their plain versions on CPU tensors).
-    ``"auto"`` takes ``fused`` for an LSTM on a CUDA device at every
-    hidden size the kernels take, else ``scan``.  Explicit ``fused`` on a
-    cell or hidden size the kernels do not take raises."""
+    ``"auto"`` takes ``fused`` for an LSTM or a GRU on a CUDA device at
+    every hidden size the cell's kernels take (``kernel_supports``,
+    ``gru_kernel_supports``), else ``scan``.  Explicit ``fused`` at a
+    hidden size the kernels do not take raises."""
     if impl not in ("auto", "scan", "fused"):
         raise ValueError(f"unknown rnn impl {impl!r}")
     if cell not in ("lstm", "gru"):
         raise ValueError(f"unknown cell {cell!r}")
-    fits = hidden is None or kernel_supports(hidden)
+    supports = kernel_supports if cell == "lstm" else gru_kernel_supports
+    fits = hidden is None or supports(hidden)
     if impl == "auto":
         on_cuda = device is not None and torch.device(device).type == "cuda"
-        if cell == "gru" and on_cuda:
-            _note_gru_scan()
-        return "fused" if cell == "lstm" and on_cuda and fits else "scan"
-    if impl == "fused" and cell != "lstm":
-        raise ValueError(f"fused impl supports lstm only, got {cell!r}")
+        return "fused" if on_cuda and fits else "scan"
     if impl == "fused" and not fits:
-        raise ValueError(f"no fused LSTM kernel for hidden={hidden}; use impl='scan'")
+        raise ValueError(
+            f"no fused {cell.upper()} kernel for hidden={hidden}; use impl='scan'"
+        )
     return impl
 
 
@@ -194,7 +189,7 @@ def stacked_rnn(layers, x, cell: str = "lstm", *, dropout: float = 0.0,
     hidden = layers[0]["w_hh"].shape[1] if layers else None
     impl = resolve_rnn_impl(impl, cell, hidden, x.device)
     if cell == "gru":
-        layer_fn = gru_layer
+        layer_fn = gru_layer_fused if impl == "fused" else gru_layer
     else:
         layer_fn = lstm_layer_fused if impl == "fused" else lstm_layer
 
@@ -208,3 +203,35 @@ def stacked_rnn(layers, x, cell: str = "lstm", *, dropout: float = 0.0,
         if dropout > 0.0 and generator is not None and idx < len(layers) - 1:
             out = interlayer_dropout(out, generator, dropout)
     return out, finals
+
+
+def stacked_rnn_decode_step(layers, carries, x, cell: str = "lstm"):
+    """One autoregressive token step through a stacked RNN.
+
+    ``x`` (B, in) is the current token's embedding; ``carries`` are the
+    per-layer final states :func:`stacked_rnn` returns (LSTM ``(h, c)``
+    pairs, GRU ``h``).  Returns ``(new_carries, h_top (B, H))``.  Decode
+    runs in float32 (sampling is sensitive to logit rounding); carries
+    are cast on entry, so the finals of a reduced-precision prefill may be
+    handed over unchanged."""
+    h_in = x
+    new_carries = []
+    for layer, state in zip(layers, carries):
+        if cell == "lstm":
+            xp = lstm_input_proj(layer, h_in)
+            (h, c), h_in = lstm_step(layer["w_hh"].T, tuple(s.float() for s in state), xp)
+            new_carries.append((h, c))
+        elif cell == "gru":
+            xp = gru_input_proj(layer, h_in)
+            h, h_in = gru_step(layer["w_hh"].T, layer["b_hh"], state.float(), xp)
+            new_carries.append(h)
+        else:
+            raise ValueError(f"unknown cell {cell!r}")
+    return new_carries, h_in
+
+
+def head_logits(head, h):
+    """The LM vocab head, float32 whatever the backbone's dtype:
+    ``head`` ``{"weight" (V, H), "bias" (V,)}``, ``h`` (..., H) ->
+    (..., V)."""
+    return h.float() @ head["weight"].T + head["bias"]

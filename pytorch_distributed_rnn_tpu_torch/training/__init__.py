@@ -18,7 +18,8 @@ def add_sub_commands(sub_parser):
 
 
 def train(args, trainer_class):
-    """Load the datasets, build the model and run the trainer."""
+    """Load the family's datasets, build its model and run the trainer
+    with the family's loss mixed in."""
     logging.basicConfig(level=args.log)
     logging.getLogger().setLevel(args.log)
     from pytorch_distributed_rnn_tpu_torch.training import families
@@ -31,7 +32,8 @@ def train(args, trainer_class):
         logging.info(f"Validation set of size {len(validation_set)}")
         logging.info(f"Test set of size {len(test_set)}")
     model = families.build_model(args, training_set)
-    return _run_trainer(args, trainer_class, model, (training_set, validation_set, test_set))
+    return _run_trainer(args, families.wrap_trainer(args, trainer_class), model,
+                        (training_set, validation_set, test_set))
 
 
 def _run_trainer(args, trainer_class, model, datasets):

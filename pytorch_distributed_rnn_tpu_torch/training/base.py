@@ -40,10 +40,19 @@ from pytorch_distributed_rnn_tpu_torch.training.formatter import TrainingMessage
 from pytorch_distributed_rnn_tpu_torch.utils.profiling import measure_memory_and_time
 
 
+def _correct_count(value) -> int:
+    """Display form of the ``correct`` metric: classification counts are
+    exact integers; the LM's fractional per-sequence accuracy sums
+    (``training/lm.py``) round."""
+    return int(round(float(value)))
+
+
 class Trainer:
     """Single-device ("local") trainer.  ``model`` is an ``nn.Module``
     returning logits (e.g. ``MotionModel``); the datasets are array
-    datasets (``MotionDataset``)."""
+    datasets (``MotionDataset``).  :meth:`_loss_and_metrics` is the one
+    place that turns a batch into a loss; families with another objective
+    override it (``training/lm.py``)."""
 
     def __init__(self, model, training_set, batch_size: int,
                  learning_rate: float, validation_set=None, test_set=None,
@@ -87,6 +96,15 @@ class Trainer:
         included (the reference loader's semantics)."""
         indices = np.asarray(self.sampler.indices())
         return [indices[s:s + self.batch_size] for s in range(0, len(indices), self.batch_size)]
+
+    # -- loss ----------------------------------------------------------------
+
+    def _loss_and_metrics(self, x, y, generator=None):
+        """A batch's mean loss and its ``correct`` count (classification:
+        argmax of the logits equals the label).  ``generator`` drives
+        train-mode dropout; evaluation passes None."""
+        logits = self.model(x, generator)
+        return cross_entropy_loss(logits, y), (logits.argmax(dim=1) == y).sum()
 
     # -- loop ----------------------------------------------------------------
 
@@ -132,23 +150,21 @@ class Trainer:
         batches = self._epoch_index_batches()
         self.model.train()
         total_loss = torch.zeros((), device=self.device)
-        total_correct = torch.zeros((), device=self.device, dtype=torch.long)
+        total_correct = 0  # a device tensor of the metric's dtype after the first batch
         for batch_idx, idx in enumerate(batches):
             idx_t = torch.from_numpy(idx).to(self.device)
             x, y = features[idx_t], labels[idx_t]
-            logits = self.model(x, self.dropout_generator)
-            loss = cross_entropy_loss(logits, y)
+            loss, correct = self._loss_and_metrics(x, y, self.dropout_generator)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             self.optimizer.step()
-            correct = (logits.argmax(dim=1) == y).sum()
             total_loss += loss.detach()
-            total_correct += correct
+            total_correct = total_correct + correct.detach()
             if log_progress:
                 # needs the values now: one device round trip per batch
                 logging.debug(formatter.train_progress_message(
                     batch_idx=batch_idx, batches=len(batches),
-                    training_examples=len(idx), correct=int(correct),
+                    training_examples=len(idx), correct=_correct_count(correct),
                     loss=float(loss),
                 ))
         # parity quirk kept: sum of batch-mean losses / dataset size
@@ -167,12 +183,12 @@ class Trainer:
         _, x, y = cached
         self.model.eval()
         with torch.no_grad():
-            logits = self.model(x)
-            eval_loss = float(cross_entropy_loss(logits, y))
-            total_correct = int((logits.argmax(dim=1) == y).sum())
+            loss, correct = self._loss_and_metrics(x, y)
+            eval_loss = float(loss)
+            total_correct = float(correct)
         accuracy = total_correct / len(dataset)
         logging.info(formatter.evaluation_message(
-            accuracy, len(dataset), epoch, eval_loss, total_correct
+            accuracy, len(dataset), epoch, eval_loss, _correct_count(total_correct)
         ))
         return eval_loss, accuracy
 

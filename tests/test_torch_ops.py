@@ -205,8 +205,12 @@ def test_dtype_of_matches_jax_mapping():
         ("auto", "lstm", 32, "cuda", "fused"),
         ("auto", "lstm", 110, "cuda", "fused"),  # no TPU-style hidden <= 512 cut
         ("auto", "lstm", 1280, "cuda", "scan"),  # past the kernel's shared memory
-        ("auto", "gru", 32, "cuda", "scan"),  # GRU kernels not ported yet
+        ("auto", "gru", 32, "cuda", "fused"),  # W_hh^T in shared memory
+        ("auto", "gru", 512, "cuda", "fused"),  # W_hh^T read from L2
+        ("auto", "gru", 513, "cuda", "scan"),
+        ("auto", "gru", 512, "cpu", "scan"),
         ("fused", "lstm", 32, "cpu", "fused"),
+        ("fused", "gru", 32, "cpu", "fused"),
         ("scan", "lstm", 32, "cuda", "scan"),
     ],
 )
@@ -216,7 +220,7 @@ def test_resolve_rnn_impl(impl, cell, hidden, device, want):
 
 @pytest.mark.parametrize(
     "impl,cell,hidden",
-    [("fused", "gru", 32), ("fused", "lstm", 1280), ("bogus", "lstm", 32), ("auto", "rnn", 32)],
+    [("fused", "gru", 513), ("fused", "lstm", 1280), ("bogus", "lstm", 32), ("auto", "rnn", 32)],
 )
 def test_resolve_rnn_impl_rejects(impl, cell, hidden):
     with pytest.raises(ValueError):

@@ -234,9 +234,13 @@ def test_unported_flags_are_rejected_loudly(flags, capsys):
 
 @pytest.mark.parametrize("family", ["char", "attention", "moe"])
 def test_other_model_families_exit(cache_dir, family):
-    with pytest.raises(SystemExit, match=f"--model {family} is not ported"):
-        port_main.main(["--device", "cpu", "--dataset-path", str(cache_dir), "--model", family,
-                        "local"])
+    """attention and moe are not ported; char is, and its own argument
+    checks exit as loudly (here: a window of no tokens)."""
+    flags, match = ["--model", family], f"--model {family} is not ported"
+    if family == "char":
+        flags, match = flags + ["--seq-length", "0"], "--seq-length must be >= 1"
+    with pytest.raises(SystemExit, match=match):
+        port_main.main(["--device", "cpu", "--dataset-path", str(cache_dir), *flags, "local"])
 
 
 def test_only_local_is_a_subcommand():

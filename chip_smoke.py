@@ -6,35 +6,46 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's
    ``nvidia-smi --query-gpu=name,power.limit`` line.
-2. build: compiles every kernel of ``pytorch_distributed_rnn_tpu_torch/
+2. build: compiles every kernel source of ``pytorch_distributed_rnn_tpu_torch/
    csrc/`` with nvcc, one process per source, all at once.
 3. kernels: holds each kernel against its plain PyTorch version on the
-   card, forward and backward, at the batch sizes the main paths give
-   them (T=128, O(1) random cotangents, f32 and bf16, the tolerances of
-   ``TOLERANCES``): the LSTM kernels at H=32 (x_proj from input widths 9
-   and 32), the GRU kernels at H=32 (the same) and at H=512 (input 512).
+   card, at the shapes the main paths give them (O(1) random cotangents,
+   f32 and bf16, the tolerances of ``TOLERANCES``): the LSTM kernels at
+   H=32 (T=128, x_proj from input widths 9 and 32), the GRU kernels at
+   H=32 (the same) and at H=512 (input 512); the flash kernels at the
+   attention CLI's (B*H, T, D) shapes (train batches, and the evaluation
+   batches forward only), the long-context shape (64, 1024, 128) in bf16
+   and f32, D=8, causal with offsets, a ragged T=300, cross lengths
+   96/160 and a chunk that sees no key (o = 0, lse = -inf).
 4. main paths, each driven with the launch counts set to 0 just before it
-   and read just after, through ``main ... local`` in-process for 2
-   epochs, on synthetic data at full size:
-   a. the motion LSTM with the default flags (batch 1440, 2 x 32 LSTM, lr
-      0.0025, dropout 0.1) on 7352 train and 2947 test HAR windows;
+   and read just after, on synthetic data at full size:
+   a. ``main ... local`` for 2 epochs: the motion LSTM with the default
+      flags (batch 1440, 2 x 32 LSTM, lr 0.0025, dropout 0.1) on 7352
+      train and 2947 test HAR windows;
    b. the same with ``--cell gru``;
    c. the char LM ``--model char --cell gru --hidden-units 512
       --stacked-layer 2 --seq-length 128 --batch-size 256 --dropout 0`` on
       the synthetic motif corpus (1640 train, 204 validation, 204 test
-      windows), then greedy ``generate`` of 32 tokens from 8 test prompts.
-   Each checks finite losses, the perf line, that its kernels were
-   launched (and no others), and that the trained model's fused logits
-   agree with the plain scan path; (c) also that greedy generation gives
-   the same tokens through the kernels and the scan path, or, where not,
-   that the first differing step was a near tie.  Each kernel's launches
-   per train step come from the run's counts.
-5. step profile: more epochs of each trained model, timed on the host
-   clock, and one under ``torch.profiler`` (device time by kernel).
-6. timing: CUDA-event times of each kernel, its plain version and
-   cuDNN's LSTM or GRU (``torch.nn.LSTM`` / ``torch.nn.GRU``, timed here
-   only, never called by the port) at each main shape, beside each
-   kernel's bound; and each kernel at one batch tile (one block), its
+      windows), then greedy ``generate`` of 32 tokens from 8 test prompts;
+   d. the attention classifier ``--model attention --hidden-units 128
+      --num-heads 4 --stacked-layer 2 --batch-size 256 --dropout 0`` on the
+      HAR windows of (a);
+   e. the long-context classifier (dim 512, 4 heads, depth 2, bf16,
+      T=1024) trained 10 Adam steps at batch 16 on seeded random windows,
+      through the model and a train-step loop.
+   Each checks finite losses (a-d: and the perf line), that its kernels
+   were launched and no others, and that the trained model's kernel path
+   agrees with its plain path: fused vs scan logits (a-c; c also greedy
+   tokens, or a near tie where they differ), flash vs dense logits (d, e).
+   Each kernel's launches per train step come from the run's counts.
+5. step profile: more epochs (or steps) of each trained model, timed on
+   the host clock, and one under ``torch.profiler`` (device time by
+   kernel).
+6. timing: CUDA-event times of each kernel, its plain version and the
+   library's call (cuDNN's LSTM or GRU, ``torch.nn.LSTM``/``torch.nn.GRU``;
+   ``scaled_dot_product_attention`` forward and backward for the flash
+   kernels; timed here only, never called by the port) at each main
+   shape, beside each kernel's bound; and each kernel at one block, its
    serial floor.
 
 Prints a ``{"kernels": [...]}`` line and ends with
@@ -84,16 +95,30 @@ TOLERANCES = {  # (forward, backward)
     # by at most one bf16 ulp of the largest value (2^-7 of it)
     torch.bfloat16: (1e-2, 1e-2),
 }
-PROFILE_EPOCHS = 5
+# the attention CLI path: dim 128, 4 heads (D=32), depth 2, batch 256 on
+# the HAR windows (6528 train -> 25 batches of 256 and one of 128; 735
+# validation and 2947 test windows, evaluated forward only)
+ATTN_DIM, ATTN_HEADS, ATTN_DEPTH, ATTN_BATCH = 128, 4, 2, 256
+ATTN_FWD_BATCHES = (256, 128, 735, 2947)
+ATTN_BWD_BATCHES = (256, 128)
+# the long-context path: bench.py's attention_seq1024_dim512_flash_bf16
+LONG_DIM, LONG_HEADS, LONG_T, LONG_BATCH, LONG_STEPS = 512, 4, 1024, 16, 10
+LOGIT_TOL_BF16 = 5e-2  # flash vs dense logits in bf16: the JAX model tests' bf16 tolerance
+PROFILE_EPOCHS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 REPLACES = {
     "lstm_fwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:100",
     "lstm_bwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:166",
     "gru_fwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:375",
     "gru_bwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:422",
+    "flash_fwd": "pytorch_distributed_rnn_tpu/ops/pallas_attention.py:108",
+    "flash_dq": "pytorch_distributed_rnn_tpu/ops/pallas_attention.py:230",
+    "flash_dkv": "pytorch_distributed_rnn_tpu/ops/pallas_attention.py:266",
 }
 SOURCES = {name: f"pytorch_distributed_rnn_tpu_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCES["flash_dq"] = SOURCES["flash_dkv"] = "pytorch_distributed_rnn_tpu_torch/csrc/flash_bwd.cu"
 
 
 def phase_device():
@@ -224,6 +249,91 @@ def phase_kernels() -> dict:
     return main_errs
 
 
+def _flash_shape(bh: int, t: int, d: int, dtype) -> str:
+    return f"BH={bh} T={t} D={d} {str(dtype)[6:]}"
+
+
+def _flash_cases(dtype) -> list:
+    """(label, BH, Tq, Tk, D, causal, q_offset, k_offset, backward too)."""
+    d_cli, d_long = ATTN_DIM // ATTN_HEADS, LONG_DIM // LONG_HEADS
+    cases = [] if dtype != torch.float32 else [
+        (f"CLI B={b}", b * ATTN_HEADS, SEQ_LEN, SEQ_LEN, d_cli, False, 0, 0,
+         b in ATTN_BWD_BATCHES) for b in ATTN_FWD_BATCHES
+    ]
+    return cases + [
+        ("long context", LONG_BATCH * LONG_HEADS, LONG_T, LONG_T, d_long, False, 0, 0, True),
+        ("D=8", 1024, SEQ_LEN, SEQ_LEN, 8, False, 0, 0, True),
+        ("causal offsets 128/64", 16, SEQ_LEN, SEQ_LEN, d_cli, True, 128, 64, True),
+        ("ragged causal", 16, 300, 300, 64, True, 0, 0, True),
+        ("cross lengths", 16, 96, 160, d_cli, False, 0, 0, True),
+        ("no visible key", 8, 32, 32, d_cli, True, 0, 512, True),
+    ]
+
+
+def _flash_inputs(bh, t_q, t_k, d, dtype, seed):
+    """O(1) random q, k, v and dO (B*H, T, D) on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(t):
+        return torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype)
+
+    return rand(t_q), rand(t_k), rand(t_k), rand(t_q)
+
+
+def _check_lse(got, want, tol, label, failures):
+    """lse is float32 in both dtypes: -inf in the same places, elementwise
+    tolerance elsewhere."""
+    finite = torch.isfinite(want)
+    same = torch.equal(torch.isneginf(got), torch.isneginf(want))
+    err = _scaled_err(got[finite], want[finite]) if finite.any() else 0.0
+    ok = same and err <= tol and bool(torch.isfinite(got[finite]).all())
+    print(f"flash_fwd lse {label}: scaled_err={err:.3e} -inf rows equal={same} tol={tol:g} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"flash_fwd lse {label}")
+
+
+def phase_flash_kernels() -> dict:
+    """The flash kernels against their plain versions; returns the max abs
+    errors at the two main shapes (CLI f32, long context bf16)."""
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_attention as fa
+
+    main_errs = {}
+    failures = []
+    main_shapes = {
+        torch.float32: _flash_shape(ATTN_BATCH * ATTN_HEADS, SEQ_LEN, ATTN_DIM // ATTN_HEADS,
+                                    torch.float32),
+        torch.bfloat16: _flash_shape(LONG_BATCH * LONG_HEADS, LONG_T, LONG_DIM // LONG_HEADS,
+                                     torch.bfloat16),
+    }
+    for dtype, (tol_f, tol_b) in TOLERANCES.items():
+        for label, bh, t_q, t_k, d, causal, q_off, k_off, backward in _flash_cases(dtype):
+            kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+            full = f"{label} BH={bh} Tq={t_q} Tk={t_k} D={d}"
+            q, k, v, do = _flash_inputs(bh, t_q, t_k, d, dtype, seed=bh + t_q + d)
+            o, lse = fa.flash_fwd(q, k, v, **kw)
+            o_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+            errs = {"flash_fwd": _report("flash_fwd", dtype, full, (o,), (o_p,), tol_f, failures)}
+            _check_lse(lse, lse_p, TOLERANCES[torch.float32][0], full, failures)
+            if label == "no visible key" and not (torch.equal(o, torch.zeros_like(o))
+                                                  and bool(torch.isneginf(lse).all())):
+                failures.append(f"flash_fwd {dtype} {full}: o != 0 or lse != -inf")
+            if backward:
+                delta = (do.float() * o_p.float()).sum(dim=-1)
+                args = (q, k, v, do, lse_p, delta)
+                errs["flash_dq"] = _report("flash_dq", dtype, full, (fa.flash_dq(*args, **kw),),
+                                           (fa.flash_dq_plain(*args, **kw),), tol_b, failures)
+                errs["flash_dkv"] = _report("flash_dkv", dtype, full, fa.flash_dkv(*args, **kw),
+                                            fa.flash_dkv_plain(*args, **kw), tol_b, failures)
+            shape = _flash_shape(bh, t_q, d, dtype)
+            if shape == main_shapes[dtype] and backward:
+                main_errs.update({(name, shape): err for name, err in errs.items()})
+    torch.cuda.synchronize()
+    if failures:
+        raise RuntimeError(f"flash kernels disagree with their plain versions: {failures}")
+    return main_errs
+
+
 class _Capture(logging.Handler):
     def __init__(self):
         super().__init__(logging.INFO)
@@ -246,25 +356,40 @@ class PathRun:
     per_step: dict
 
 
+def _reset_launch_counts():
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_attention as fa
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
+
+    fr.reset_launch_counts()
+    fa.reset_launch_counts()
+
+
+def _launch_counts() -> dict:
+    """Every kernel's launches since the last reset."""
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_attention as fa
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
+
+    return {**fr.LAUNCHES, **fa.LAUNCHES}
+
+
 def _drive(workdir: Path, argv: list, after=None) -> tuple:
     """``main ... local`` in-process with the launch counts set to 0 just
     before it; ``after(trainer)`` (part of the path, e.g. generation) runs
     before the counts are read.  Returns the trainer, ``history.json`` and
     the launch counts."""
     from pytorch_distributed_rnn_tpu_torch import main as port_main
-    from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
     capture = _Capture()
     logging.getLogger().addHandler(capture)
     cwd = os.getcwd()
     os.chdir(workdir)  # main writes history.json into the working directory
     try:
-        fr.reset_launch_counts()
+        _reset_launch_counts()
         t0 = time.perf_counter()
         trainer = port_main.main(argv)
         extra = after(trainer) if after is not None else None
         torch.cuda.synchronize()
-        launches = dict(fr.LAUNCHES)
+        launches = _launch_counts()
         wall = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
@@ -393,32 +518,129 @@ def phase_char(workdir: Path) -> PathRun:
     return run
 
 
-def phase_step_profile(run: PathRun, epochs: int):
-    """More training epochs of a trained model: each timed on the host
-    clock (the steady-state step time), then one under ``torch.profiler``
-    (where the device time goes, by kernel)."""
+def _check_flash_path(name, trainer, launches, steps, eval_forwards, batch):
+    """The flash kernels launched and no others; launches per train step
+    from the counts: every train step runs each block's forward, dQ and
+    dK/dV kernel once; ``eval_forwards`` block calls ran forward only."""
+    kernels = ("flash_fwd", "flash_dq", "flash_dkv")
+    for kernel, count in launches.items():
+        if kernel in kernels and count <= 0:
+            raise RuntimeError(f"{name}: main path never launched kernel {kernel}")
+        if kernel not in kernels and count != 0:
+            raise RuntimeError(f"{name}: main path launched {kernel} {count} times")
+    train_fwd = launches["flash_fwd"] - eval_forwards
+    if not train_fwd == launches["flash_dq"] == launches["flash_dkv"]:
+        raise RuntimeError(f"{name}: train-step forwards {train_fwd}, dQ {launches['flash_dq']}, "
+                           f"dK/dV {launches['flash_dkv']}")
+    per_step = {"flash_fwd": train_fwd / steps, "flash_dq": launches["flash_dq"] / steps,
+                "flash_dkv": launches["flash_dkv"] / steps}
+    print(f"  train steps: {steps}, forward-only block calls: {eval_forwards}, "
+          f"launches per train step: {per_step}")
+    return PathRun(name, trainer, batch, kernels, launches, per_step)
+
+
+def _flash_vs_dense(model, x, tol: float, what: str):
+    """The trained model's flash logits against its dense path, eval mode."""
+    model.eval()
+    with torch.no_grad():
+        flash = model(x)
+        model.impl = "dense"
+        dense = model(x)
+        model.impl = "auto"
+    err = _scaled_err(flash, dense)
+    print(f"  trained logits flash vs dense ({what}): shape={tuple(flash.shape)} "
+          f"max_abs_err={_max_err(flash, dense):.3e} scaled_err={err:.3e} tol={tol:g}")
+    if not torch.isfinite(flash).all() or err > tol:
+        raise RuntimeError(f"{what}: trained model's flash logits disagree with the dense path")
+    return flash
+
+
+def phase_attention(workdir: Path) -> PathRun:
+    """``main --model attention ... local`` at the JAX package's chip width."""
+    print("main path: attention")
+    argv = ["--model", "attention", "--hidden-units", str(ATTN_DIM),
+            "--num-heads", str(ATTN_HEADS), "--stacked-layer", str(ATTN_DEPTH),
+            "--batch-size", str(ATTN_BATCH), "--dropout", "0",
+            "--dataset-path", str(workdir / "data"),
+            "--checkpoint-directory", str(workdir / "models-attention"),
+            "--epochs", "2", "--seed", "0", "local"]
+    trainer, history, launches, _ = _drive(workdir, argv)
+    steps = -(-len(trainer.training_set) // ATTN_BATCH) * len(history["train_history"])
+    evaluations = len(history["validation_history"]) + 1
+    run = _check_flash_path("attention", trainer, launches, steps,
+                            evaluations * len(trainer.model.blocks), ATTN_BATCH)
+    x = torch.from_numpy(trainer.test_set.features[:64]).cuda()
+    flash = _flash_vs_dense(trainer.model, x, LOGIT_TOL, "attention")
+    if flash.shape != (64, 6):
+        raise RuntimeError(f"attention: logits of shape {tuple(flash.shape)}")
+    return run
+
+
+def phase_long_context():
+    """The long-context classifier (bench.py's attention_seq1024_dim512
+    bf16 row): ``LONG_STEPS`` Adam steps through the model and a
+    train-step loop.  Returns the run and a function that trains n more
+    steps (for the profile)."""
+    from pytorch_distributed_rnn_tpu_torch.models import AttentionClassifier
+    from pytorch_distributed_rnn_tpu_torch.ops.losses import cross_entropy_loss
+
+    print("main path: long-context attention")
+    model = AttentionClassifier(input_dim=9, dim=LONG_DIM, depth=2, num_heads=LONG_HEADS,
+                                output_dim=6, max_len=LONG_T, precision="bf16",
+                                generator=torch.Generator().manual_seed(0)).cuda()
+    optimizer = torch.optim.Adam(model.parameters(), lr=1e-3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((LONG_BATCH, LONG_T, 9), generator=gen, device="cuda")
+    y = torch.randint(0, 6, (LONG_BATCH,), generator=gen, device="cuda")
+
+    def train_steps(n: int) -> list:
+        model.train()
+        losses = []
+        for _ in range(n):
+            loss = cross_entropy_loss(model(x), y)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer.step()
+            losses.append(loss.detach())
+        return [float(v) for v in losses]
+
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = train_steps(LONG_STEPS)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    print(f"  {time.perf_counter() - t0:.2f} s, losses={losses}, launches={launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"long context: losses not finite: {losses}")
+    run = _check_flash_path("long context", model, launches, LONG_STEPS, 0, LONG_BATCH)
+    flash = _flash_vs_dense(model, x, LOGIT_TOL_BF16, "long context")
+    if flash.shape != (LONG_BATCH, 6):
+        raise RuntimeError(f"long context: logits of shape {tuple(flash.shape)}")
+    return run, train_steps
+
+
+def phase_step_profile(name: str, train, steps: int, repeats: int):
+    """``train()`` runs ``steps`` more train steps of a trained model,
+    ending on a host read of the loss: each of ``repeats`` runs timed on
+    the host clock (the steady-state step time), then one under
+    ``torch.profiler`` (where the device time goes, by kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from pytorch_distributed_rnn_tpu_torch.training.formatter import TrainingMessageFormatter
-
-    trainer = run.trainer
-    formatter = TrainingMessageFormatter(1)
-    steps = -(-len(trainer.training_set) // run.batch)
     host_ms = []
-    for _ in range(epochs):
+    for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer._train_epoch(formatter)  # ends on a host read of the loss
+        train()
         host_ms.append((time.perf_counter() - t0) * 1e3 / steps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer._train_epoch(formatter)
+        train()
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     device_us = {e.key: e.self_device_time_total for e in events}
     total_us = sum(device_us.values())
-    print(f"step profile ({run.name}): {steps} steps per epoch; host clock per step over "
-          f"{epochs} epochs: {', '.join(f'{ms:.3f}' for ms in host_ms)} ms; device time "
-          f"{total_us / 1e3 / steps:.3f} ms per step (one profiled epoch)")
+    print(f"step profile ({name}): {steps} steps per run; host clock per step over "
+          f"{repeats} runs: {', '.join(f'{ms:.3f}' for ms in host_ms)} ms; device time "
+          f"{total_us / 1e3 / steps:.3f} ms per step (one profiled run)")
     for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / 1e3 / steps:8.3f} ms/step  {100 * us / max(total_us, 1):5.1f}%  {key[:90]}")
 
@@ -437,9 +659,9 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+def _bound_ms(nbytes: int, flops: int, flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    by_ops = flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -556,12 +778,130 @@ def phase_timing(runs: dict, errs: dict) -> list:
     return rows
 
 
+def _flash_bounds(bh: int, t: int, d: int, dtype) -> dict:
+    """Each flash kernel's least time, non-causal (every score counts):
+    every input read once, every output written once, and its products at
+    the card's rate for the dtype (float32 on the CUDA cores, bf16 on the
+    tensor cores).  The forward reads q, k, v and writes o and lse; dQ
+    reads q, k, v, dO, lse and delta and writes dQ; dK/dV reads the same
+    and writes dK and dV.  Each product is 2 BH T^2 D operations: the
+    forward does 2 (q k^T, p v), dQ 3 (s, dp, ds k), dK/dV 4 (s, dp, p^T
+    dO, ds^T q)."""
+    seq = bh * t * d * (2 if dtype == torch.bfloat16 else 4)
+    rows = bh * t * 4
+    product = 2 * bh * t * t * d
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    return {
+        "flash_fwd": _bound_ms(4 * seq + rows, 2 * product, rate),
+        "flash_dq": _bound_ms(5 * seq + 2 * rows, 3 * product, rate),
+        "flash_dkv": _bound_ms(6 * seq + 2 * rows, 4 * product, rate),
+    }
+
+
+def _flash_calls(bh: int, t: int, d: int, dtype, heads: int) -> dict:
+    """Each flash kernel, its plain version, the same kernel at one block
+    and ``scaled_dot_product_attention`` (forward, or its whole backward)
+    on the same inputs, as ``(kernel, plain, one block, library)``."""
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, do = _flash_inputs(bh, t, t, d, dtype, seed=11)
+    o, lse = fa.flash_fwd_plain(q, k, v)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    bwd = (q, k, v, do, lse, delta)
+    rows = fa.BLOCK_ROWS  # one query tile (fwd, dQ) or one key tile (dK/dV): one block
+
+    def first(x, n=None):
+        return x[:1, :n].contiguous()
+
+    one_q = (first(q, rows), first(k), first(v), first(do, rows), first(lse, rows),
+             first(delta, rows))
+    one_k = (first(q), first(k, rows), first(v, rows), first(do), first(lse), first(delta))
+    q4, k4, v4 = (x.reshape(bh // heads, heads, t, d).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib_fwd():
+        with torch.no_grad():
+            sdpa(q4, k4, v4)
+
+    out = sdpa(q4, k4, v4)
+    do4 = do.reshape(out.shape)
+
+    def lib_bwd():
+        torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
+
+    return {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_fwd_plain(q, k, v),
+                      lambda: fa.flash_fwd(*one_q[:3]), lib_fwd),
+        "flash_dq": (lambda: fa.flash_dq(*bwd), lambda: fa.flash_dq_plain(*bwd),
+                     lambda: fa.flash_dq(*one_q), lib_bwd),
+        "flash_dkv": (lambda: fa.flash_dkv(*bwd), lambda: fa.flash_dkv_plain(*bwd),
+                      lambda: fa.flash_dkv(*one_k), lib_bwd),
+    }
+
+
+def _glue_ms(batch: int, heads: int, t: int, d: int, dtype) -> float:
+    """The layout copies around one forward call of ``flash_attention`` in
+    the model: q, k and v from the projections' (B, T, H*D) into contiguous
+    (B*H, T, D), and o back to (B, T, H*D) (the backward copies the same
+    bytes again, transposed)."""
+    x = torch.randn((batch, t, heads * d), device="cuda").to(dtype)
+
+    def glue():
+        for _ in range(3):
+            x.reshape(batch, t, heads, d).transpose(1, 2).reshape(batch * heads, t, d)
+        x.reshape(batch, heads, t, d).transpose(1, 2).reshape(batch, t, heads * d)
+
+    return _time_ms(glue, 20)
+
+
+def phase_flash_timing(runs: dict, errs: dict) -> list:
+    """Each flash kernel at the two main shapes beside its bound, its plain
+    version and SDPA; ``serial_ms`` is the kernel at one block (one 64-row
+    tile of one head)."""
+    rows = []
+    for run, batch, dim, heads, t, dtype in (
+        (runs["attention"], ATTN_BATCH, ATTN_DIM, ATTN_HEADS, SEQ_LEN, torch.float32),
+        (runs["long"], LONG_BATCH, LONG_DIM, LONG_HEADS, LONG_T, torch.bfloat16),
+    ):
+        bh, d = batch * heads, dim // heads
+        shape = _flash_shape(bh, t, d, dtype)
+        bounds = _flash_bounds(bh, t, d, dtype)
+        for name, (kernel, plain, one_block, library) in _flash_calls(bh, t, d, dtype,
+                                                                       heads).items():
+            rows.append({
+                "name": name,
+                "route": "cuda",
+                "source": SOURCES[name],
+                "replaces": REPLACES[name],
+                "shape": shape,
+                "path": run.name,
+                "launches": run.launches[name],
+                "launches_per_step": run.per_step[name],
+                "max_abs_err": errs[(name, shape)],
+                "ms": _time_ms(kernel, 20),
+                "serial_ms": _time_ms(one_block, 20),
+                "plain_ms": _time_ms(plain, 3, warmup=1),
+                "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1],
+                "library_ms": _time_ms(library, 20),
+            })
+        print(f"timing flash at {shape}; serial_ms at one block; library_ms is "
+              "scaled_dot_product_attention forward / whole backward (dQ, dK, dV); layout "
+              f"copies around one forward call {_glue_ms(batch, heads, t, d, dtype):.4f} ms")
+    return rows
+
+
 def main() -> int:
     from pytorch_distributed_rnn_tpu_torch.data.synthetic import write_synthetic_har_cache
 
+    from pytorch_distributed_rnn_tpu_torch.training.formatter import TrainingMessageFormatter
+
+    t0 = time.perf_counter()
     phase_device()
     phase_build()
     errs = phase_kernels()
+    errs.update(phase_flash_kernels())
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         workdir = Path(tmp)
         write_synthetic_har_cache(workdir / "data", num_train=7352, num_test=2947, seed=0)
@@ -569,11 +909,18 @@ def main() -> int:
             "motion_lstm": phase_motion(workdir, "lstm"),
             "motion_gru": phase_motion(workdir, "gru"),
             "char_gru": phase_char(workdir),
+            "attention": phase_attention(workdir),
         }
-    phase_step_profile(runs["motion_lstm"], PROFILE_EPOCHS)
-    phase_step_profile(runs["motion_gru"], 3)
-    phase_step_profile(runs["char_gru"], 2)
-    rows = phase_timing(runs, errs)
+    runs["long"], long_train = phase_long_context()
+    formatter = TrainingMessageFormatter(1)
+    for key, epochs in (("motion_lstm", PROFILE_EPOCHS), ("motion_gru", 2), ("char_gru", 2),
+                        ("attention", 2)):
+        run = runs[key]
+        phase_step_profile(run.name, lambda t=run.trainer: t._train_epoch(formatter),
+                           -(-len(run.trainer.training_set) // run.batch), epochs)
+    phase_step_profile("long context", lambda: long_train(LONG_STEPS), LONG_STEPS, 2)
+    rows = phase_timing(runs, errs) + phase_flash_timing(runs, errs)
+    print(f"smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

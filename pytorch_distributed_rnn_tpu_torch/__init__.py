@@ -2,8 +2,9 @@
 
 The JAX package beside it is the reference; this package imports
 nothing of it (nor of JAX).  Its layers: ``ops`` (losses, initializers,
-the RNN scan path and the hand-written CUDA kernels of ``ops/fused_rnn.py``
-built from ``csrc/``), ``models``, ``data``, ``training`` and the
-``main`` CLI.  Entry points run on the CUDA card unless the caller passes
+the RNN scan path, dense attention, and the hand-written CUDA kernels of
+``ops/fused_rnn.py`` and ``ops/fused_attention.py`` built from ``csrc/``),
+``models`` (motion classifier, char LM, attention classifier), ``data``,
+``training`` and the ``main`` CLI.  Entry points run on the CUDA card unless the caller passes
 ``--device cpu``.
 """

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into ``lib<name>.so`` with a
 plain C interface (no PyTorch headers, so a build takes seconds), for
-Hopper only: ``-gencode arch=compute_90a,code=sm_90a``.  Libraries go to
+Hopper only: ``-gencode arch=compute_90a,code=sm_90a``; ``flash_bwd.cu``
+holds two kernels, ``flash_dq`` and ``flash_dkv``.  Libraries go to
 ``build/torch_kernels/<hash>/`` beside the package, keyed on a hash of
 every source and the flags, so an edited source rebuilds and an unchanged
 one loads from disk.  :func:`build_all` starts one ``nvcc`` per source at
@@ -22,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-KERNELS = ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd")
+KERNELS = ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -44,8 +45,8 @@ def nvcc_path() -> str:
         if path.is_file():
             return str(path)
     raise RuntimeError(
-        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the fused "
-        "RNN kernels build from csrc/ at first use"
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+        "kernels build from csrc/ at first use"
     )
 
 

@@ -1,23 +1,23 @@
 """Parameters between the JAX package and the port.
 
-The JAX package's params are nested dicts of arrays already in torch
-layout: ``MotionModel`` ``{"rnn": [{"w_ih", "w_hh", "b_ih", "b_hh"}, ...],
-"fc": {"weight", "bias"}}``, ``CharRNN`` ``{"embed", "rnn": [...],
-"head": {"weight", "bias"}}``.  The port's modules name the same tensors
-``embed``, ``rnn.<i>.<name>``, ``fc.<name>`` and ``head.<name>``.  So
-converting is naming and copying; no array is transposed.  Inputs are
-anything ``numpy.asarray`` takes (jax arrays included); outputs are numpy
-arrays or CPU tensors, and nothing here imports JAX.
+The JAX package's params are nested dicts and lists of arrays already in
+torch layout: ``MotionModel`` ``{"rnn": [{"w_ih", "w_hh", "b_ih", "b_hh"},
+...], "fc": {"weight", "bias"}}``, ``CharRNN`` ``{"embed", "rnn": [...],
+"head": {...}}``, ``AttentionClassifier`` ``{"embed": {"weight", "bias"},
+"pos", "blocks": [{"ln1": {"scale", "bias"}, "wq": {...}, ...}, ...],
+"head": {...}}``.  The port's modules name each tensor by its path in that
+tree, dict keys and list indices joined by dots (``rnn.0.w_ih``,
+``embed``, ``blocks.1.ln2.scale``).  So converting is naming and copying;
+no array is transposed, and the tree comes back in the shape JAX
+flattens.  Inputs are anything ``numpy.asarray`` takes (jax arrays
+included); outputs are numpy arrays or CPU tensors, and nothing here
+imports JAX.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-RNN_NAMES = ("w_ih", "w_hh", "b_ih", "b_hh")
-LINEAR_NAMES = ("weight", "bias")
-HEADS = ("fc", "head")  # the motion classifier's and the char LM's
 
 
 def _tensor(array) -> torch.Tensor:
@@ -31,28 +31,37 @@ def _array(tensor) -> np.ndarray:
 def jax_params_to_state_dict(params) -> dict[str, torch.Tensor]:
     """A JAX param tree -> the port model's ``state_dict()``."""
     state = {}
-    if "embed" in params:
-        state["embed"] = _tensor(params["embed"])
-    for i, layer in enumerate(params["rnn"]):
-        for name in RNN_NAMES:
-            state[f"rnn.{i}.{name}"] = _tensor(layer[name])
-    for head in HEADS:
-        if head in params:
-            for name in LINEAR_NAMES:
-                state[f"{head}.{name}"] = _tensor(params[head][name])
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key, sub in node.items():
+                walk(sub, (*path, str(key)))
+        elif isinstance(node, (list, tuple)):
+            for i, sub in enumerate(node):
+                walk(sub, (*path, str(i)))
+        else:
+            state[".".join(path)] = _tensor(node)
+
+    walk(params, ())
     return state
 
 
 def state_dict_to_jax_params(state) -> dict:
-    """The port's ``state_dict`` -> the JAX param tree, as numpy arrays."""
-    layers = sorted({int(key.split(".")[1]) for key in state if key.startswith("rnn.")})
-    params = {
-        "rnn": [{name: _array(state[f"rnn.{i}.{name}"]) for name in RNN_NAMES}
-                for i in layers],
-    }
-    if "embed" in state:
-        params["embed"] = _array(state["embed"])
-    for head in HEADS:
-        if f"{head}.weight" in state:
-            params[head] = {name: _array(state[f"{head}.{name}"]) for name in LINEAR_NAMES}
-    return params
+    """The port's ``state_dict`` -> the JAX param tree, as numpy arrays:
+    a path component of digits is a list index."""
+    tree: dict = {}
+    for name, tensor in state.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = _array(tensor)
+    return _lists(tree)
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    if node and all(key.isdigit() for key in node):
+        return [_lists(node[key]) for key in sorted(node, key=int)]
+    return {key: _lists(sub) for key, sub in node.items()}

@@ -3,7 +3,7 @@
 The flag surface of the JAX package's ``main.py``, plus ``--device
 {cuda,cpu}`` (default ``cuda``; without a card the run fails and says to
 pass ``--device cpu``).  Only ``local`` is registered as a subcommand;
-``--model`` takes ``rnn`` and ``char``.
+``--model`` takes ``rnn``, ``char`` and ``attention``.
 Flags whose machinery is not ported yet are parsed and rejected loudly
 when set to anything but their default.
 
@@ -11,6 +11,8 @@ Run:
   python -m pytorch_distributed_rnn_tpu_torch.main --dataset-path data local
   python -m pytorch_distributed_rnn_tpu_torch.main --model char --cell gru \
       --hidden-units 512 --seq-length 128 --batch-size 256 --dropout 0 local
+  python -m pytorch_distributed_rnn_tpu_torch.main --model attention \
+      --hidden-units 128 --num-heads 4 --batch-size 256 --dropout 0 local
 """
 
 from __future__ import annotations
@@ -49,8 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="recurrent cell; both run the fused kernels on the card "
                         "where they take the width (GRU up to 512, LSTM up to 110)")
     parser.add_argument("--model", default="rnn", choices=["rnn", "attention", "char", "moe"],
-                        help="model family; the port trains rnn (motion classifier) "
-                        "and char (char LM)")
+                        help="model family; the port trains rnn (motion classifier), "
+                        "char (char LM) and attention (attention classifier, "
+                        "--hidden-units wide, --stacked-layer blocks)")
     parser.add_argument("--seq-length", default=None, type=int, metavar="T",
                         help="--model char only: tokens per window (default 128)")
     parser.add_argument("--num-heads", default=4, type=int, help="--model attention only")
@@ -81,7 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--bucket-mb", default=25.0, type=float, metavar="MB",
                         help="distributed-native only; inert on local")
     parser.add_argument("--precision", default="f32", choices=["f32", "bf16"],
-                        help="bf16: bfloat16 recurrence, float32 parameters and head")
+                        help="bf16: bfloat16 recurrence or encoder blocks, float32 "
+                        "parameters and head")
     parser.add_argument("--remat", action="store_true", help=NOT_PORTED)
     parser.add_argument("--checkpoint-format", default="gathered",
                         choices=["gathered", "sharded"], help=f"sharded is {NOT_PORTED}")

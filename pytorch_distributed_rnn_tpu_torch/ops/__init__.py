@@ -1,2 +1,3 @@
-"""Numerics of the port: losses, initializers, RNN layers and the fused
-LSTM and GRU kernels."""
+"""Numerics of the port: losses, initializers, RNN layers, the fused
+LSTM and GRU kernels (``fused_rnn``), dense attention (``attention``) and
+the flash-attention kernels (``fused_attention``)."""

@@ -4,7 +4,8 @@ The counterpart of ``pytorch_distributed_rnn_tpu/ops/initializers.py``:
 ``nn.LSTM``/``nn.GRU`` draw every weight and bias from U(-k, k) with
 k = 1/sqrt(hidden_size); ``nn.Linear`` draws weight and bias from
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)); the char LM's embedding is
-N(0, 1) / sqrt(embed_dim).  The distributions match the JAX
+N(0, 1) / sqrt(embed_dim); the attention classifier's position table is
+N(0, 1) * 0.02.  The distributions match the JAX
 package's; the bitstreams do not (``torch.Generator`` is not
 ``jax.random``), so parity tests copy weights instead of re-seeding.
 """
@@ -48,3 +49,12 @@ def linear_init(generator: torch.Generator, in_features: int,
         "weight": uniform_bound(generator, (out_features, in_features), bound, dtype),
         "bias": uniform_bound(generator, (out_features,), bound, dtype),
     }
+
+
+def position_init(generator: torch.Generator, max_len: int, dim: int,
+                  dtype=torch.float32) -> torch.Tensor:
+    """The attention classifier's learned position table: N(0, 1) * 0.02,
+    shape (max_len, dim)."""
+    table = torch.randn((max_len, dim), generator=generator, dtype=dtype,
+                        device=generator.device)
+    return table * 0.02

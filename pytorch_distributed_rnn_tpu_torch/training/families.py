@@ -1,7 +1,8 @@
 """Model-family construction, the counterpart of the JAX package's
 ``training/families.py``.  The port has the ``rnn`` family (the motion
-classifier) and the ``char`` family (the char LM); ``attention`` and
-``moe`` exit loudly."""
+classifier), the ``char`` family (the char LM) and the ``attention``
+family (the attention classifier, on the HAR windows as ``rnn``); ``moe``
+exits loudly."""
 
 from __future__ import annotations
 
@@ -34,8 +35,8 @@ def load_datasets(args):
         )
     if seq_length is not None:
         raise SystemExit(
-            "--seq-length only applies to --model char (motion sequence "
-            "length is a property of the HAR data)"
+            "--seq-length only applies to --model char (motion/attention "
+            "sequence length is a property of the HAR data)"
         )
     return MotionDataset.load(
         args.dataset_path,
@@ -49,12 +50,30 @@ def build_model(args, training_set):
     """The family's model from the CLI flags, its weights drawn from a
     generator seeded with ``--seed``."""
     family = family_of(args)
-    if family not in ("rnn", "char"):
+    if family not in ("rnn", "char", "attention"):
         raise SystemExit(
             f"--model {family} is not ported yet - the PyTorch port trains "
-            "--model rnn and --model char (ROADMAP.md, port queue)"
+            "--model rnn, char and attention (ROADMAP.md, port queue)"
         )
     seed = args.seed if args.seed is not None else 0
+    if family == "attention":
+        from pytorch_distributed_rnn_tpu_torch.models import AttentionClassifier
+
+        if args.cell != "lstm":
+            raise SystemExit(
+                "--model attention does not support: --cell gru "
+                "(the encoder has no recurrent cell)"
+            )
+        return AttentionClassifier(
+            input_dim=training_set.num_features,
+            dim=args.hidden_units,
+            depth=args.stacked_layer,
+            num_heads=args.num_heads,
+            output_dim=len(MotionDataset.LABELS),
+            dropout=args.dropout or 0.0,
+            precision=args.precision,
+            generator=torch.Generator().manual_seed(seed),
+        )
     common = dict(
         layer_dim=args.stacked_layer,
         cell=args.cell,

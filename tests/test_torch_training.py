@@ -234,11 +234,14 @@ def test_unported_flags_are_rejected_loudly(flags, capsys):
 
 @pytest.mark.parametrize("family", ["char", "attention", "moe"])
 def test_other_model_families_exit(cache_dir, family):
-    """attention and moe are not ported; char is, and its own argument
-    checks exit as loudly (here: a window of no tokens)."""
+    """moe is not ported; char and attention are, and their own argument
+    checks exit as loudly (a window of no tokens; a recurrent cell for
+    the encoder, with the JAX message)."""
     flags, match = ["--model", family], f"--model {family} is not ported"
     if family == "char":
         flags, match = flags + ["--seq-length", "0"], "--seq-length must be >= 1"
+    elif family == "attention":
+        flags, match = flags + ["--cell", "gru"], "--model attention does not support: --cell gru"
     with pytest.raises(SystemExit, match=match):
         port_main.main(["--device", "cpu", "--dataset-path", str(cache_dir), *flags, "local"])
 

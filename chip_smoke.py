@@ -7,7 +7,10 @@ Phases, in order; any failure raises and the script exits nonzero:
 1. device: needs ``torch.cuda.is_available()``; prints the card's
    ``nvidia-smi --query-gpu=name,power.limit`` line.
 2. build: compiles every kernel source of ``pytorch_distributed_rnn_tpu_torch/
-   csrc/`` with nvcc, one process per source, all at once.
+   csrc/`` with nvcc, one process per source, all at once; prints each
+   kernel's registers and spills (``-Xptxas -v``) and checks in the SASS
+   (``cuobjdump``) that the bf16 ``flash_dq``/``flash_dkv`` kernels, and
+   only they, run on the tensor cores (HMMA).
 3. kernels: holds each kernel against its plain PyTorch version on the
    card, at the shapes the main paths give them (O(1) random cotangents,
    f32 and bf16, the tolerances of ``TOLERANCES``): the LSTM kernels at
@@ -15,8 +18,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    H=32 (the same) and at H=512 (input 512); the flash kernels at the
    attention CLI's (B*H, T, D) shapes (train batches, and the evaluation
    batches forward only), the long-context shape (64, 1024, 128) in bf16
-   and f32, D=8, causal with offsets, a ragged T=300, cross lengths
-   96/160 and a chunk that sees no key (o = 0, lse = -inf).
+   and f32 (also causal, where the diagonal tiles mask), D=8, D=72,
+   causal with offsets, a ragged T=300, cross lengths 96/160 and a chunk
+   that sees no key (o = 0, lse = -inf).
 4. main paths, each driven with the launch counts set to 0 just before it
    and read just after, on synthetic data at full size:
    a. ``main ... local`` for 2 epochs: the motion LSTM with the default
@@ -43,10 +47,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    kernel).
 6. timing: CUDA-event times of each kernel, its plain version and the
    library's call (cuDNN's LSTM or GRU, ``torch.nn.LSTM``/``torch.nn.GRU``;
-   ``scaled_dot_product_attention`` forward and backward for the flash
-   kernels; timed here only, never called by the port) at each main
-   shape, beside each kernel's bound; and each kernel at one block, its
-   serial floor.
+   ``scaled_dot_product_attention`` forward for ``flash_fwd``, and for
+   the backward kernels SDPA's whole backward, timed as the device time of
+   its kernels under ``torch.profiler`` so that the host's pace does not
+   count; timed here only, never called by the port) at each main shape,
+   beside each kernel's bound; and each kernel at one block, its serial
+   floor.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}`` as its last line.
@@ -135,12 +141,70 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _demangle(names: list) -> list:
+    """C++ symbol names as ``kernel<template args>``, through ``c++filt``
+    where the machine has it."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60, check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return names
+    return [line.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+            for line in out]
+
+
+def _ptxas_report(log: str) -> list:
+    """``(kernel, registers, spill store bytes, spill load bytes)`` of each
+    kernel in nvcc's ``-Xptxas -v`` output."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name, spills = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name is not None:
+            rows.append((name, int(m.group(1)), *spills))
+            name = None
+    return [(label, *rest) for label, (_, *rest) in zip(_demangle([r[0] for r in rows]), rows)]
+
+
+def _hmma_counts(lib: Path) -> dict:
+    """HMMA (tensor-core) instructions in each kernel of a built library,
+    from ``cuobjdump -sass``."""
+    from pytorch_distributed_rnn_tpu_torch import _build
+
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if m := re.match(r"\s*Function : (\S+)", line):
+            name = m.group(1)
+            counts[name] = 0
+        elif name is not None and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    return dict(zip(_demangle(list(counts)), counts.values()))
+
+
 def phase_build():
+    """Build every kernel source; print each kernel's registers and spills,
+    and check in the SASS that the bf16 flash backward kernels run on the
+    tensor cores (HMMA) and the others do not."""
     from pytorch_distributed_rnn_tpu_torch import _build
 
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    for source, log in sorted(_build.BUILD_LOGS.items()):
+        for kernel, regs, spill_st, spill_ld in _ptxas_report(log):
+            print(f"  ptxas {source}: {kernel}: {regs} registers, spill stores {spill_st} B, "
+                  f"spill loads {spill_ld} B")
+    hmma = _hmma_counts(libs["flash_bwd"])
+    print(f"  HMMA instructions in flash_bwd: {hmma}")
+    tc = {name: n for name, n in hmma.items() if "_tc_kernel" in name}
+    if len(tc) != 8 or not all(tc.values()) or any(
+            n for name, n in hmma.items() if name not in tc):
+        raise RuntimeError("the bf16 flash backward kernels are not all on the tensor cores")
 
 
 def _max_err(got, want) -> float:
@@ -267,6 +331,11 @@ def _flash_cases(dtype) -> list:
         ("ragged causal", 16, 300, 300, 64, True, 0, 0, True),
         ("cross lengths", 16, 96, 160, d_cli, False, 0, 0, True),
         ("no visible key", 8, 32, 32, d_cli, True, 0, 512, True),
+        # the diagonal tiles, where the masks come from each lane's position
+        ("long context causal", LONG_BATCH * LONG_HEADS, LONG_T, LONG_T, d_long, True, 0, 0,
+         True),
+        # a head dim of whole 16-byte chunks but not of whole 16-column k-steps
+        ("D=72", 16, SEQ_LEN, SEQ_LEN, 72, False, 0, 0, True),
     ]
 
 
@@ -326,7 +395,7 @@ def phase_flash_kernels() -> dict:
                 errs["flash_dkv"] = _report("flash_dkv", dtype, full, fa.flash_dkv(*args, **kw),
                                             fa.flash_dkv_plain(*args, **kw), tol_b, failures)
             shape = _flash_shape(bh, t_q, d, dtype)
-            if shape == main_shapes[dtype] and backward:
+            if shape == main_shapes[dtype] and backward and not causal:
                 main_errs.update({(name, shape): err for name, err in errs.items()})
     torch.cuda.synchronize()
     if failures:
@@ -659,6 +728,27 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters: int = 20) -> tuple[float, list]:
+    """``fn``'s device time per call, summed over the kernels it launches
+    under ``torch.profiler`` (``iters`` calls after two warm-up calls), and
+    those kernels' names: the host's pace between launches does not count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in events)
+    if total_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return total_us / iters / 1e3, sorted(e.key.split("(")[0].strip()[:100] for e in events)
+
+
 def _bound_ms(nbytes: int, flops: int, flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / flops_per_s * 1e3
@@ -867,8 +957,9 @@ def phase_flash_timing(runs: dict, errs: dict) -> list:
         bh, d = batch * heads, dim // heads
         shape = _flash_shape(bh, t, d, dtype)
         bounds = _flash_bounds(bh, t, d, dtype)
-        for name, (kernel, plain, one_block, library) in _flash_calls(bh, t, d, dtype,
-                                                                       heads).items():
+        calls = _flash_calls(bh, t, d, dtype, heads)
+        sdpa_bwd_ms, sdpa_bwd_kernels = _device_ms(calls["flash_dq"][3])
+        for name, (kernel, plain, one_block, library) in calls.items():
             rows.append({
                 "name": name,
                 "route": "cuda",
@@ -884,11 +975,13 @@ def phase_flash_timing(runs: dict, errs: dict) -> list:
                 "plain_ms": _time_ms(plain, 3, warmup=1),
                 "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1],
-                "library_ms": _time_ms(library, 20),
+                "library_ms": _time_ms(library, 20) if name == "flash_fwd" else sdpa_bwd_ms,
             })
         print(f"timing flash at {shape}; serial_ms at one block; library_ms is "
-              "scaled_dot_product_attention forward / whole backward (dQ, dK, dV); layout "
-              f"copies around one forward call {_glue_ms(batch, heads, t, d, dtype):.4f} ms")
+              "scaled_dot_product_attention forward (CUDA events) / whole backward (dQ, dK, dV: "
+              "the device time of its kernels per call under torch.profiler, "
+              f"{sdpa_bwd_kernels}); layout copies around one forward call "
+              f"{_glue_ms(batch, heads, t, d, dtype):.4f} ms")
     return rows
 
 

@@ -8,7 +8,9 @@ holds two kernels, ``flash_dq`` and ``flash_dkv``.  Libraries go to
 every source and the flags, so an edited source rebuilds and an unchanged
 one loads from disk.  :func:`build_all` starts one ``nvcc`` per source at
 once; :func:`load` builds on first use.  A missing ``nvcc`` or a failed
-build raises: there is no fallback.
+build raises: there is no fallback.  ``-Xptxas -v`` makes nvcc report each
+kernel's registers and spills; :data:`BUILD_LOGS` keeps that output of
+every source this process built.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 KERNELS = ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+BUILD_LOGS: dict[str, str] = {}  # nvcc's output by source, for the builds of this process
 
 
 def nvcc_path() -> str:
@@ -88,6 +91,7 @@ def build_all(names=KERNELS) -> dict[str, Path]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            BUILD_LOGS[name] = log
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return {name: library_path(name) for name in names}

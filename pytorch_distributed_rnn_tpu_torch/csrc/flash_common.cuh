@@ -2,12 +2,17 @@
 //
 // Layout: q (BH, Tq, D), k and v (BH, Tk, D), o and the gradients alike, all
 // contiguous and of one dtype (float32 or bfloat16); lse and delta are
-// (BH, Tq) float32.  Every product accumulates in float32 on the CUDA cores
-// (no TF32, no tensor cores); where the TPU kernel casts an operand to the
-// input dtype before a product (p before p.V, ds before ds.K, ...), the
-// kernels round it to that dtype (round_to) and multiply the rounded value.
+// (BH, Tq) float32.  Every product accumulates in float32.  The forward (both
+// dtypes) and the float32 backward multiply on the CUDA cores (no TF32,
+// which would miss the float32 tolerance); where the TPU kernel casts an
+// operand to the input dtype before a product (p before p.V, ds before
+// ds.K, ...), they round it to that dtype (round_to) and multiply the
+// rounded value.  The bfloat16 backward multiplies on the tensor cores
+// (flash_bwd.cu, with the building blocks of flash_mma.cuh), where that
+// cast is the rounding of the bf16 operand itself.
 //
-// Tiles: kBlockM query rows by kBlockN key rows, staged in shared memory as
+// Tiles: kBlockM query rows by kBlockN key rows (also the tensor-core
+// kernels' tiles).  The CUDA-core kernels stage them in shared memory as
 // float32 with a row stride of DP + 1, where DP is the head dim padded to
 // 16, 32, 64 or 128 (columns past D read as zero, so D = 1..128).  A block
 // has 256 threads as a 16 x 16 grid (ty, tx): in a score tile thread

@@ -164,8 +164,17 @@ def test_flash_grads_match_jax(causal, q_offset, t_k):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("causal,q_offset,k_offset", [(False, 0, 0), (True, 32, 0)])
-def test_plain_versions_match_jax_kernels(dtype, causal, q_offset, k_offset):
+@pytest.mark.parametrize(
+    "causal,q_offset,k_offset,t,d",
+    [pytest.param(False, 0, 0, 100, 16, id="False-0-0"),
+     pytest.param(True, 32, 0, 100, 16, id="True-32-0"),
+     # a head dim of whole 16-byte chunks but not of whole 16-column
+     # k-steps (the card's bf16 kernels pad it in shared memory), over two
+     # JAX blocks
+     pytest.param(False, 0, 0, 200, 72, id="False-0-0-T200-D72"),
+     pytest.param(True, 32, 0, 200, 72, id="True-32-0-T200-D72")],
+)
+def test_plain_versions_match_jax_kernels(dtype, causal, q_offset, k_offset, t, d):
     """``flash_{fwd,dq,dkv}_plain`` against the JAX kernels themselves
     (``_fwd_impl``, ``_bwd_impl``, lse and delta lane-replicated there),
     at a ragged length padded to the JAX blocks."""
@@ -173,13 +182,13 @@ def test_plain_versions_match_jax_kernels(dtype, causal, q_offset, k_offset):
 
     from pytorch_distributed_rnn_tpu.ops import pallas_attention as jpa
 
-    t, d, bh, blk = 100, 16, 3, 128
+    bh, blk = 3, 128
     rng = np.random.RandomState(11)
     q, k, v, do = (rng.randn(bh, t, d).astype(np.float32) for _ in range(4))
     tol = ATOL if dtype == "f32" else BF16_ATTN
 
     def pad(a):
-        return jnp.pad(a, ((0, 0), (0, blk - t), (0, 0)))
+        return jnp.pad(a, ((0, 0), (0, -(-t // blk) * blk - t), (0, 0)))
 
     jq, jk, jv, jdo = (pad(a) for a in _jax((q, k, v, do), dtype))
     offs = jnp.array([q_offset, k_offset], jnp.int32)
@@ -523,14 +532,16 @@ def test_cli_rejects_dim_not_divisible_by_heads(cache_dir):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 # the CLI shape (D=32), the CLI default width (D=8), the long-context
-# head (D=128), a ragged T, cross lengths, causal offsets and a chunk that
-# sees no key
+# head (D=128), a ragged T, cross lengths, causal offsets, a chunk that
+# sees no key, the long-context shape causal (the diagonal tiles) and a
+# head dim of whole 16-byte chunks but not of whole 16-column k-steps
 @pytest.mark.parametrize(
     "bh,t_q,t_k,d,causal,q_offset,k_offset",
     [(64, 128, 128, 32, False, 0, 0), (16, 128, 128, 8, False, 0, 0),
      (8, 300, 300, 128, True, 0, 0), (6, 96, 160, 32, False, 0, 0),
      (6, 64, 64, 16, True, 128, 64), (4, 32, 32, 32, True, 0, 512),
-     (5, 77, 200, 100, True, 150, 0)],
+     (5, 77, 200, 100, True, 150, 0), (64, 1024, 1024, 128, True, 0, 0),
+     (16, 128, 128, 72, False, 0, 0)],
 )
 def test_cuda_kernels_match_plain_versions(bh, t_q, t_k, d, causal, q_offset, k_offset, dtype):
     if not torch.cuda.is_available():

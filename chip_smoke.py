@@ -9,13 +9,14 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. build: compiles every kernel source of ``pytorch_distributed_rnn_tpu_torch/
    csrc/`` with nvcc, one process per source, all at once; prints each
    kernel's registers and spills (``-Xptxas -v``) and checks in the SASS
-   (``cuobjdump``) that the bf16 ``flash_dq``/``flash_dkv`` kernels, and
-   only they, run on the tensor cores (HMMA).
+   (``cuobjdump``) that the bf16 ``flash_fwd``/``flash_dq``/``flash_dkv``
+   kernels, and only they, run on the tensor cores (HMMA).
 3. kernels: holds each kernel against its plain PyTorch version on the
    card, at the shapes the main paths give them (O(1) random cotangents,
    f32 and bf16, the tolerances of ``TOLERANCES``): the LSTM kernels at
    H=32 (T=128, x_proj from input widths 9 and 32), the GRU kernels at
-   H=32 (the same) and at H=512 (input 512); the flash kernels at the
+   H=32 (the same), at H=512 (input 512) and at the backward cluster's
+   edges (H=200 and 300, B=250 at H=512); the flash kernels at the
    attention CLI's (B*H, T, D) shapes (train batches, and the evaluation
    batches forward only), the long-context shape (64, 1024, 128) in bf16
    and f32 (also causal, where the diagonal tiles mask), D=8, D=72,
@@ -51,8 +52,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    the backward kernels SDPA's whole backward, timed as the device time of
    its kernels under ``torch.profiler`` so that the host's pace does not
    count; timed here only, never called by the port) at each main shape,
-   beside each kernel's bound; and each kernel at one block, its serial
-   floor.
+   beside each kernel's bound; each kernel at one block (or one cluster),
+   its serial floor; and the GRU backward's cluster shape at H=512 (CTAs
+   and rows a cluster, clusters resident at once, waves).
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}`` as its last line.
@@ -91,6 +93,9 @@ CHAR_BATCH = 256
 CHAR_FWD_BATCHES = (256, 104, 204)
 CHAR_BWD_BATCHES = (256, 104)
 GENERATE_PROMPTS, GENERATE_PROMPT_LEN, GENERATE_TOKENS = 8, 64, 32
+# (H, B) of the GRU backward's cluster edges: widths that split unevenly
+# over the 16 CTAs, and a ragged last 4-row tile
+GRU_CLUSTER_EDGES = ((200, 64), (300, 37), (CHAR_HIDDEN, 250))
 LOGIT_TOL = 1e-4  # trained fused logits against the scan path, f32
 TOLERANCES = {  # (forward, backward)
     # the JAX kernel tests' (test_pallas_rnn.py), elementwise:
@@ -114,6 +119,9 @@ PROFILE_EPOCHS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense
+# the bf16 flash kernels, one instance per padded head dim (16, 32, 64, 128):
+# flash_fwd_tc_kernel, flash_dq_tc_kernel, flash_dkv_tc_kernel
+N_TENSOR_CORE_KERNELS = 12
 REPLACES = {
     "lstm_fwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:100",
     "lstm_bwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:166",
@@ -154,14 +162,15 @@ def _demangle(names: list) -> list:
 
 
 def _ptxas_report(log: str) -> list:
-    """``(kernel, registers, spill store bytes, spill load bytes)`` of each
-    kernel in nvcc's ``-Xptxas -v`` output."""
-    rows, name, spills = [], None, (0, 0)
+    """``(kernel, registers, stack frame bytes, spill store bytes, spill load
+    bytes)`` of each kernel in nvcc's ``-Xptxas -v`` output."""
+    rows, name, spills = [], None, (0, 0, 0)
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
-            name, spills = m.group(1), (0, 0)
-        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
-            spills = (int(m.group(1)), int(m.group(2)))
+            name, spills = m.group(1), (0, 0, 0)
+        elif m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m.group(1)), int(m.group(2)), int(m.group(3)))
         elif (m := re.search(r"Used (\d+) registers", line)) and name is not None:
             rows.append((name, int(m.group(1)), *spills))
             name = None
@@ -188,23 +197,27 @@ def _hmma_counts(lib: Path) -> dict:
 
 def phase_build():
     """Build every kernel source; print each kernel's registers and spills,
-    and check in the SASS that the bf16 flash backward kernels run on the
-    tensor cores (HMMA) and the others do not."""
+    and check in the SASS that the bf16 flash kernels run on the tensor
+    cores (HMMA) and the others (the f32 flash and all RNN kernels) do not."""
     from pytorch_distributed_rnn_tpu_torch import _build
 
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for source, log in sorted(_build.BUILD_LOGS.items()):
-        for kernel, regs, spill_st, spill_ld in _ptxas_report(log):
-            print(f"  ptxas {source}: {kernel}: {regs} registers, spill stores {spill_st} B, "
-                  f"spill loads {spill_ld} B")
-    hmma = _hmma_counts(libs["flash_bwd"])
-    print(f"  HMMA instructions in flash_bwd: {hmma}")
+        for kernel, regs, stack, spill_st, spill_ld in _ptxas_report(log):
+            print(f"  ptxas {source}: {kernel}: {regs} registers, stack frame {stack} B, "
+                  f"spill stores {spill_st} B, spill loads {spill_ld} B")
+    hmma = {}
+    for source in sorted(libs):
+        counts = _hmma_counts(libs[source])
+        print(f"  HMMA instructions in {source}: {counts}")
+        hmma.update(counts)
     tc = {name: n for name, n in hmma.items() if "_tc_kernel" in name}
-    if len(tc) != 8 or not all(tc.values()) or any(
-            n for name, n in hmma.items() if name not in tc):
-        raise RuntimeError("the bf16 flash backward kernels are not all on the tensor cores")
+    if len(tc) != N_TENSOR_CORE_KERNELS or not all(tc.values()):
+        raise RuntimeError(f"the bf16 flash kernels are not all on the tensor cores: {tc}")
+    if others := {name: n for name, n in hmma.items() if name not in tc and n}:
+        raise RuntimeError(f"kernels other than the bf16 flash kernels hold HMMA: {others}")
 
 
 def _max_err(got, want) -> float:
@@ -288,6 +301,7 @@ def phase_kernels() -> dict:
         for hidden, widths, fwd_batches, bwd_batches, main_batch in (
             (HIDDEN, (9, 32), FWD_BATCHES, BWD_BATCHES, MAIN_BATCH),
             (CHAR_HIDDEN, (CHAR_HIDDEN,), CHAR_FWD_BATCHES, CHAR_BWD_BATCHES, CHAR_BATCH),
+            *((h, (h,), (b,), (b,), None) for h, b in GRU_CLUSTER_EDGES),
         ):
             for in_width in widths:
                 for batch in fwd_batches:
@@ -835,8 +849,10 @@ def phase_timing(runs: dict, errs: dict) -> list:
         ("gru", CHAR_BATCH, CHAR_HIDDEN, runs["char_gru"]),
     ):
         tile = fr.BLOCK_B if cell == "lstm" else fr.gru_tile(hidden)[0]
+        bwd_tile = fr.BLOCK_B if cell == "lstm" else fr.gru_bwd_tile(hidden)[0]
         fwd_args, bwd_args, dh_all, gen = _timing_args(cell, batch, hidden)
-        tile_fwd, tile_bwd, _, _ = _timing_args(cell, tile, hidden)
+        tile_fwd = _timing_args(cell, tile, hidden)[0]
+        tile_bwd = _timing_args(cell, bwd_tile, hidden)[1]
         lib_fwd, lib_bwd = _library_calls(cell, batch, hidden, dh_all, gen)
         bounds = _kernel_bounds(cell, batch, hidden)
         shape = _shape(batch, hidden)
@@ -863,8 +879,16 @@ def phase_timing(runs: dict, errs: dict) -> list:
                 "bound_by": bound[1],
                 "library_ms": _time_ms(library, 20),
             })
-        print(f"timing {cell} at {shape}; serial_ms at B={tile} (one block); library_ms is "
-              f"torch.nn.{cell.upper()} (cuDNN) forward / backward incl. its input projection")
+        print(f"timing {cell} at {shape}; serial_ms at B={tile} / {bwd_tile} (one block, or one "
+              f"cluster); library_ms is torch.nn.{cell.upper()} (cuDNN) forward / backward incl. "
+              "its input projection")
+        if cell == "gru" and fr.gru_bwd_tile(hidden)[1] == "cluster":
+            cluster = fr.gru_bwd_cluster_shape(hidden, batch)
+            rows[-1]["cluster"] = cluster
+            print(f"  gru_bwd cluster: C={cluster['ctas']} CTAs x R={cluster['rows']} rows, "
+                  f"{cluster['smem_bytes']} B of shared memory a CTA, {cluster['clusters']} "
+                  f"clusters, {cluster['active_clusters']} resident at once: "
+                  f"{cluster['waves']} waves")
     return rows
 
 

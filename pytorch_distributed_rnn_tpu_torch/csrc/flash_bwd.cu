@@ -305,11 +305,7 @@ __global__ void __launch_bounds__(kThreads)
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = 32 * kTcWarps;  // a warp per 16 rows of a 64-row tile
-constexpr int kChunk = 32;                 // rows of the walked tile per pass
-constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kBlockM == 16 * kTcWarps && kBlockN == 16 * kTcWarps, "16 rows a warp");
+constexpr int kChunk = 32;  // rows of the walked tile per pass
 
 template <int DP>
 constexpr size_t tile_bytes() {
@@ -334,32 +330,6 @@ size_t dkv_tc_smem_bytes() {
 __device__ __forceinline__ float recompute_p_log2(float s_log2, float lse_log2, bool ok) {
   const float p = ok ? exp2f(s_log2 - lse_log2) : 0.0f;
   return isfinite(p) ? p : 0.0f;
-}
-
-// One head's rows [row0 + 16 warp, +16) of the float32 C tiles acc (DP / 8
-// blocks of 8 columns) into dst (n_rows, d), rounded to bf16.
-template <int DP>
-__device__ __forceinline__ void store_tc_rows(bf16* __restrict__ dst, const float (&acc)[DP / 8][4],
-                                              int row0, int n_rows, int d, int lane) {
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + g + 8 * half;
-    if (row >= n_rows) continue;
-    bf16* out = dst + (size_t)row * d;
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      if (col + 1 < d && d % 2 == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(out + col) =
-            __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
-      } else {
-        if (col < d) out[col] = __float2bfloat16(acc[j][2 * half]);
-        if (col + 1 < d) out[col + 1] = __float2bfloat16(acc[j][2 * half + 1]);
-      }
-    }
-  }
 }
 
 // dQ of one (head, 64-query tile).  Warp w owns queries q0 + 16w..+15: its
@@ -634,30 +604,6 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   cp_async_wait<0>();
   store_tc_rows<DP>(dk + k_base * d, dk_acc, k0 + 16 * warp, t_k, d, lane);
   store_tc_rows<DP>(dv + k_base * d, dv_acc, k0 + 16 * warp, t_k, d, lane);
-}
-
-// The tensor-core kernels: the shared memory they need as their maximum
-// and all of it as the SM's carveout (two blocks an SM), then the launch
-// and cudaGetLastError(); returns the CUDA error code (0 = launched).
-template <typename Kernel, typename... Args>
-int launch_tc(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-  }
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kTcThreads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-// whether every row of the four (., d) bf16 inputs starts 16-byte aligned
-// (cp.async), else the kernels stage them with element loads
-bool rows_aligned(int d, const void* q, const void* k, const void* v, const void* d_o) {
-  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(d_o);
-  return d % 8 == 0 && any % 16 == 0;
 }
 
 // ---------------------------------------------------------------------------

@@ -2,14 +2,14 @@
 //
 // Layout: q (BH, Tq, D), k and v (BH, Tk, D), o and the gradients alike, all
 // contiguous and of one dtype (float32 or bfloat16); lse and delta are
-// (BH, Tq) float32.  Every product accumulates in float32.  The forward (both
-// dtypes) and the float32 backward multiply on the CUDA cores (no TF32,
-// which would miss the float32 tolerance); where the TPU kernel casts an
-// operand to the input dtype before a product (p before p.V, ds before
-// ds.K, ...), they round it to that dtype (round_to) and multiply the
-// rounded value.  The bfloat16 backward multiplies on the tensor cores
-// (flash_bwd.cu, with the building blocks of flash_mma.cuh), where that
-// cast is the rounding of the bf16 operand itself.
+// (BH, Tq) float32.  Every product accumulates in float32.  The float32
+// kernels multiply on the CUDA cores (no TF32, which would miss the float32
+// tolerance); where the TPU kernel casts an operand to the input dtype
+// before a product (p before p.V, ds before ds.K, ...), they round it to
+// that dtype (round_to) and multiply the rounded value.  The bfloat16
+// kernels multiply on the tensor cores (flash_fwd.cu, flash_bwd.cu, with
+// the building blocks of flash_mma.cuh), where that cast is the rounding of
+// the bf16 operand itself.
 //
 // Tiles: kBlockM query rows by kBlockN key rows (also the tensor-core
 // kernels' tiles).  The CUDA-core kernels stage them in shared memory as

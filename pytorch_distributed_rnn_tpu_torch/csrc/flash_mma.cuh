@@ -1,6 +1,7 @@
-// Tensor-core building blocks of the bf16 flash kernels (sm_90a): inline
-// PTX for mma.sync, ldmatrix and cp.async, and the swizzled shared-memory
-// tile layout they read.
+// Tensor-core building blocks of the bf16 flash kernels (sm_90a), shared by
+// flash_fwd.cu and flash_bwd.cu: inline PTX for mma.sync, ldmatrix and
+// cp.async, the swizzled shared-memory tile layout they read, the C-tile
+// store and the launch.
 //
 // Products are mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: A is a
 // 16 x 16 bf16 tile (4 registers of 2 values), B a 16 x 8 one (2
@@ -25,7 +26,15 @@
 
 #include <cstdint>
 
+#include "flash_common.cuh"
+
 namespace flash {
+
+// The tensor-core kernels' blocks: a warp per 16 rows of a 64-row tile.
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kBlockM == 16 * kTcWarps && kBlockN == 16 * kTcWarps, "16 rows a warp");
 
 template <int DP>
 struct Swizzle {
@@ -98,11 +107,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The A operands of a product over 32 columns from the C tiles of the 8-column blocks
-// 0..3 of a 16 x 32 float32 result: a[h] covers columns 16h..16h+15.
-__device__ __forceinline__ void c_to_a(const float (&c)[4][4], uint32_t (&a)[2][4]) {
+// The A operands of a product over 16 N columns from the C tiles of the
+// 8-column blocks 0..2N-1 of a 16 x 16N float32 result: a[h] covers columns
+// 16h..16h+15.
+template <int N>
+__device__ __forceinline__ void c_to_a(const float (&c)[2 * N][4], uint32_t (&a)[N][4]) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < N; ++h) {
     a[h][0] = pack_bf16(c[2 * h][0], c[2 * h][1]);
     a[h][1] = pack_bf16(c[2 * h][2], c[2 * h][3]);
     a[h][2] = pack_bf16(c[2 * h + 1][0], c[2 * h + 1][1]);
@@ -163,6 +174,57 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* tile, const __nv_bfloat
         (row < n_rows && col < d) ? src[(size_t)row * d + col] : __float2bfloat16(0.0f);
     *reinterpret_cast<__nv_bfloat16*>(bytes + S::offset(r, col / 8) + (col % 8) * 2) = v;
   }
+}
+
+// One head's rows [row0 + 16 warp, +16) of the float32 C tiles acc (DP / 8
+// blocks of 8 columns) into dst (n_rows, d), rounded to bf16.
+template <int DP>
+__device__ __forceinline__ void store_tc_rows(__nv_bfloat16* __restrict__ dst,
+                                              const float (&acc)[DP / 8][4], int row0,
+                                              int n_rows, int d, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + g + 8 * half;
+    if (row >= n_rows) continue;
+    __nv_bfloat16* out = dst + (size_t)row * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col + 1 < d && d % 2 == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(out + col) =
+            __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
+      } else {
+        if (col < d) out[col] = __float2bfloat16(acc[j][2 * half]);
+        if (col + 1 < d) out[col + 1] = __float2bfloat16(acc[j][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// The tensor-core kernels: the shared memory they need as their maximum
+// and all of it as the SM's carveout (two blocks an SM), then the launch
+// and cudaGetLastError(); returns the CUDA error code (0 = launched).
+template <typename Kernel, typename... Args>
+int launch_tc(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kTcThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// whether every row of the (., d) bf16 inputs starts 16-byte aligned
+// (cp.async), else the kernels stage them with element loads
+inline bool rows_aligned(int d, const void* q, const void* k, const void* v, const void* d_o) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(d_o);
+  return d % 8 == 0 && any % 16 == 0;
 }
 
 }  // namespace flash

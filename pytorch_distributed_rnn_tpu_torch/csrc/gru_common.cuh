@@ -7,12 +7,14 @@
 // contiguous and of one dtype (float32 or bfloat16); the recurrence itself
 // always runs in float32.
 //
-// Thread mapping: a block owns block_b batch rows for the whole sequence.
-// Its threads form block_b / kRowsPerThread row groups of unit_threads
-// threads each; a thread computes all three gates of units j0,
-// j0 + unit_threads, ... for kRowsPerThread rows, so the gate update needs
-// no exchange between threads.  unit_threads = min(H, 512 / row_groups),
-// so one thread owns one unit up to that width and several beyond it.
+// Thread mapping of the forward and of the backward's shared-memory
+// variant (the backward's cluster variant has its own, in gru_bwd.cu): a
+// block owns block_b batch rows for the whole sequence.  Its threads form
+// block_b / kRowsPerThread row groups of unit_threads threads each; a
+// thread computes all three gates of units j0, j0 + unit_threads, ... for
+// kRowsPerThread rows, so the gate update needs no exchange between
+// threads.  unit_threads = min(H, 512 / row_groups), so one thread owns one
+// unit up to that width and several beyond it.
 #pragma once
 
 #include "lstm_common.cuh"  // dtype codes, to_f32/from_f32, sigmoid, stage_rows
@@ -68,16 +70,16 @@ __device__ __forceinline__ float load_ro(const __nv_bfloat16* p) {
 }
 
 // Where a block reads W_hh.  kSmemW: from the float32 copy staged in
-// shared memory (W_hh^T fits one block up to H = 126).  Otherwise from
-// device memory in the input dtype, every step: W_hh^T for the gate
-// products (coalesced across units j) and W_hh (3H, H) for the backward's
-// contraction (coalesced across units m); at H = 512 the 3 MiB (f32) or
-// 1.5 MiB (bf16) stay resident in the 50 MB L2 after the first step.
+// shared memory (W_hh^T fits one block up to H = 126).  Otherwise (the
+// forward above H = 126) W_hh^T from device memory in the input dtype,
+// every step, coalesced across units j; at H = 512 the 3 MiB (f32) or
+// 1.5 MiB (bf16) stay resident in the 50 MB L2 after the first step.  The
+// backward above H = 126 splits W_hh^T over a thread-block cluster instead
+// (gru_bwd.cu).
 template <typename T, bool kSmemW>
 struct GruWeights {
   const float* smem;          // (H, 3H + 1) float32, kSmemW only
   const T* w_t;               // W_hh^T (H, 3H)
-  const T* w;                 // W_hh (3H, H), backward without kSmemW only
   int hidden;
 
   // W_hh^T[m][col], read with col = k * H + j across threads j
@@ -89,22 +91,17 @@ struct GruWeights {
     }
   }
 
-  // W_hh^T[m][n], read with m across threads
+  // W_hh^T[m][n] from the shared copy, read with m across threads
   __device__ __forceinline__ float contract(int m, int n) const {
-    if constexpr (kSmemW) {
-      return smem[m * gru_w_stride(hidden) + n];
-    } else {
-      return load_ro(w + (size_t)n * hidden + m);
-    }
+    return smem[m * gru_w_stride(hidden) + n];
   }
 };
 
 // From device memory a step is bound by the W loads a thread keeps in
-// flight, not by L2 bandwidth: so the loops below load the W values of
-// several m (or n) into registers before any of their FMAs.  From shared
-// memory they read one at a time.
-constexpr int kGatePrefetch = 8;        // m per batch: 24 loads
-constexpr int kContractPrefetch = 24;   // n per batch: 24 loads
+// flight, not by L2 bandwidth: so the gate products load the W values of
+// several m into registers before any of their FMAs.  From shared memory
+// they read one at a time.
+constexpr int kGatePrefetch = 8;  // m per batch: 24 loads
 
 __device__ __forceinline__ void fma_gates(float (&acc)[kRowsPerThread][3],
                                           const float* h_prev, int r0,
@@ -150,29 +147,15 @@ __device__ __forceinline__ void gate_products(
 }
 
 // acc[r] += sum_n d_hg[r0 + r][n] * W_hh^T[m][n]: the backward's
-// contraction of the gate cotangents into dh_{t-1} of unit m.
-template <typename T, bool kSmemW>
+// contraction of the gate cotangents into dh_{t-1} of unit m, from the
+// shared copy of W.
+template <typename T>
 __device__ __forceinline__ void contract_gates(
-    const GruWeights<T, kSmemW>& w, const float* d_hg, int r0, int m,
+    const GruWeights<T, true>& w, const float* d_hg, int r0, int m,
     float (&acc)[kRowsPerThread]) {
   const int gate_dim = 3 * w.hidden;
-  int n = 0;
-  if constexpr (!kSmemW) {
-    for (; n + kContractPrefetch <= gate_dim; n += kContractPrefetch) {
-      float wv[kContractPrefetch];
-#pragma unroll
-      for (int u = 0; u < kContractPrefetch; ++u) wv[u] = w.contract(m, n + u);
-#pragma unroll
-      for (int u = 0; u < kContractPrefetch; ++u) {
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-          acc[r] = fmaf(d_hg[(r0 + r) * gate_dim + n + u], wv[u], acc[r]);
-        }
-      }
-    }
-  }
 #pragma unroll 4
-  for (; n < gate_dim; ++n) {
+  for (int n = 0; n < gate_dim; ++n) {
     const float wv = w.contract(m, n);
 #pragma unroll
     for (int r = 0; r < kRowsPerThread; ++r) {

@@ -54,7 +54,7 @@ __global__ void __launch_bounds__(kMaxThreads) gru_fwd_kernel(const T* __restric
   if constexpr (kSmemW) stage_gru_weights(w_hh_t, w_s, hidden);
   stage_rows(h0, h_buf, row0, batch, hidden, block_b);
   __syncthreads();
-  const GruWeights<T, kSmemW> w{w_s, w_hh_t, nullptr, hidden};
+  const GruWeights<T, kSmemW> w{w_s, w_hh_t, hidden};
 
   for (int t = 0; t < seq_len; ++t) {
     const float* h_prev = h_buf + (t & 1) * tile;

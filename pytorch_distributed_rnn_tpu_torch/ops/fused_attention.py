@@ -16,15 +16,13 @@ any T and a head dim D of 1 to 128; ``lse`` and ``delta`` are ``(B*H, Tq)``
 float32.  ``scale = D ** -0.5`` multiplies the float32 product, and each
 operand the TPU kernel casts to the input dtype before a product (p before
 p.V, ds before ds.K, p for dV, ds for dK) is rounded to it.  Every product
-sums in float32.  The dtype picks the backward kernels: bfloat16 runs
-``flash_dq``/``flash_dkv`` on the tensor cores (``mma.sync``, with p and ds
-kept in registers between products), float32 on the CUDA cores (TF32 would
-miss the float32 tolerance); the forward runs on the CUDA cores in both
-dtypes.  Causal
-masking works on the runtime global positions ``q_offset``/``k_offset`` of
-the first query and key, and a query that sees no key gives ``o = 0`` and
-``lse = -inf``.  ``delta = rowsum(dO * O)`` is plain torch, as
-``_delta_of`` is XLA outside the TPU kernels.
+sums in float32.  The dtype picks the kernels: bfloat16 runs all three on
+the tensor cores (``mma.sync``, with p and ds kept in registers between
+products), float32 on the CUDA cores (TF32 would miss the float32
+tolerance).  Causal masking works on the runtime global positions
+``q_offset``/``k_offset`` of the first query and key, and a query that sees
+no key gives ``o = 0`` and ``lse = -inf``.  ``delta = rowsum(dO * O)`` is
+plain torch, as ``_delta_of`` is XLA outside the TPU kernels.
 
 Each wrapper takes the kernel's plain PyTorch version (``*_plain``) only
 for CPU tensors; on CUDA tensors it launches the kernel or raises.

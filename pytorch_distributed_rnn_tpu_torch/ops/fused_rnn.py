@@ -17,9 +17,13 @@ kernels carry the serial part of every LSTM and GRU layer on the card:
   hidden-side gate cotangents ``dhgates`` and ``dh0``.
 
 The LSTM kernels keep W_hh^T resident in shared memory (up to H=110); the
-GRU kernels do so up to H=126 and beyond that read it from device memory
-(L2) every step, up to H=512 (``gru_kernel_supports``).  All loop over T
-inside one block per batch tile.  The input projection, ``dW_hh`` and
+GRU kernels do so up to H=126 (``gru_tile``, ``gru_bwd_tile``).  Beyond
+that, up to H=512 (``gru_kernel_supports``), the GRU forward reads W_hh^T
+from device memory (L2) every step, and the GRU backward splits it over a
+cluster of ``GRU_CLUSTER_CTAS`` blocks, each holding the columns of its own
+units in shared memory and exchanging partial contractions through
+distributed shared memory.  All loop over T inside one block, or one
+cluster, per batch tile.  The input projection, ``dW_hh`` and
 ``db_hh`` stay plain matrix products and sums (``torch.matmul``), as the
 JAX package leaves them to XLA.
 
@@ -48,12 +52,17 @@ BLOCK_B = 16  # batch rows per block: 1440 rows -> 90 blocks on the card's 132 S
 # (256 rows -> 64 blocks)
 GRU_L2_BLOCK_B = 4
 GRU_MAX_HIDDEN = 512
+# the GRU backward's cluster variant: CTAs a cluster and batch rows a
+# cluster (kClusterCtas, kClusterRows in csrc/gru_bwd.cu)
+GRU_CLUSTER_CTAS = 16
+GRU_CLUSTER_ROWS = 4
+_GRU_BWD_VARIANTS = {"smem": 0, "cluster": 1}  # the variant codes of csrc/gru_bwd.cu
 _ROWS_PER_THREAD = 4  # kRowsPerThread in csrc/lstm_common.cuh
 _MAX_THREADS = 1024
 _MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may use
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (pointer arguments, int arguments) of each kernel's C entry point
-_SIGNATURES = {"lstm_fwd": (6, 5), "lstm_bwd": (12, 5), "gru_fwd": (5, 6), "gru_bwd": (11, 6)}
+_SIGNATURES = {"lstm_fwd": (6, 5), "lstm_bwd": (12, 5), "gru_fwd": (5, 6), "gru_bwd": (10, 6)}
 
 
 def reset_launch_counts():
@@ -77,10 +86,12 @@ def kernel_supports(hidden: int) -> bool:
 
 def gru_kernel_supports(hidden: int) -> bool:
     """Whether both GRU kernels take this hidden size: 1 <= H <= 512, in
-    float32 and bfloat16.  Up to H=126 W_hh^T is staged in shared memory;
-    above it the kernels read W from device memory and need only the
-    per-tile state there, so the range ends where a 4-row tile's thread
-    count and state stay small (512 threads, 40 KiB at H=512)."""
+    float32 and bfloat16.  Up to H=126 W_hh^T is staged in one block's
+    shared memory.  Above it the forward reads W from device memory (a
+    4-row tile's thread count and state stay small: 512 threads, 40 KiB at
+    H=512), and the backward spreads W_hh^T over a 16-CTA cluster, each CTA
+    holding an (H, 3 ceil(H/16)) float32 slice: 194 KiB at H=512, which is
+    where the range ends."""
     return 1 <= hidden <= GRU_MAX_HIDDEN
 
 
@@ -91,10 +102,20 @@ def _gru_w_in_smem(hidden: int) -> bool:
 
 
 def gru_tile(hidden: int) -> tuple[int, bool]:
-    """The GRU kernels' ``(block_b, W in shared memory)`` at this width."""
+    """The GRU forward's ``(block_b, W in shared memory)`` at this width."""
     if _gru_w_in_smem(hidden):
         return BLOCK_B, True
     return GRU_L2_BLOCK_B, False
+
+
+def gru_bwd_tile(hidden: int) -> tuple[int, str]:
+    """The GRU backward's ``(batch rows a tile, variant)`` at this width:
+    ``"smem"`` (one block, W_hh^T in its shared memory) up to H=126, else
+    ``"cluster"`` (a cluster of ``GRU_CLUSTER_CTAS`` blocks on
+    ``GRU_CLUSTER_ROWS`` rows)."""
+    if _gru_w_in_smem(hidden):
+        return BLOCK_B, "smem"
+    return GRU_CLUSTER_ROWS, "cluster"
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +358,8 @@ def gru_fwd(x_proj, h0, w_hh_t, b_hh):
 def gru_bwd(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T):
     """Reverse sweep: ``dx_proj``, ``dhgates`` (T, B, 3H) and ``dh0``
     (B, H).  CPU tensors take :func:`gru_bwd_plain`; CUDA tensors launch
-    ``csrc/gru_bwd.cu``."""
+    ``csrc/gru_bwd.cu`` in the variant :func:`gru_bwd_tile` names, or
+    raise."""
     if x_proj.device.type == "cpu":
         return gru_bwd_plain(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T)
     if x_proj.device.type != "cuda":
@@ -350,11 +372,7 @@ def gru_bwd(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T):
         "gru_bwd", [h_all, h0, w_hh_t, b_hh, dh_all, dh_T, x_proj],
         [seq, state, (hidden, gate_dim), (gate_dim,), seq, state, (seq_len, batch, gate_dim)],
     )
-    block_b, w_smem = gru_tile(hidden)
-    # without the shared-memory copy, the contraction over the 3H gates
-    # reads W_hh (3H, H) itself, where neighbouring threads read
-    # neighbouring words; the kernel ignores this pointer otherwise
-    w_hh = w_hh_t if w_smem else w_hh_t.T.contiguous()
+    block_b, variant = gru_bwd_tile(hidden)
     dx_proj = torch.empty_like(x_proj)
     dhgates = torch.empty_like(x_proj)
     dh0 = torch.empty_like(h0)
@@ -362,12 +380,35 @@ def gru_bwd(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T):
         _launch(
             "gru_bwd", _library("gru_bwd"),
             x_proj.data_ptr(), h_all.data_ptr(), h0.data_ptr(), w_hh_t.data_ptr(),
-            w_hh.data_ptr(), b_hh.data_ptr(), dh_all.data_ptr(), dh_T.data_ptr(),
+            b_hh.data_ptr(), dh_all.data_ptr(), dh_T.data_ptr(),
             dx_proj.data_ptr(), dhgates.data_ptr(), dh0.data_ptr(),
-            seq_len, batch, hidden, block_b, int(w_smem), _DTYPE_CODES[x_proj.dtype],
+            seq_len, batch, hidden, block_b, _GRU_BWD_VARIANTS[variant],
+            _DTYPE_CODES[x_proj.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     return dx_proj, dhgates, dh0
+
+
+def gru_bwd_cluster_shape(hidden: int, batch: int, dtype=torch.float32) -> dict:
+    """How the GRU backward's cluster variant runs at this width and batch
+    on the current card: CTAs and batch rows a cluster, the clusters
+    resident at once (``cudaOccupancyMaxActiveClusters``), the dynamic
+    shared memory a CTA and the waves of clusters; raises where not even
+    one cluster fits."""
+    from pytorch_distributed_rnn_tpu_torch import _build
+
+    fn = _build.load("gru_bwd").gru_bwd_cluster_shape
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(hidden, batch, _DTYPE_CODES[dtype], out)
+    if err != 0:
+        raise RuntimeError(f"gru_bwd cluster variant at H={hidden}: CUDA error {err}")
+    ctas, rows, active, smem = out
+    clusters = -(-batch // rows)
+    return {"ctas": ctas, "rows": rows, "active_clusters": active, "smem_bytes": smem,
+            "clusters": clusters, "waves": -(-clusters // active)}
 
 
 # ---------------------------------------------------------------------------

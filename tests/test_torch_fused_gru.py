@@ -309,6 +309,16 @@ def test_gru_tile(hidden, tile):
     assert fr.gru_tile(hidden) == tile
 
 
+# the backward's dispatch rule: one block with all of W_hh^T in its shared
+# memory up to H=126, a 16-CTA cluster on 4-row tiles above it
+@pytest.mark.parametrize(
+    "hidden,tile", [(1, (16, "smem")), (32, (16, "smem")), (126, (16, "smem")),
+                    (127, (4, "cluster")), (300, (4, "cluster")), (512, (4, "cluster"))],
+)
+def test_gru_bwd_tile(hidden, tile):
+    assert fr.gru_bwd_tile(hidden) == tile
+
+
 @pytest.mark.parametrize(
     "bad,exc",
     [("dtype", TypeError), ("shape", ValueError), ("layout", ValueError), ("hidden", ValueError)],
@@ -356,10 +366,13 @@ def test_wrappers_reject_devices_other_than_cpu_and_cuda(kernel):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 # the main paths' shapes, and the edges of the two W paths: H=126 is the
 # widest shared-memory tile (504 threads), H=127 the narrowest read from
-# device memory (ragged prefetch batches), H=1 the narrowest of all
+# device memory in the forward and over a cluster in the backward (ragged
+# prefetch batches, a ragged last CTA), H=1 the narrowest of all; H=200 and
+# 300 split unevenly over the cluster's 16 CTAs, B=250 leaves a ragged tile
 @pytest.mark.parametrize(
     "hidden,batch",
-    [(32, 1440), (32, 735), (512, 256), (512, 204), (1, 5), (126, 37), (127, 37)],
+    [(32, 1440), (32, 735), (512, 256), (512, 204), (1, 5), (126, 37), (127, 37),
+     (200, 64), (300, 37), (512, 250)],
 )
 def test_cuda_kernels_match_plain_versions(hidden, batch, dtype):
     if not torch.cuda.is_available():

@@ -8,15 +8,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``nvidia-smi --query-gpu=name,power.limit`` line.
 2. build: compiles every kernel source of ``pytorch_distributed_rnn_tpu_torch/
    csrc/`` with nvcc, one process per source, all at once; prints each
-   kernel's registers and spills (``-Xptxas -v``) and checks in the SASS
-   (``cuobjdump``) that the bf16 ``flash_fwd``/``flash_dq``/``flash_dkv``
-   kernels, and only they, run on the tensor cores (HMMA).
+   kernel's registers and spills (``-Xptxas -v``), checks that the GRU
+   forward's cluster kernel and the LSTM forward kernel have no stack frame
+   and no spills, and checks in the SASS (``cuobjdump``) that the bf16
+   ``flash_fwd``/``flash_dq``/``flash_dkv`` kernels, and only they, run on
+   the tensor cores (HMMA).
 3. kernels: holds each kernel against its plain PyTorch version on the
    card, at the shapes the main paths give them (O(1) random cotangents,
    f32 and bf16, the tolerances of ``TOLERANCES``): the LSTM kernels at
-   H=32 (T=128, x_proj from input widths 9 and 32), the GRU kernels at
-   H=32 (the same), at H=512 (input 512) and at the backward cluster's
-   edges (H=200 and 300, B=250 at H=512); the flash kernels at the
+   H=32 (T=128, x_proj from input widths 9 and 32) and at the forward's
+   edges (B=37, H=110), the GRU kernels at H=32 (the same), at H=512
+   (input 512) and at the cluster kernels' edges (H=127, 200 and 300, B=250
+   and 37 at H=512); the flash kernels at the
    attention CLI's (B*H, T, D) shapes (train batches, and the evaluation
    batches forward only), the long-context shape (64, 1024, 128) in bf16
    and f32 (also causal, where the diagonal tiles mask), D=8, D=72,
@@ -53,8 +56,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    its kernels under ``torch.profiler`` so that the host's pace does not
    count; timed here only, never called by the port) at each main shape,
    beside each kernel's bound; each kernel at one block (or one cluster),
-   its serial floor; and the GRU backward's cluster shape at H=512 (CTAs
-   and rows a cluster, clusters resident at once, waves).
+   its serial floor; the LSTM forward at 4, 8, 12 and 16 rows a block; and
+   the GRU kernels' cluster shapes at H=512 (CTAs and rows a cluster,
+   clusters resident at once, waves).
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}`` as its last line.
@@ -93,9 +97,19 @@ CHAR_BATCH = 256
 CHAR_FWD_BATCHES = (256, 104, 204)
 CHAR_BWD_BATCHES = (256, 104)
 GENERATE_PROMPTS, GENERATE_PROMPT_LEN, GENERATE_TOKENS = 8, 64, 32
-# (H, B) of the GRU backward's cluster edges: widths that split unevenly
-# over the 16 CTAs, and a ragged last 4-row tile
-GRU_CLUSTER_EDGES = ((200, 64), (300, 37), (CHAR_HIDDEN, 250))
+# (H, B) of the GRU cluster kernels' edges: the narrowest width over a
+# cluster, widths that split unevenly over the 16 CTAs, and ragged last
+# tiles of the forward's 8 rows and the backward's 4
+GRU_CLUSTER_EDGES = ((127, 37), (200, 64), (300, 37), (CHAR_HIDDEN, 250), (CHAR_HIDDEN, 37))
+# (H, B) of the LSTM forward's edges beside the motion shapes: a ragged
+# last 4-row tile, and the widest width the kernels take (W_hh^T in shared
+# memory, a ragged warp), also with a ragged tile
+LSTM_EDGES = ((HIDDEN, 37), (110, 64), (110, 37))
+# the LSTM forward's rows a block, timed at the motion shape to choose
+# LSTM_FWD_BLOCK_B
+LSTM_FWD_TILES = (4, 8, 12, 16)
+# the kernels whose ptxas report must show no stack frame and no spills
+NO_STACK_KERNELS = ("gru_fwd_cluster_kernel", "lstm_fwd_kernel")
 LOGIT_TOL = 1e-4  # trained fused logits against the scan path, f32
 TOLERANCES = {  # (forward, backward)
     # the JAX kernel tests' (test_pallas_rnn.py), elementwise:
@@ -204,10 +218,17 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    checked = []
     for source, log in sorted(_build.BUILD_LOGS.items()):
         for kernel, regs, stack, spill_st, spill_ld in _ptxas_report(log):
             print(f"  ptxas {source}: {kernel}: {regs} registers, stack frame {stack} B, "
                   f"spill stores {spill_st} B, spill loads {spill_ld} B")
+            if any(name in kernel for name in NO_STACK_KERNELS):
+                checked.append(kernel)
+                if stack or spill_st or spill_ld:
+                    raise RuntimeError(f"{kernel}: a stack frame or spills in the ptxas report")
+    if len(checked) < 2 * len(NO_STACK_KERNELS):  # an f32 and a bf16 instance each, at least
+        raise RuntimeError(f"ptxas reported {checked}, not every instance of {NO_STACK_KERNELS}")
     hmma = {}
     for source in sorted(libs):
         counts = _hmma_counts(libs[source])
@@ -298,6 +319,19 @@ def phase_kernels() -> dict:
                 if dtype == torch.float32 and batch == MAIN_BATCH and in_width == HIDDEN:
                     main_errs[("lstm_fwd", _shape(batch, HIDDEN))] = err
                     main_errs[("lstm_bwd", _shape(batch, HIDDEN))] = errb
+        for hidden, batch in LSTM_EDGES:
+            label = f"B={batch} H={hidden} in={hidden}"
+            x_proj, h0, c0, w, gen = _layer_inputs(batch, hidden, dtype, seed=batch + hidden,
+                                                   hidden=hidden)
+            h_p, c_p = fr.lstm_fwd_plain(x_proj, h0, c0, w)
+            _report("lstm_fwd", dtype, label, fr.lstm_fwd(x_proj, h0, c0, w), (h_p, c_p), tol_f,
+                    failures)
+            dh_all = torch.randn(h_p.shape, generator=gen, device="cuda").to(dtype)
+            dh_t = torch.randn(h0.shape, generator=gen, device="cuda").to(dtype)
+            dc_t = torch.randn(h0.shape, generator=gen, device="cuda").to(dtype)
+            args = (x_proj, h_p, c_p, h0, c0, w, dh_all, dh_t, dc_t)
+            _report("lstm_bwd", dtype, label, fr.lstm_bwd(*args), fr.lstm_bwd_plain(*args), tol_b,
+                    failures)
         for hidden, widths, fwd_batches, bwd_batches, main_batch in (
             (HIDDEN, (9, 32), FWD_BATCHES, BWD_BATCHES, MAIN_BATCH),
             (CHAR_HIDDEN, (CHAR_HIDDEN,), CHAR_FWD_BATCHES, CHAR_BWD_BATCHES, CHAR_BATCH),
@@ -836,10 +870,43 @@ def _library_calls(cell: str, batch: int, hidden: int, dh_all, gen):
     return fwd, bwd
 
 
+def _lstm_fwd_tiles(args) -> dict:
+    """``lstm_fwd`` at the motion shape with each of ``LSTM_FWD_TILES`` rows
+    a block, through its C entry (uncounted: not a main-path launch)."""
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
+
+    x_proj, h0, c0, w = args
+    seq_len, batch, gate_dim = x_proj.shape
+    h_all = torch.empty((seq_len, batch, gate_dim // 4), device="cuda")
+    c_all = torch.empty_like(h_all)
+    fn = fr._library("lstm_fwd")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(rows):
+        err = fn(x_proj.data_ptr(), h0.data_ptr(), c0.data_ptr(), w.data_ptr(), h_all.data_ptr(),
+                 c_all.data_ptr(), seq_len, batch, gate_dim // 4, rows,
+                 fr._DTYPE_CODES[torch.float32], stream)
+        if err != 0:
+            raise RuntimeError(f"lstm_fwd at {rows} rows a block: CUDA error {err}")
+
+    return {rows: _time_ms(lambda r=rows: call(r), 20) for rows in LSTM_FWD_TILES}
+
+
+def _print_cluster(name: str, hidden: int, batch: int) -> dict:
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
+
+    cluster = fr.gru_cluster_shape(name, hidden, batch)
+    print(f"  {name} cluster: C={cluster['ctas']} CTAs x R={cluster['rows']} rows, "
+          f"{cluster['smem_bytes']} B of shared memory a CTA, {cluster['clusters']} "
+          f"clusters, {cluster['active_clusters']} resident at once: "
+          f"{cluster['waves']} waves")
+    return cluster
+
+
 def phase_timing(runs: dict, errs: dict) -> list:
     """Each kernel at each main shape beside its bound, its plain version
-    and cuDNN; ``serial_ms`` is the kernel at one batch tile (one block),
-    where only its chain of T dependent steps is left."""
+    and cuDNN; ``serial_ms`` is the kernel at one batch tile (one block, or
+    one cluster), where only its chain of T dependent steps is left."""
     from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
     rows = []
@@ -848,7 +915,7 @@ def phase_timing(runs: dict, errs: dict) -> list:
         ("gru", MAIN_BATCH, HIDDEN, runs["motion_gru"]),
         ("gru", CHAR_BATCH, CHAR_HIDDEN, runs["char_gru"]),
     ):
-        tile = fr.BLOCK_B if cell == "lstm" else fr.gru_tile(hidden)[0]
+        tile = fr.lstm_fwd_tile(hidden) if cell == "lstm" else fr.gru_tile(hidden)[0]
         bwd_tile = fr.BLOCK_B if cell == "lstm" else fr.gru_bwd_tile(hidden)[0]
         fwd_args, bwd_args, dh_all, gen = _timing_args(cell, batch, hidden)
         tile_fwd = _timing_args(cell, tile, hidden)[0]
@@ -882,13 +949,16 @@ def phase_timing(runs: dict, errs: dict) -> list:
         print(f"timing {cell} at {shape}; serial_ms at B={tile} / {bwd_tile} (one block, or one "
               f"cluster); library_ms is torch.nn.{cell.upper()} (cuDNN) forward / backward incl. "
               "its input projection")
+        if cell == "lstm":
+            tiles = _lstm_fwd_tiles(fwd_args)
+            print("  lstm_fwd by rows a block (ms): "
+                  + ", ".join(f"{r}: {ms:.4f}" for r, ms in tiles.items())
+                  + f"; the wrapper takes {fr.lstm_fwd_tile(hidden)}")
+            rows[-2]["ms_by_rows_a_block"] = tiles
+        if cell == "gru" and fr.gru_tile(hidden)[1] == "cluster":
+            rows[-2]["cluster"] = _print_cluster("gru_fwd", hidden, batch)
         if cell == "gru" and fr.gru_bwd_tile(hidden)[1] == "cluster":
-            cluster = fr.gru_bwd_cluster_shape(hidden, batch)
-            rows[-1]["cluster"] = cluster
-            print(f"  gru_bwd cluster: C={cluster['ctas']} CTAs x R={cluster['rows']} rows, "
-                  f"{cluster['smem_bytes']} B of shared memory a CTA, {cluster['clusters']} "
-                  f"clusters, {cluster['active_clusters']} resident at once: "
-                  f"{cluster['waves']} waves")
+            rows[-1]["cluster"] = _print_cluster("gru_bwd", hidden, batch)
     return rows
 
 

@@ -83,7 +83,7 @@ using namespace pdrnn;
 size_t bwd_smem_bytes(int hidden, int block_b) {
   // W, h_{t-1} (block_b, H), d_hgates (block_b, 3H), dh (block_b, H)
   return sizeof(float) *
-         (gru_w_smem_floats(hidden, true) + 5 * (size_t)block_b * hidden);
+         (gru_w_smem_floats(hidden) + 5 * (size_t)block_b * hidden);
 }
 
 // The shared-memory variant: one block, block_b rows, all of W_hh^T.
@@ -110,7 +110,7 @@ __global__ void __launch_bounds__(kMaxThreads) gru_bwd_kernel(
   stage_gru_weights(w_hh_t, w_s, hidden);
   // read first after the first barrier below
   stage_rows(dh_T, dh_s, row0, batch, hidden, block_b);
-  const GruWeights<T, true> w{w_s, w_hh_t, hidden};
+  const GruWeights w{w_s, hidden};
 
   for (int t = seq_len - 1; t >= 0; --t) {
     // h_{t-1} (h0 at t == 0): the gate recompute and dz read it
@@ -197,11 +197,8 @@ __global__ void __launch_bounds__(kMaxThreads) gru_bwd_kernel(
 // the cluster variant
 // ---------------------------------------------------------------------------
 
-// Mirrored by ops/fused_rnn.py:GRU_CLUSTER_CTAS, GRU_CLUSTER_ROWS.
-constexpr int kClusterCtas = 16;     // a non-portable cluster size (> 8)
+// Mirrored by ops/fused_rnn.py:GRU_CLUSTER_ROWS.
 constexpr int kClusterRows = 4;      // R; a row quad travels as one float4
-constexpr int kClusterThreads = 512;
-constexpr int kClusterMaxHidden = 512;
 // the thread's share of an (R, H) tile of h
 constexpr int kHLoads = kClusterRows * kClusterMaxHidden / kClusterThreads;
 // lanes that split one column quad's gate products over m
@@ -210,15 +207,6 @@ static_assert(kClusterRows == 4, "rows travel as float4");
 static_assert(kClusterThreads / kClusterCtas >=
                   (kClusterMaxHidden + kClusterCtas - 1) / kClusterCtas,
               "the gather's lane groups cover a CTA's units");
-
-// The two halves of cluster.sync(), so that work can run between them.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
 
 // a += v * w, per component
 __device__ __forceinline__ void fma4(float4& a, const float4& v, float w) {
@@ -237,32 +225,6 @@ __device__ __forceinline__ float4 shfl_xor4(const float4& v, int mask) {
 
 __device__ __forceinline__ float component(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// One halving exchange of reduce_scatter: lanes with BIT set keep values
-// HALF .. 2 HALF - 1, the others 0 .. HALF - 1, each adding its partner's.
-template <int N, int HALF, int BIT>
-__device__ __forceinline__ void halve(float (&v)[N], int lane) {
-  const bool upper = lane & BIT;
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float keep = upper ? v[i + HALF] : v[i];
-    const float give = upper ? v[i] : v[i + HALF];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, give, BIT);
-  }
-}
-
-// Sums the N values a lane holds over the L lanes of its group (lane
-// bits below L, a power of two), by halving exchanges: afterwards the
-// lane's v[0 .. N/L) hold the sums of values lane * N/L .. (lane + 1) *
-// N/L - 1.  Every index is a constant, so v stays in registers.
-template <int N, int L, int HALF = N / 2>
-__device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
-  static_assert(N % L == 0, "N values over L lanes");
-  if constexpr (L > 1) {
-    halve<N, HALF, L / 2>(v, lane);
-    reduce_scatter<N, L / 2, HALF / 2>(v, lane);
-  }
 }
 
 struct ClusterShape {
@@ -524,36 +486,14 @@ __global__ void __launch_bounds__(kClusterThreads, 1) gru_bwd_cluster_kernel(
   cluster.sync();  // no CTA leaves while a peer reads its partials
 }
 
-// The cluster kernel's launch configuration at (hidden, batch): its
-// attributes set, and the clusters that can be resident at once in
-// *active; returns the CUDA error code, cudaErrorLaunchOutOfResources when
-// not even one cluster fits.
+// The cluster kernel's launch configuration at (hidden, batch): see
+// cluster_launch_config (gru_common.cuh).
 template <typename T>
 int cluster_config(int hidden, int batch, cudaStream_t stream, cudaLaunchConfig_t& cfg,
                    cudaLaunchAttribute& attr, int* active) {
-  const size_t smem = cluster_smem_bytes(hidden);
-  auto* kernel = gru_bwd_cluster_kernel<T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (batch + kClusterRows - 1) / kClusterRows;
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(tiles * kClusterCtas);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kClusterCtas;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  err = cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
-  if (err != cudaSuccess) return (int)err;
-  return *active < 1 ? (int)cudaErrorLaunchOutOfResources : 0;
+  return cluster_launch_config(gru_bwd_cluster_kernel<T>, cluster_smem_bytes(hidden),
+                               (batch + kClusterRows - 1) / kClusterRows, stream, cfg, attr,
+                               active);
 }
 
 template <typename T>

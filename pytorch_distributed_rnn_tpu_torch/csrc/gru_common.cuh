@@ -7,9 +7,9 @@
 // contiguous and of one dtype (float32 or bfloat16); the recurrence itself
 // always runs in float32.
 //
-// Thread mapping of the forward and of the backward's shared-memory
-// variant (the backward's cluster variant has its own, in gru_bwd.cu): a
-// block owns block_b batch rows for the whole sequence.  Its threads form
+// Thread mapping of the two kernels' shared-memory variants (up to
+// H = 126; the cluster variants have their own, in gru_fwd.cu and
+// gru_bwd.cu): a block owns block_b batch rows for the whole sequence.  Its threads form
 // block_b / kRowsPerThread row groups of unit_threads threads each; a
 // thread computes all three gates of units j0, j0 + unit_threads, ... for
 // kRowsPerThread rows, so the gate update needs no exchange between
@@ -22,8 +22,7 @@
 namespace pdrnn {
 
 // Threads of a block, and the kernels' __launch_bounds__: 512 threads
-// leave each up to 128 registers (a 1024-thread block would leave 64, and
-// the backward, prefetching 24 W values, needs more).
+// leave each up to 128 registers (a 1024-thread block would leave 64).
 constexpr int kMaxThreads = 512;
 
 __host__ __device__ inline int gru_row_groups(int block_b) {
@@ -45,8 +44,8 @@ __host__ inline int gru_threads(int hidden, int block_b) {
 // 3H + 1, odd), so neither access pattern has bank conflicts.
 __host__ __device__ inline int gru_w_stride(int hidden) { return 3 * hidden + 1; }
 
-__host__ inline size_t gru_w_smem_floats(int hidden, bool smem_w) {
-  return smem_w ? (size_t)hidden * gru_w_stride(hidden) : 0;
+__host__ inline size_t gru_w_smem_floats(int hidden) {
+  return (size_t)hidden * gru_w_stride(hidden);
 }
 
 template <typename T>
@@ -60,48 +59,23 @@ __device__ void stage_gru_weights(const T* __restrict__ w_hh_t, float* w,
   }
 }
 
-// A read-only load through the non-coherent path; the bf16 one loads the
-// raw 16 bits and widens them, exactly as __bfloat162float does.
-__device__ __forceinline__ float load_ro(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_ro(const __nv_bfloat16* p) {
-  const unsigned short bits =
-      __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<unsigned int>(bits) << 16);
-}
-
-// Where a block reads W_hh.  kSmemW: from the float32 copy staged in
-// shared memory (W_hh^T fits one block up to H = 126).  Otherwise (the
-// forward above H = 126) W_hh^T from device memory in the input dtype,
-// every step, coalesced across units j; at H = 512 the 3 MiB (f32) or
-// 1.5 MiB (bf16) stay resident in the 50 MB L2 after the first step.  The
-// backward above H = 126 splits W_hh^T over a thread-block cluster instead
-// (gru_bwd.cu).
-template <typename T, bool kSmemW>
+// W_hh^T where a block holds all of it (up to H = 126): the float32 copy
+// staged in shared memory.  Above that width both kernels split W_hh^T
+// over a thread-block cluster instead (gru_fwd.cu, gru_bwd.cu).
 struct GruWeights {
-  const float* smem;          // (H, 3H + 1) float32, kSmemW only
-  const T* w_t;               // W_hh^T (H, 3H)
+  const float* smem;  // (H, 3H + 1) float32
   int hidden;
 
   // W_hh^T[m][col], read with col = k * H + j across threads j
   __device__ __forceinline__ float gate(int m, int col) const {
-    if constexpr (kSmemW) {
-      return smem[m * gru_w_stride(hidden) + col];
-    } else {
-      return load_ro(w_t + (size_t)m * 3 * hidden + col);
-    }
+    return smem[m * gru_w_stride(hidden) + col];
   }
 
-  // W_hh^T[m][n] from the shared copy, read with m across threads
+  // W_hh^T[m][n], read with m across threads
   __device__ __forceinline__ float contract(int m, int n) const {
     return smem[m * gru_w_stride(hidden) + n];
   }
 };
-
-// From device memory a step is bound by the W loads a thread keeps in
-// flight, not by L2 bandwidth: so the gate products load the W values of
-// several m into registers before any of their FMAs.  From shared memory
-// they read one at a time.
-constexpr int kGatePrefetch = 8;  // m per batch: 24 loads
 
 __device__ __forceinline__ void fma_gates(float (&acc)[kRowsPerThread][3],
                                           const float* h_prev, int r0,
@@ -118,29 +92,13 @@ __device__ __forceinline__ void fma_gates(float (&acc)[kRowsPerThread][3],
 
 // acc[r][k] += sum_m h_prev[r0 + r][m] * W_hh^T[m][k * H + j]: the
 // hidden-side products of unit j's three gates for the thread's rows.
-template <typename T, bool kSmemW>
-__device__ __forceinline__ void gate_products(
-    const GruWeights<T, kSmemW>& w, const float* h_prev, int r0, int j,
-    float (&acc)[kRowsPerThread][3]) {
+__device__ __forceinline__ void gate_products(const GruWeights& w,
+                                              const float* h_prev, int r0,
+                                              int j,
+                                              float (&acc)[kRowsPerThread][3]) {
   const int hidden = w.hidden;
-  int m = 0;
-  if constexpr (!kSmemW) {
-    for (; m + kGatePrefetch <= hidden; m += kGatePrefetch) {
-      float wv[kGatePrefetch][3];
-#pragma unroll
-      for (int u = 0; u < kGatePrefetch; ++u) {
-        wv[u][0] = w.gate(m + u, j);
-        wv[u][1] = w.gate(m + u, hidden + j);
-        wv[u][2] = w.gate(m + u, 2 * hidden + j);
-      }
-#pragma unroll
-      for (int u = 0; u < kGatePrefetch; ++u) {
-        fma_gates(acc, h_prev, r0, hidden, m + u, wv[u][0], wv[u][1], wv[u][2]);
-      }
-    }
-  }
 #pragma unroll 4
-  for (; m < hidden; ++m) {
+  for (int m = 0; m < hidden; ++m) {
     fma_gates(acc, h_prev, r0, hidden, m, w.gate(m, j), w.gate(m, hidden + j),
               w.gate(m, 2 * hidden + j));
   }
@@ -149,9 +107,8 @@ __device__ __forceinline__ void gate_products(
 // acc[r] += sum_n d_hg[r0 + r][n] * W_hh^T[m][n]: the backward's
 // contraction of the gate cotangents into dh_{t-1} of unit m, from the
 // shared copy of W.
-template <typename T>
 __device__ __forceinline__ void contract_gates(
-    const GruWeights<T, true>& w, const float* d_hg, int r0, int m,
+    const GruWeights& w, const float* d_hg, int r0, int m,
     float (&acc)[kRowsPerThread]) {
   const int gate_dim = 3 * w.hidden;
 #pragma unroll 4
@@ -162,6 +119,58 @@ __device__ __forceinline__ void contract_gates(
       acc[r] = fmaf(d_hg[(r0 + r) * gate_dim + n], wv, acc[r]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Above H = 126 both kernels split W_hh^T over a thread-block cluster: CTA c
+// of kClusterCtas owns the units [c U, (c + 1) U), U = ceil(H / 16), and
+// keeps the 3U columns of W_hh^T of its units' r, z and n gates in shared
+// memory (gru_fwd.cu:gru_fwd_cluster_kernel, gru_bwd.cu:
+// gru_bwd_cluster_kernel).
+// ---------------------------------------------------------------------------
+
+// Mirrored by ops/fused_rnn.py:GRU_CLUSTER_CTAS.
+constexpr int kClusterCtas = 16;     // a non-portable cluster size (> 8)
+constexpr int kClusterThreads = 512;
+constexpr int kClusterMaxHidden = 512;
+
+// The two halves of cluster.sync(), so that work can run between them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The launch configuration of a cluster kernel of kClusterCtas CTAs a
+// cluster, kClusterThreads threads and smem bytes a CTA, over tiles
+// clusters: its attributes set, and the clusters that can be resident at
+// once in *active; returns the CUDA error code,
+// cudaErrorLaunchOutOfResources when not even one cluster fits.
+template <typename Kernel>
+int cluster_launch_config(Kernel kernel, size_t smem, int tiles, cudaStream_t stream,
+                          cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int* active) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  if (err != cudaSuccess) return (int)err;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(tiles * kClusterCtas);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kClusterCtas;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  return *active < 1 ? (int)cudaErrorLaunchOutOfResources : 0;
 }
 
 }  // namespace pdrnn

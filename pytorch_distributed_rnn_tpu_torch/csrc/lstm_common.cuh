@@ -69,4 +69,30 @@ __device__ void stage_rows(const T* __restrict__ src, float* dst, int row0,
   }
 }
 
+// One halving exchange of reduce_scatter: lanes with BIT set keep values
+// HALF .. 2 HALF - 1, the others 0 .. HALF - 1, each adding its partner's.
+template <int N, int HALF, int BIT>
+__device__ __forceinline__ void halve(float (&v)[N], int lane) {
+  const bool upper = lane & BIT;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float keep = upper ? v[i + HALF] : v[i];
+    const float give = upper ? v[i] : v[i + HALF];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, give, BIT);
+  }
+}
+
+// Sums the N values a lane holds over the L lanes of its group (lane
+// bits below L, a power of two), by halving exchanges: afterwards the
+// lane's v[0 .. N/L) hold the sums of values lane * N/L .. (lane + 1) *
+// N/L - 1.  Every index is a constant, so v stays in registers.
+template <int N, int L, int HALF = N / 2>
+__device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
+  static_assert(N % L == 0, "N values over L lanes");
+  if constexpr (L > 1) {
+    halve<N, HALF, L / 2>(v, lane);
+    reduce_scatter<N, L / 2, HALF / 2>(v, lane);
+  }
+}
+
 }  // namespace pdrnn

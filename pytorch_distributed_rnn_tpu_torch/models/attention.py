@@ -4,7 +4,8 @@ The counterpart of ``pytorch_distributed_rnn_tpu/models/attention.py``: a
 pre-norm Transformer encoder over (B, T, features) windows, mean pooled
 into class logits.  Every block's attention is the dense
 ``ops.attention.mha_attention`` or the flash kernels of
-``ops.fused_attention`` (``impl``; ``auto`` takes ``flash`` on the card).
+``ops.fused_attention`` (``impl``; ``auto`` takes ``flash`` on the card at a head dim of at
+most 128, ``dense`` above it).
 Parameter names follow the JAX tree (``embed.{weight,bias}``, ``pos``,
 ``blocks.<i>.{ln1,ln2}.{scale,bias}``,
 ``blocks.<i>.{wq,wk,wv,wo,fc1,fc2}.{weight,bias}``, ``head.{weight,bias}``),
@@ -122,6 +123,7 @@ class AttentionClassifier(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.dropout = dropout
         self.impl = impl
         self.precision = precision
@@ -141,7 +143,8 @@ class AttentionClassifier(nn.Module):
         train_dropout = self.training and self.dropout > 0.0
         if train_dropout and generator is None:
             raise ValueError("train-mode dropout needs a torch.Generator")
-        if attention is None and resolve_attention_impl(self.impl, x.device) == "flash":
+        if (attention is None
+                and resolve_attention_impl(self.impl, x.device, self.head_dim) == "flash"):
             attention = flash_attention
         dtype = dtype_of(self.precision) or torch.float32
         h = (_linear(self.embed, x) + self.pos[: x.shape[1]]).to(dtype)

@@ -54,15 +54,19 @@ def reset_launch_counts():
         LAUNCHES[name] = 0
 
 
-def resolve_attention_impl(impl: str, device=None) -> str:
-    """``auto`` -> ``flash`` on a CUDA device, ``dense`` elsewhere (the
-    plain flash versions on the CPU are right but slower than the dense
-    path); ``dense`` and ``flash`` stand as given."""
+def resolve_attention_impl(impl: str, device=None, head_dim: int | None = None) -> str:
+    """``auto`` -> ``flash`` on a CUDA device at a head dim the kernels
+    take (up to ``MAX_HEAD_DIM``; None: not known, taken as fitting),
+    ``dense`` elsewhere (the plain flash versions on the CPU are right but
+    slower than the dense path); ``dense`` and ``flash`` stand as given,
+    so an explicit ``flash`` above ``MAX_HEAD_DIM`` on the card raises in
+    the kernels' check."""
     if impl not in ("auto", "dense", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if impl == "auto":
         on_cuda = device is not None and torch.device(device).type == "cuda"
-        return "flash" if on_cuda else "dense"
+        fits = head_dim is None or head_dim <= MAX_HEAD_DIM
+        return "flash" if on_cuda and fits else "dense"
     return impl
 
 

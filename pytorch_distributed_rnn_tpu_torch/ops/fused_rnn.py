@@ -16,14 +16,15 @@ kernels carry the serial part of every LSTM and GRU layer on the card:
   _gru_bwd_kernel``: the reverse sweep that emits ``dx_proj``, the
   hidden-side gate cotangents ``dhgates`` and ``dh0``.
 
-The LSTM kernels keep W_hh^T resident in shared memory (up to H=110); the
-GRU kernels do so up to H=126 (``gru_tile``, ``gru_bwd_tile``).  Beyond
-that, up to H=512 (``gru_kernel_supports``), the GRU forward reads W_hh^T
-from device memory (L2) every step, and the GRU backward splits it over a
-cluster of ``GRU_CLUSTER_CTAS`` blocks, each holding the columns of its own
-units in shared memory and exchanging partial contractions through
-distributed shared memory.  All loop over T inside one block, or one
-cluster, per batch tile.  The input projection, ``dW_hh`` and
+The LSTM kernels take H up to 110: the forward holds each thread's share
+of W_hh^T in registers up to H=32 and reads it from shared memory above
+(``lstm_fwd_tile``), the backward keeps W_hh^T in shared memory.  The GRU
+kernels keep W_hh^T in one block's shared memory up to H=126 (``gru_tile``,
+``gru_bwd_tile``).  Beyond that, up to H=512 (``gru_kernel_supports``),
+both split it over a cluster of ``GRU_CLUSTER_CTAS`` blocks, each holding
+the columns of its own units in shared memory: the forward exchanges h_t
+through distributed shared memory, the backward partial contractions.  All
+loop over T inside one block, or one cluster, per batch tile.  The input projection, ``dW_hh`` and
 ``db_hh`` stay plain matrix products and sums (``torch.matmul``), as the
 JAX package leaves them to XLA.
 
@@ -47,16 +48,20 @@ import torch
 LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0, "gru_fwd": 0, "gru_bwd": 0}
 
 BLOCK_B = 16  # batch rows per block: 1440 rows -> 90 blocks on the card's 132 SMs
-# GRU tile where W_hh^T is read from device memory: every block reads all
-# of W from L2 each step, so more, smaller tiles pull from L2 in parallel
-# (256 rows -> 64 blocks)
-GRU_L2_BLOCK_B = 4
+# the LSTM forward's batch rows a block up to H=32, where W_hh^T sits in
+# registers: 1440 rows -> 360 blocks of 128 threads, about 3 an SM
+LSTM_FWD_BLOCK_B = 4
+LSTM_FWD_REG_HIDDEN = 32  # kRegHidden in csrc/lstm_fwd.cu
+_LSTM_FWD_MAX_THREADS = 512  # kFwdMaxThreads in csrc/lstm_fwd.cu
 GRU_MAX_HIDDEN = 512
-# the GRU backward's cluster variant: CTAs a cluster and batch rows a
-# cluster (kClusterCtas, kClusterRows in csrc/gru_bwd.cu)
+# the GRU cluster variants: CTAs a cluster (kClusterCtas in
+# csrc/gru_common.cuh) and batch rows a cluster of the forward and of the
+# backward (kFwdClusterRows in csrc/gru_fwd.cu, kClusterRows in
+# csrc/gru_bwd.cu)
 GRU_CLUSTER_CTAS = 16
+GRU_FWD_CLUSTER_ROWS = 8
 GRU_CLUSTER_ROWS = 4
-_GRU_BWD_VARIANTS = {"smem": 0, "cluster": 1}  # the variant codes of csrc/gru_bwd.cu
+_GRU_VARIANTS = {"smem": 0, "cluster": 1}  # the variant codes of csrc/gru_{fwd,bwd}.cu
 _ROWS_PER_THREAD = 4  # kRowsPerThread in csrc/lstm_common.cuh
 _MAX_THREADS = 1024
 _MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may use
@@ -71,11 +76,12 @@ def reset_launch_counts():
 
 
 def kernel_supports(hidden: int) -> bool:
-    """Whether both kernels take this hidden size: a block of
-    ``hidden * BLOCK_B / 4`` threads fits 1024, and W_hh^T (row stride
-    4H + 1) plus the backward's per-tile state, the larger of the two
-    kernels' (csrc/lstm_bwd.cu:bwd_smem_bytes), fit one block's shared
-    memory: up to H=110."""
+    """Whether both LSTM kernels take this hidden size: the backward's
+    block of ``hidden * BLOCK_B / 4`` threads fits 1024, and W_hh^T (row
+    stride 4H + 1) plus the backward's per-tile state, the larger of the
+    two kernels' (csrc/lstm_bwd.cu:bwd_smem_bytes), fit one block's shared
+    memory: up to H=110.  The forward takes every such width
+    (:func:`lstm_fwd_tile`)."""
     smem = 4 * (hidden * (4 * hidden + 1) + 5 * BLOCK_B * hidden)
     return (
         hidden >= 1
@@ -84,14 +90,24 @@ def kernel_supports(hidden: int) -> bool:
     )
 
 
+def lstm_fwd_tile(hidden: int) -> int:
+    """The LSTM forward's batch rows a block at this width (a multiple of
+    4, one row per lane of a 4-lane group; ``hidden * rows`` threads):
+    ``LSTM_FWD_BLOCK_B`` up to H=32, where each thread's share of W_hh^T
+    sits in its registers and small blocks share an SM; above it, where
+    W_hh^T sits in shared memory, as many rows as 512 threads take, at
+    most 16."""
+    if hidden <= LSTM_FWD_REG_HIDDEN:
+        return LSTM_FWD_BLOCK_B
+    return min(BLOCK_B, 4 * (_LSTM_FWD_MAX_THREADS // (4 * hidden)))
+
+
 def gru_kernel_supports(hidden: int) -> bool:
     """Whether both GRU kernels take this hidden size: 1 <= H <= 512, in
     float32 and bfloat16.  Up to H=126 W_hh^T is staged in one block's
-    shared memory.  Above it the forward reads W from device memory (a
-    4-row tile's thread count and state stay small: 512 threads, 40 KiB at
-    H=512), and the backward spreads W_hh^T over a 16-CTA cluster, each CTA
-    holding an (H, 3 ceil(H/16)) float32 slice: 194 KiB at H=512, which is
-    where the range ends."""
+    shared memory.  Above it both kernels spread W_hh^T over a 16-CTA
+    cluster, each CTA holding an (H, 3 ceil(H/16)) float32 slice: 200 KiB
+    at H=512, which is where the range ends."""
     return 1 <= hidden <= GRU_MAX_HIDDEN
 
 
@@ -101,11 +117,14 @@ def _gru_w_in_smem(hidden: int) -> bool:
     return 4 * (hidden * (3 * hidden + 1) + 5 * BLOCK_B * hidden) <= _MAX_SMEM_BYTES
 
 
-def gru_tile(hidden: int) -> tuple[int, bool]:
-    """The GRU forward's ``(block_b, W in shared memory)`` at this width."""
+def gru_tile(hidden: int) -> tuple[int, str]:
+    """The GRU forward's ``(batch rows a tile, variant)`` at this width:
+    ``"smem"`` (one block, W_hh^T in its shared memory) up to H=126, else
+    ``"cluster"`` (a cluster of ``GRU_CLUSTER_CTAS`` blocks on
+    ``GRU_FWD_CLUSTER_ROWS`` rows)."""
     if _gru_w_in_smem(hidden):
-        return BLOCK_B, True
-    return GRU_L2_BLOCK_B, False
+        return BLOCK_B, "smem"
+    return GRU_FWD_CLUSTER_ROWS, "cluster"
 
 
 def gru_bwd_tile(hidden: int) -> tuple[int, str]:
@@ -289,7 +308,7 @@ def lstm_fwd(x_proj, h0, c0, w_hh_t):
             "lstm_fwd", _library("lstm_fwd"),
             x_proj.data_ptr(), h0.data_ptr(), c0.data_ptr(), w_hh_t.data_ptr(),
             h_all.data_ptr(), c_all.data_ptr(),
-            seq_len, batch, hidden, BLOCK_B, _DTYPE_CODES[x_proj.dtype],
+            seq_len, batch, hidden, lstm_fwd_tile(hidden), _DTYPE_CODES[x_proj.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     return h_all, c_all
@@ -331,7 +350,8 @@ def lstm_bwd(x_proj, h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T):
 
 def gru_fwd(x_proj, h0, w_hh_t, b_hh):
     """GRU forward time loop: ``h_all`` (T, B, H).  CPU tensors take
-    :func:`gru_fwd_plain`; CUDA tensors launch ``csrc/gru_fwd.cu``."""
+    :func:`gru_fwd_plain`; CUDA tensors launch ``csrc/gru_fwd.cu`` in the
+    variant :func:`gru_tile` names, or raise."""
     if x_proj.device.type == "cpu":
         return gru_fwd_plain(x_proj, h0, w_hh_t, b_hh)
     if x_proj.device.type != "cuda":
@@ -342,14 +362,14 @@ def gru_fwd(x_proj, h0, w_hh_t, b_hh):
         "gru_fwd", [h0, w_hh_t, b_hh, x_proj],
         [(batch, hidden), (hidden, gate_dim), (gate_dim,), (seq_len, batch, 3 * hidden)],
     )
-    block_b, w_smem = gru_tile(hidden)
+    block_b, variant = gru_tile(hidden)
     h_all = torch.empty((seq_len, batch, hidden), dtype=x_proj.dtype, device=x_proj.device)
     with torch.cuda.device(x_proj.device):
         _launch(
             "gru_fwd", _library("gru_fwd"),
             x_proj.data_ptr(), h0.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
             h_all.data_ptr(),
-            seq_len, batch, hidden, block_b, int(w_smem), _DTYPE_CODES[x_proj.dtype],
+            seq_len, batch, hidden, block_b, _GRU_VARIANTS[variant], _DTYPE_CODES[x_proj.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     return h_all
@@ -382,29 +402,29 @@ def gru_bwd(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T):
             x_proj.data_ptr(), h_all.data_ptr(), h0.data_ptr(), w_hh_t.data_ptr(),
             b_hh.data_ptr(), dh_all.data_ptr(), dh_T.data_ptr(),
             dx_proj.data_ptr(), dhgates.data_ptr(), dh0.data_ptr(),
-            seq_len, batch, hidden, block_b, _GRU_BWD_VARIANTS[variant],
+            seq_len, batch, hidden, block_b, _GRU_VARIANTS[variant],
             _DTYPE_CODES[x_proj.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     return dx_proj, dhgates, dh0
 
 
-def gru_bwd_cluster_shape(hidden: int, batch: int, dtype=torch.float32) -> dict:
-    """How the GRU backward's cluster variant runs at this width and batch
-    on the current card: CTAs and batch rows a cluster, the clusters
-    resident at once (``cudaOccupancyMaxActiveClusters``), the dynamic
-    shared memory a CTA and the waves of clusters; raises where not even
-    one cluster fits."""
+def gru_cluster_shape(kernel: str, hidden: int, batch: int, dtype=torch.float32) -> dict:
+    """How the cluster variant of ``kernel`` (``"gru_fwd"`` or
+    ``"gru_bwd"``) runs at this width and batch on the current card: CTAs
+    and batch rows a cluster, the clusters resident at once
+    (``cudaOccupancyMaxActiveClusters``), the dynamic shared memory a CTA
+    and the waves of clusters; raises where not even one cluster fits."""
     from pytorch_distributed_rnn_tpu_torch import _build
 
-    fn = _build.load("gru_bwd").gru_bwd_cluster_shape
+    fn = getattr(_build.load(kernel), f"{kernel}_cluster_shape")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
     err = fn(hidden, batch, _DTYPE_CODES[dtype], out)
     if err != 0:
-        raise RuntimeError(f"gru_bwd cluster variant at H={hidden}: CUDA error {err}")
+        raise RuntimeError(f"{kernel} cluster variant at H={hidden}: CUDA error {err}")
     ctas, rows, active, smem = out
     clusters = -(-batch // rows)
     return {"ctas": ctas, "rows": rows, "active_clusters": active, "smem_bytes": smem,

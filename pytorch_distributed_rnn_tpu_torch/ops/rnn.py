@@ -150,18 +150,21 @@ def resolve_rnn_impl(impl: str, cell: str, hidden: int | None = None,
     kernels of ``ops/fused_rnn.py`` (their plain versions on CPU tensors).
     ``"auto"`` takes ``fused`` for an LSTM or a GRU on a CUDA device at
     every hidden size the cell's kernels take (``kernel_supports``,
-    ``gru_kernel_supports``), else ``scan``.  Explicit ``fused`` at a
-    hidden size the kernels do not take raises."""
+    ``gru_kernel_supports``), else ``scan``.  Explicit ``fused`` is
+    honoured on a CPU device at any hidden size, since the plain versions
+    take every width (as the JAX package honours it, in interpret mode);
+    on any other device, and where ``device`` is None (not known), it
+    raises at a hidden size the kernels do not take: no quiet fallback."""
     if impl not in ("auto", "scan", "fused"):
         raise ValueError(f"unknown rnn impl {impl!r}")
     if cell not in ("lstm", "gru"):
         raise ValueError(f"unknown cell {cell!r}")
     supports = kernel_supports if cell == "lstm" else gru_kernel_supports
     fits = hidden is None or supports(hidden)
+    kind = None if device is None else torch.device(device).type
     if impl == "auto":
-        on_cuda = device is not None and torch.device(device).type == "cuda"
-        return "fused" if on_cuda and fits else "scan"
-    if impl == "fused" and not fits:
+        return "fused" if kind == "cuda" and fits else "scan"
+    if impl == "fused" and not fits and kind != "cpu":
         raise ValueError(
             f"no fused {cell.upper()} kernel for hidden={hidden}; use impl='scan'"
         )

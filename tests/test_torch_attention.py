@@ -258,6 +258,23 @@ def test_resolve_attention_impl(impl, device, want):
     assert fa.resolve_attention_impl(impl, device) == want
 
 
+# fault C2: auto takes dense above the kernels' head dim on the card, and
+# an explicit flash there raises in the kernels' check
+@pytest.mark.parametrize(
+    "impl,head_dim,want",
+    [("auto", 128, "flash"), ("auto", 129, "dense"), ("auto", 256, "dense"),
+     ("flash", 256, "flash"), ("dense", 32, "dense")],
+)
+def test_resolve_attention_impl_by_head_dim(impl, head_dim, want):
+    assert fa.resolve_attention_impl(impl, "cuda", head_dim) == want
+
+
+def test_explicit_flash_above_the_kernel_head_dim_raises():
+    q = torch.zeros(2, 8, 256)
+    with pytest.raises(ValueError, match="D up to 128"):
+        fa._check("flash_fwd", q, q, q)
+
+
 def test_resolve_attention_impl_rejects_unknown():
     with pytest.raises(ValueError, match="unknown attention impl"):
         fa.resolve_attention_impl("ring")

@@ -299,11 +299,12 @@ def test_gru_kernel_supports(hidden, ok):
     assert fr.gru_kernel_supports(hidden) is ok
 
 
-# W_hh^T and the backward's 16-row tile state fit one block's shared
-# memory up to H=126; wider layers read W from device memory in 4-row tiles
+# the forward's dispatch rule: W_hh^T and the backward's 16-row tile state
+# fit one block's shared memory up to H=126; wider layers run over a
+# 16-CTA cluster on 8-row tiles
 @pytest.mark.parametrize(
-    "hidden,tile", [(1, (16, True)), (32, (16, True)), (126, (16, True)), (127, (4, False)),
-                    (512, (4, False))],
+    "hidden,tile", [(1, (16, "smem")), (32, (16, "smem")), (126, (16, "smem")),
+                    (127, (8, "cluster")), (512, (8, "cluster")), (300, (8, "cluster"))],
 )
 def test_gru_tile(hidden, tile):
     assert fr.gru_tile(hidden) == tile
@@ -367,12 +368,14 @@ def test_wrappers_reject_devices_other_than_cpu_and_cuda(kernel):
 # the main paths' shapes, and the edges of the two W paths: H=126 is the
 # widest shared-memory tile (504 threads), H=127 the narrowest read from
 # device memory in the forward and over a cluster in the backward (ragged
-# prefetch batches, a ragged last CTA), H=1 the narrowest of all; H=200 and
-# 300 split unevenly over the cluster's 16 CTAs, B=250 leaves a ragged tile
+# H=127 the narrowest over a cluster in both kernels (a ragged last CTA),
+# H=1 the narrowest of all; H=200 and 300 split unevenly over the cluster's
+# 16 CTAs, B=250 and 37 leave ragged last tiles of the forward's 8 rows and
+# the backward's 4
 @pytest.mark.parametrize(
     "hidden,batch",
     [(32, 1440), (32, 735), (512, 256), (512, 204), (1, 5), (126, 37), (127, 37),
-     (200, 64), (300, 37), (512, 250)],
+     (200, 64), (300, 37), (512, 250), (512, 37)],
 )
 def test_cuda_kernels_match_plain_versions(hidden, batch, dtype):
     if not torch.cuda.is_available():

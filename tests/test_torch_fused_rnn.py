@@ -141,6 +141,14 @@ def test_kernel_supports(hidden, ok):
     assert fr.kernel_supports(hidden) is ok
 
 
+# the forward's rows a block: 4 up to H=32 (W_hh^T in registers), then as
+# many as 512 threads take (W_hh^T in shared memory), at most 16
+@pytest.mark.parametrize("hidden,rows", [(1, 4), (32, 4), (33, 12), (64, 8), (110, 4)])
+def test_lstm_fwd_tile(hidden, rows):
+    assert fr.lstm_fwd_tile(hidden) == rows
+    assert rows % 4 == 0 and rows * hidden <= 512
+
+
 @pytest.mark.parametrize(
     "bad,exc",
     [("dtype", TypeError), ("shape", ValueError), ("layout", ValueError), ("hidden", ValueError)],
@@ -179,8 +187,13 @@ def test_wrappers_reject_devices_other_than_cpu_and_cuda(kernel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("batch", [1440, 735])
-def test_cuda_kernels_match_plain_versions(batch, dtype):
+# the motion shape and its evaluation batch; ragged last tiles (37 rows);
+# the widest W in registers (32), the narrowest (1) and the widest (110)
+# with W in shared memory, with a ragged warp (110 x 4 = 440 threads)
+@pytest.mark.parametrize(
+    "hidden,batch", [(32, 1440), (32, 735), (32, 37), (1, 5), (33, 37), (110, 64), (110, 37)],
+)
+def test_cuda_kernels_match_plain_versions(hidden, batch, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     def assert_kernel_close(got, want, tol):
@@ -193,11 +206,12 @@ def test_cuda_kernels_match_plain_versions(batch, dtype):
 
     tol_f, tol_b = F32_FWD, F32_GRAD
     gen = torch.Generator(device="cuda").manual_seed(batch)
-    t, h = 128, 32
+    t, h = 128, hidden
     x_proj = torch.randn(t, batch, 4 * h, generator=gen, device="cuda").to(dtype)
     h0 = (0.5 * torch.randn(batch, h, generator=gen, device="cuda")).to(dtype)
     c0 = (0.5 * torch.randn(batch, h, generator=gen, device="cuda")).to(dtype)
-    w = (0.2 * torch.randn(h, 4 * h, generator=gen, device="cuda")).to(dtype)
+    # W of the same scale at every width (0.2 at H=32)
+    w = (0.2 * (32 / h) ** 0.5 * torch.randn(h, 4 * h, generator=gen, device="cuda")).to(dtype)
     fr.reset_launch_counts()
     h_k, c_k = fr.lstm_fwd(x_proj, h0, c0, w)
     h_p, c_p = fr.lstm_fwd_plain(x_proj, h0, c0, w)

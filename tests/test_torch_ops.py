@@ -212,19 +212,51 @@ def test_dtype_of_matches_jax_mapping():
         ("fused", "lstm", 32, "cpu", "fused"),
         ("fused", "gru", 32, "cpu", "fused"),
         ("scan", "lstm", 32, "cuda", "scan"),
+        # explicit fused on the CPU at any width: the plain versions take it
+        ("fused", "lstm", 128, "cpu", "fused"),
+        ("fused", "gru", 513, "cpu", "fused"),
     ],
 )
 def test_resolve_rnn_impl(impl, cell, hidden, device, want):
     assert trnn.resolve_rnn_impl(impl, cell, hidden, torch.device(device)) == want
 
 
+# explicit fused past the kernels' widths raises on the card (no quiet
+# fallback); resolve_rnn_impl reads only the device's type, so no card is
+# needed to check it
 @pytest.mark.parametrize(
     "impl,cell,hidden",
     [("fused", "gru", 513), ("fused", "lstm", 1280), ("bogus", "lstm", 32), ("auto", "rnn", 32)],
 )
 def test_resolve_rnn_impl_rejects(impl, cell, hidden):
+    device = "cuda" if impl == "fused" else "cpu"
     with pytest.raises(ValueError):
-        trnn.resolve_rnn_impl(impl, cell, hidden, torch.device("cpu"))
+        trnn.resolve_rnn_impl(impl, cell, hidden, torch.device(device))
+
+
+@pytest.mark.parametrize("cell,hidden", [("lstm", 128), ("gru", 513)])
+def test_resolve_rnn_impl_unknown_device_keeps_the_width_check(cell, hidden):
+    with pytest.raises(ValueError, match="no fused"):
+        trnn.resolve_rnn_impl("fused", cell, hidden)
+
+
+# fault C1: explicit fused at a width the kernels do not take returns the
+# JAX fused path's outputs on the CPU (there in Pallas interpret mode)
+@pytest.mark.parametrize("cell,hidden", [("lstm", 128), ("gru", 513)])
+def test_explicit_fused_past_the_kernel_widths_matches_jax_on_cpu(cell, hidden):
+    rng = np.random.RandomState(11)
+    layers = [_layer(rng, cell, 9, hidden)]
+    x = rng.randn(3, 5, 9).astype(np.float32)
+    t_out, t_fin = trnn.stacked_rnn([_torch(l) for l in layers], torch.from_numpy(x), cell,
+                                    impl="fused")
+    j_out, j_fin = jrnn.stacked_rnn([_jax(l) for l in layers], jnp.asarray(x), cell,
+                                    impl="fused")
+    assert t_out.shape == (3, 5, hidden)
+    np.testing.assert_allclose(_np(t_out), _np(j_out), rtol=F32_FWD, atol=F32_FWD)
+    t_states = t_fin[0] if cell == "lstm" else (t_fin[0],)
+    j_states = j_fin[0] if cell == "lstm" else (j_fin[0],)
+    for got, want in zip(t_states, j_states):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=F32_FWD, atol=F32_FWD)
 
 
 def test_interlayer_dropout_statistics():

@@ -9,17 +9,21 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. build: compiles every kernel source of ``pytorch_distributed_rnn_tpu_torch/
    csrc/`` with nvcc, one process per source, all at once; prints each
    kernel's registers and spills (``-Xptxas -v``), checks that the GRU
-   forward's cluster kernel and the LSTM forward kernel have no stack frame
-   and no spills, and checks in the SASS (``cuobjdump``) that the bf16
+   forward's cluster kernel, the LSTM forward kernel and both LSTM cluster
+   kernels have no stack frame and no spills in any instance, and checks
+   in the SASS (``cuobjdump``) that the bf16
    ``flash_fwd``/``flash_dq``/``flash_dkv`` kernels, and only they, run on
    the tensor cores (HMMA).
 3. kernels: holds each kernel against its plain PyTorch version on the
    card, at the shapes the main paths give them (O(1) random cotangents,
-   f32 and bf16, the tolerances of ``TOLERANCES``): the LSTM kernels at
-   H=32 (T=128, x_proj from input widths 9 and 32) and at the forward's
-   edges (B=37, H=110), the GRU kernels at H=32 (the same), at H=512
-   (input 512) and at the cluster kernels' edges (H=127, 200 and 300, B=250
-   and 37 at H=512); the flash kernels at the
+   f32 and bf16, the tolerances of ``TOLERANCES``): the LSTM and GRU
+   kernels at H=32 (T=128, x_proj from input widths 9 and 32) and at
+   H=512 (input 512, the char LM's train and evaluation batches), the
+   LSTM one-block kernels' edges (B=37, H=110), the LSTM cluster kernels'
+   edges (H=111, 200, 300, both sides of the f32 slice's fit in shared
+   memory: 448/449 forward, 464/465 backward, B=250 and 37 at 512), the
+   GRU cluster kernels' edges (H=127, 200, 300, B=250 and 37 at 512); the
+   flash kernels at the
    attention CLI's (B*H, T, D) shapes (train batches, and the evaluation
    batches forward only), the long-context shape (64, 1024, 128) in bf16
    and f32 (also causal, where the diagonal tiles mask), D=8, D=72,
@@ -35,30 +39,35 @@ Phases, in order; any failure raises and the script exits nonzero:
       --stacked-layer 2 --seq-length 128 --batch-size 256 --dropout 0`` on
       the synthetic motif corpus (1640 train, 204 validation, 204 test
       windows), then greedy ``generate`` of 32 tokens from 8 test prompts;
+   f. the same with the CLI's default cell, the LSTM (run after c);
    d. the attention classifier ``--model attention --hidden-units 128
       --num-heads 4 --stacked-layer 2 --batch-size 256 --dropout 0`` on the
       HAR windows of (a);
    e. the long-context classifier (dim 512, 4 heads, depth 2, bf16,
       T=1024) trained 10 Adam steps at batch 16 on seeded random windows,
       through the model and a train-step loop.
-   Each checks finite losses (a-d: and the perf line), that its kernels
-   were launched and no others, and that the trained model's kernel path
-   agrees with its plain path: fused vs scan logits (a-c; c also greedy
-   tokens, or a near tie where they differ), flash vs dense logits (d, e).
+   Each checks finite losses (a-d, f: and the perf line), that its kernels
+   were launched and no others (c, f: one of each a layer a train step),
+   and that the trained model's kernel path agrees with its plain path:
+   fused vs scan logits (a-c, f; c and f also greedy tokens, or a near tie
+   where they differ), flash vs dense logits (d, e).
    Each kernel's launches per train step come from the run's counts.
 5. step profile: more epochs (or steps) of each trained model, timed on
    the host clock, and one under ``torch.profiler`` (device time by
-   kernel).
+   kernel); and one epoch of path f's model on its scan path (the Python
+   loop over T), what its kernels replace.
 6. timing: CUDA-event times of each kernel, its plain version and the
    library's call (cuDNN's LSTM or GRU, ``torch.nn.LSTM``/``torch.nn.GRU``;
    ``scaled_dot_product_attention`` forward for ``flash_fwd``, and for
    the backward kernels SDPA's whole backward, timed as the device time of
    its kernels under ``torch.profiler`` so that the host's pace does not
-   count; timed here only, never called by the port) at each main shape,
-   beside each kernel's bound; each kernel at one block (or one cluster),
-   its serial floor; the LSTM forward at 4, 8, 12 and 16 rows a block; and
-   the GRU kernels' cluster shapes at H=512 (CTAs and rows a cluster,
-   clusters resident at once, waves).
+   count; timed here only, never called by the port) at each main shape
+   (the RNN kernels at (1440, 32) and (256, 512)), beside each kernel's
+   bound; each kernel at one block (or one cluster), its serial floor; the
+   LSTM forward at 4, 8, 12 and 16 rows a block; the LSTM cluster kernels
+   on both sides of their f32 slices' fit and in bf16; and the cluster
+   kernels' shapes at H=512 (CTAs and rows a cluster, clusters resident at once,
+   waves, the LSTM slices' rows in shared memory).
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}`` as its last line.
@@ -101,15 +110,26 @@ GENERATE_PROMPTS, GENERATE_PROMPT_LEN, GENERATE_TOKENS = 8, 64, 32
 # cluster, widths that split unevenly over the 16 CTAs, and ragged last
 # tiles of the forward's 8 rows and the backward's 4
 GRU_CLUSTER_EDGES = ((127, 37), (200, 64), (300, 37), (CHAR_HIDDEN, 250), (CHAR_HIDDEN, 37))
-# (H, B) of the LSTM forward's edges beside the motion shapes: a ragged
-# last 4-row tile, and the widest width the kernels take (W_hh^T in shared
-# memory, a ragged warp), also with a ragged tile
+# (H, B) of the LSTM kernels' edges beside the motion shapes: a ragged
+# last 4-row tile, and the widest width of the one-block kernels (W_hh^T in
+# shared memory, a ragged warp), also with a ragged tile
 LSTM_EDGES = ((HIDDEN, 37), (110, 64), (110, 37))
+# (H, B) of the LSTM cluster kernels' edges: the narrowest width over a
+# cluster, widths that split unevenly over the 16 CTAs, both sides of the
+# width where the f32 slice stops fitting in shared memory (forward 448 /
+# 449, where its rows a cluster go from 8 to 4; backward 464 / 465), and
+# ragged last tiles at 512
+LSTM_CLUSTER_EDGES = ((111, 37), (200, 64), (300, 37), (448, 37), (449, 37), (464, 37),
+                      (465, 37), (CHAR_HIDDEN, 250), (CHAR_HIDDEN, 37))
 # the LSTM forward's rows a block, timed at the motion shape to choose
 # LSTM_FWD_BLOCK_B
 LSTM_FWD_TILES = (4, 8, 12, 16)
-# the kernels whose ptxas report must show no stack frame and no spills
-NO_STACK_KERNELS = ("gru_fwd_cluster_kernel", "lstm_fwd_kernel")
+# the kernels whose ptxas report must show no stack frame and no spills,
+# every instance (dtype, variant)
+NO_STACK_KERNELS = ("gru_fwd_cluster_kernel", "lstm_fwd_kernel", "lstm_fwd_cluster_kernel",
+                    "lstm_bwd_cluster_kernel")
+# the scan path's train steps profiled once beside path f (the char LSTM)
+SCAN_PROFILE_EPOCHS = 1
 LOGIT_TOL = 1e-4  # trained fused logits against the scan path, f32
 TOLERANCES = {  # (forward, backward)
     # the JAX kernel tests' (test_pallas_rnn.py), elementwise:
@@ -223,11 +243,12 @@ def phase_build():
         for kernel, regs, stack, spill_st, spill_ld in _ptxas_report(log):
             print(f"  ptxas {source}: {kernel}: {regs} registers, stack frame {stack} B, "
                   f"spill stores {spill_st} B, spill loads {spill_ld} B")
-            if any(name in kernel for name in NO_STACK_KERNELS):
-                checked.append(kernel)
+            names = [name for name in NO_STACK_KERNELS if name in kernel]
+            if names:
+                checked += names
                 if stack or spill_st or spill_ld:
                     raise RuntimeError(f"{kernel}: a stack frame or spills in the ptxas report")
-    if len(checked) < 2 * len(NO_STACK_KERNELS):  # an f32 and a bf16 instance each, at least
+    if any(checked.count(name) < 2 for name in NO_STACK_KERNELS):  # f32 and bf16 at least
         raise RuntimeError(f"ptxas reported {checked}, not every instance of {NO_STACK_KERNELS}")
     hmma = {}
     for source in sorted(libs):
@@ -293,68 +314,69 @@ def _report(name, dtype, label, got, want, tol, failures) -> float:
     return err
 
 
-def phase_kernels() -> dict:
-    """Each kernel against its plain version; returns the max abs errors
-    at each main shape (f32, input width = H), keyed ``(name, shape)``."""
+def _rnn_cases(cell: str) -> list:
+    """(H, input widths, forward batches, backward batches, main batch) of
+    a cell's kernels: the motion shapes, the char LM's (the main batch
+    recorded for phase 6) and the edges."""
+    edges = (*LSTM_EDGES, *LSTM_CLUSTER_EDGES) if cell == "lstm" else GRU_CLUSTER_EDGES
+    return [
+        (HIDDEN, (9, 32), FWD_BATCHES, BWD_BATCHES, MAIN_BATCH),
+        (CHAR_HIDDEN, (CHAR_HIDDEN,), CHAR_FWD_BATCHES, CHAR_BWD_BATCHES, CHAR_BATCH),
+        *((h, (h,), (b,), (b,), None) for h, b in edges),
+    ]
+
+
+def _check_layer(cell, hidden, in_width, batch, dtype, backward, failures) -> tuple:
+    """A random layer's forward (and backward) kernel against its plain
+    version; returns their max abs errors (the backward's None where it
+    is not run)."""
     from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
+    tol_f, tol_b = TOLERANCES[dtype]
+    label = f"B={batch} H={hidden} in={in_width}"
+    *fwd_args, gen = _layer_inputs(batch, in_width, dtype, seed=batch + in_width, cell=cell,
+                                   hidden=hidden)
+    want = getattr(fr, f"{cell}_fwd_plain")(*fwd_args)
+    got = getattr(fr, f"{cell}_fwd")(*fwd_args)
+    want, got = (want, got) if cell == "lstm" else ((want,), (got,))
+    saves_gates = cell == "lstm" and fr.lstm_saves_gates(hidden)
+    if cell == "lstm" and (got[2] is not None) != saves_gates:
+        failures.append(f"lstm_fwd {dtype} {label}: saved gates {got[2] is not None}")
+    n_out = 3 if saves_gates else 1 if cell == "gru" else 2  # the activated gates where saved
+    err = _report(f"{cell}_fwd", dtype, label, got[:n_out], want[:n_out], tol_f, failures)
+    if not backward:
+        return err, None
+    dh_all = torch.randn(want[0].shape, generator=gen, device="cuda").to(dtype)
+    dh_t = torch.randn(fwd_args[1].shape, generator=gen, device="cuda").to(dtype)
+    if cell == "lstm":
+        x_proj, h0, c0, w = fwd_args
+        dc_t = torch.randn(h0.shape, generator=gen, device="cuda").to(dtype)
+        args = (x_proj, *want[:2], h0, c0, w, dh_all, dh_t, dc_t,
+                want[2] if saves_gates else None)
+    else:
+        x_proj, h0, w, b = fwd_args
+        args = (x_proj, want[0], h0, w, b, dh_all, dh_t)
+    errb = _report(f"{cell}_bwd", dtype, label, getattr(fr, f"{cell}_bwd")(*args),
+                   getattr(fr, f"{cell}_bwd_plain")(*args), tol_b, failures)
+    return err, errb
+
+
+def phase_kernels() -> dict:
+    """Each RNN kernel against its plain version; returns the max abs
+    errors at each main shape (f32, input width = H), keyed ``(name,
+    shape)``."""
     main_errs = {}
     failures = []
-    for dtype, (tol_f, tol_b) in TOLERANCES.items():
-        for in_width in (9, 32):
-            for batch in FWD_BATCHES:
-                label = f"B={batch} in={in_width}"
-                x_proj, h0, c0, w, gen = _layer_inputs(batch, in_width, dtype, seed=batch + in_width)
-                h_p, c_p = fr.lstm_fwd_plain(x_proj, h0, c0, w)
-                err = _report("lstm_fwd", dtype, label, fr.lstm_fwd(x_proj, h0, c0, w),
-                              (h_p, c_p), tol_f, failures)
-                if batch not in BWD_BATCHES:
-                    continue
-                dh_all = torch.randn(h_p.shape, generator=gen, device="cuda").to(dtype)
-                dh_t = torch.randn(h0.shape, generator=gen, device="cuda").to(dtype)
-                dc_t = torch.randn(h0.shape, generator=gen, device="cuda").to(dtype)
-                args = (x_proj, h_p, c_p, h0, c0, w, dh_all, dh_t, dc_t)
-                errb = _report("lstm_bwd", dtype, label, fr.lstm_bwd(*args),
-                               fr.lstm_bwd_plain(*args), tol_b, failures)
-                if dtype == torch.float32 and batch == MAIN_BATCH and in_width == HIDDEN:
-                    main_errs[("lstm_fwd", _shape(batch, HIDDEN))] = err
-                    main_errs[("lstm_bwd", _shape(batch, HIDDEN))] = errb
-        for hidden, batch in LSTM_EDGES:
-            label = f"B={batch} H={hidden} in={hidden}"
-            x_proj, h0, c0, w, gen = _layer_inputs(batch, hidden, dtype, seed=batch + hidden,
-                                                   hidden=hidden)
-            h_p, c_p = fr.lstm_fwd_plain(x_proj, h0, c0, w)
-            _report("lstm_fwd", dtype, label, fr.lstm_fwd(x_proj, h0, c0, w), (h_p, c_p), tol_f,
-                    failures)
-            dh_all = torch.randn(h_p.shape, generator=gen, device="cuda").to(dtype)
-            dh_t = torch.randn(h0.shape, generator=gen, device="cuda").to(dtype)
-            dc_t = torch.randn(h0.shape, generator=gen, device="cuda").to(dtype)
-            args = (x_proj, h_p, c_p, h0, c0, w, dh_all, dh_t, dc_t)
-            _report("lstm_bwd", dtype, label, fr.lstm_bwd(*args), fr.lstm_bwd_plain(*args), tol_b,
-                    failures)
-        for hidden, widths, fwd_batches, bwd_batches, main_batch in (
-            (HIDDEN, (9, 32), FWD_BATCHES, BWD_BATCHES, MAIN_BATCH),
-            (CHAR_HIDDEN, (CHAR_HIDDEN,), CHAR_FWD_BATCHES, CHAR_BWD_BATCHES, CHAR_BATCH),
-            *((h, (h,), (b,), (b,), None) for h, b in GRU_CLUSTER_EDGES),
-        ):
-            for in_width in widths:
-                for batch in fwd_batches:
-                    label = f"B={batch} H={hidden} in={in_width}"
-                    x_proj, h0, w, b, gen = _layer_inputs(
-                        batch, in_width, dtype, seed=batch + in_width, cell="gru", hidden=hidden)
-                    h_p = fr.gru_fwd_plain(x_proj, h0, w, b)
-                    err = _report("gru_fwd", dtype, label, (fr.gru_fwd(x_proj, h0, w, b),),
-                                  (h_p,), tol_f, failures)
-                    if batch not in bwd_batches:
-                        continue
-                    dh_all = torch.randn(h_p.shape, generator=gen, device="cuda").to(dtype)
-                    dh_t = torch.randn(h0.shape, generator=gen, device="cuda").to(dtype)
-                    args = (x_proj, h_p, h0, w, b, dh_all, dh_t)
-                    errb = _report("gru_bwd", dtype, label, fr.gru_bwd(*args),
-                                   fr.gru_bwd_plain(*args), tol_b, failures)
-                    if dtype == torch.float32 and batch == main_batch and in_width == hidden:
-                        main_errs[("gru_fwd", _shape(batch, hidden))] = err
-                        main_errs[("gru_bwd", _shape(batch, hidden))] = errb
+    for dtype in TOLERANCES:
+        for cell in ("lstm", "gru"):
+            for hidden, widths, fwd_batches, bwd_batches, main_batch in _rnn_cases(cell):
+                for in_width in widths:
+                    for batch in fwd_batches:
+                        err, errb = _check_layer(cell, hidden, in_width, batch, dtype,
+                                                 batch in bwd_batches, failures)
+                        if dtype == torch.float32 and batch == main_batch and in_width == hidden:
+                            main_errs[(f"{cell}_fwd", _shape(batch, hidden))] = err
+                            main_errs[(f"{cell}_bwd", _shape(batch, hidden))] = errb
     torch.cuda.synchronize()
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
@@ -586,15 +608,18 @@ def _top2_gap(logits) -> torch.Tensor:
     return top[..., 0] - top[..., 1]
 
 
-def phase_char(workdir: Path) -> PathRun:
-    """The char LM at its chip width, then greedy generation of the
-    trained model through the kernels (counted) and the scan path."""
-    print("main path: char gru")
-    argv = ["--model", "char", "--cell", "gru", "--hidden-units", str(CHAR_HIDDEN),
+def phase_char(workdir: Path, cell: str) -> PathRun:
+    """The char LM at its chip width with ``cell`` (the CLI's default
+    ``lstm`` is not passed), then greedy generation of the trained model
+    through the kernels (counted) and the scan path."""
+    name = f"char {cell}"
+    print(f"main path: {name}")
+    argv = ["--model", "char", *(["--cell", cell] if cell != "lstm" else []),
+            "--hidden-units", str(CHAR_HIDDEN),
             "--stacked-layer", "2", "--seq-length", str(SEQ_LEN),
             "--batch-size", str(CHAR_BATCH), "--dropout", "0",
             "--dataset-path", str(workdir / "no-corpus"),
-            "--checkpoint-directory", str(workdir / "models-char"),
+            "--checkpoint-directory", str(workdir / f"models-char-{cell}"),
             "--epochs", "2", "--seed", "0", "local"]
 
     def generate(trainer):
@@ -604,12 +629,18 @@ def phase_char(workdir: Path) -> PathRun:
 
     trainer, history, launches, (prompt, fused_out) = _drive(workdir, argv, after=generate)
     model = trainer.model
-    run = _check_path("char gru", trainer, history, launches, ("gru_fwd", "gru_bwd"),
+    if model.cell != cell:
+        raise RuntimeError(f"{name}: the CLI built a {model.cell} model")
+    kernels = (f"{cell}_fwd", f"{cell}_bwd")
+    run = _check_path(name, trainer, history, launches, kernels,
                       CHAR_BATCH, extra_fwd_layers=len(model.rnn))  # the generate prefill
+    if run.per_step != {kernel: float(len(model.rnn)) for kernel in kernels}:
+        raise RuntimeError(f"{name}: launches per train step {run.per_step}, not one of each "
+                           f"kernel a layer")
     windows = torch.from_numpy(trainer.test_set.features[:GENERATE_PROMPTS]).cuda()
-    fused = _fused_vs_scan(model, windows[:, :-1], "char gru")
+    fused = _fused_vs_scan(model, windows[:, :-1], name)
     if fused.shape != (GENERATE_PROMPTS, SEQ_LEN, 256):
-        raise RuntimeError(f"char gru: logits of shape {tuple(fused.shape)}")
+        raise RuntimeError(f"{name}: logits of shape {tuple(fused.shape)}")
 
     model.impl = "scan"
     scan_out = model.generate(prompt, GENERATE_TOKENS, temperature=0.0)
@@ -619,7 +650,7 @@ def phase_char(workdir: Path) -> PathRun:
     gaps = _top2_gap(logits)
     shape_ok = fused_out.shape == (GENERATE_PROMPTS, GENERATE_PROMPT_LEN + GENERATE_TOKENS)
     if not shape_ok or not torch.equal(fused_out[:, :GENERATE_PROMPT_LEN], prompt):
-        raise RuntimeError("char gru: generate did not extend the prompts")
+        raise RuntimeError(f"{name}: generate did not extend the prompts")
     differ = (fused_out != scan_out)[:, GENERATE_PROMPT_LEN:]
     if differ.any():
         step = int(differ.any(dim=0).nonzero()[0])
@@ -628,7 +659,7 @@ def phase_char(workdir: Path) -> PathRun:
         print(f"  generate fused vs scan: first differing step {step} (prompt {row}), "
               f"its top-2 logit gap {gap:.3e} (must be below {LOGIT_TOL:g})")
         if gap >= LOGIT_TOL:
-            raise RuntimeError("char gru: greedy tokens differ between fused and scan")
+            raise RuntimeError(f"{name}: greedy tokens differ between fused and scan")
     else:
         print(f"  generate fused vs scan: {GENERATE_PROMPTS} x {GENERATE_TOKENS} tokens "
               f"identical; smallest top-2 logit gap {gaps.min().item():.3e}")
@@ -762,6 +793,19 @@ def phase_step_profile(name: str, train, steps: int, repeats: int):
         print(f"  {us / 1e3 / steps:8.3f} ms/step  {100 * us / max(total_us, 1):5.1f}%  {key[:90]}")
 
 
+def phase_scan_profile(run: PathRun, formatter):
+    """The same trained model's train steps on its scan path (the Python
+    loop over T, its backward by autograd), profiled once: what the
+    kernels replace on the card."""
+    model = run.trainer.model
+    model.impl = "scan"
+    try:
+        phase_step_profile(f"{run.name}, scan path", lambda: run.trainer._train_epoch(formatter),
+                           -(-len(run.trainer.training_set) // run.batch), SCAN_PROFILE_EPOCHS)
+    finally:
+        model.impl = "auto"
+
+
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -809,11 +853,12 @@ def _timing_args(cell: str, batch: int, hidden: int):
     from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
     if cell == "lstm":
-        x_proj, h0, c0, w, gen = _layer_inputs(batch, hidden, torch.float32, seed=7)
-        h_all, c_all = fr.lstm_fwd_plain(x_proj, h0, c0, w)
+        x_proj, h0, c0, w, gen = _layer_inputs(batch, hidden, torch.float32, seed=7,
+                                               hidden=hidden)
+        h_all, c_all, gates = fr.lstm_fwd_plain(x_proj, h0, c0, w)
         dh_all = 0.1 * torch.randn(h_all.shape, generator=gen, device="cuda")
         bwd = (x_proj, h_all, c_all, h0, c0, w, dh_all, torch.zeros_like(h0),
-               torch.zeros_like(c0))
+               torch.zeros_like(c0), gates if fr.lstm_saves_gates(hidden) else None)
         return (x_proj, h0, c0, w), bwd, dh_all, gen
     x_proj, h0, w, b, gen = _layer_inputs(batch, hidden, torch.float32, seed=7, cell="gru",
                                           hidden=hidden)
@@ -826,7 +871,10 @@ def _timing_args(cell: str, batch: int, hidden: int):
 def _kernel_bounds(cell: str, batch: int, hidden: int) -> tuple:
     """Each kernel's least time at f32: every input read once, every
     output written once, and the f32 FMAs of its recurrent products (the
-    backward recomputes the forward's and adds the contraction)."""
+    backward recomputes the forward's and adds the contraction, except the
+    LSTM's cluster variant, which reads the gates its forward saved)."""
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
+
     gates = (4 if cell == "lstm" else 3) * hidden
     item = 4
     seq = SEQ_LEN * batch * hidden * item
@@ -834,7 +882,12 @@ def _kernel_bounds(cell: str, batch: int, hidden: int) -> tuple:
     gate_seq = SEQ_LEN * batch * gates * item
     weight = hidden * gates * item
     flops = 2 * SEQ_LEN * batch * hidden * gates
-    if cell == "lstm":
+    if cell == "lstm" and fr.lstm_saves_gates(hidden):
+        # x_proj, h0, c0, w in; h_all, c_all, the activated gates out
+        fwd = _bound_ms(2 * gate_seq + 2 * state + weight + 2 * seq, flops)
+        # the gates, c_all, dh_all, c0, dh_T, dc_T, w in; dx_proj, dh0, dc0 out
+        bwd = _bound_ms(2 * gate_seq + 2 * seq + 5 * state + weight, flops)
+    elif cell == "lstm":
         # x_proj, h0, c0, w in; h_all, c_all out
         fwd = _bound_ms(gate_seq + 2 * state + weight + 2 * seq, flops)
         # x_proj, h_all, c_all, dh_all, h0, c0, dh_T, dc_T, w in; dx_proj, dh0, dc0 out
@@ -884,7 +937,7 @@ def _lstm_fwd_tiles(args) -> dict:
 
     def call(rows):
         err = fn(x_proj.data_ptr(), h0.data_ptr(), c0.data_ptr(), w.data_ptr(), h_all.data_ptr(),
-                 c_all.data_ptr(), seq_len, batch, gate_dim // 4, rows,
+                 c_all.data_ptr(), None, seq_len, batch, gate_dim // 4, rows, fr._VARIANTS["smem"],
                  fr._DTYPE_CODES[torch.float32], stream)
         if err != 0:
             raise RuntimeError(f"lstm_fwd at {rows} rows a block: CUDA error {err}")
@@ -892,12 +945,41 @@ def _lstm_fwd_tiles(args) -> dict:
     return {rows: _time_ms(lambda r=rows: call(r), 20) for rows in LSTM_FWD_TILES}
 
 
+def _lstm_cluster_variants() -> dict:
+    """Both LSTM kernels at B=256 on both sides of the width where their
+    f32 slice stops fitting in shared memory (the forward's rows a cluster
+    go from 8 to 4 there), and in bf16 at 512, whose slice fits: CUDA
+    events over 10 launches, by kernel, dtype and H."""
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
+
+    times = {}
+    for name, dtype, hidden in (("lstm_fwd", torch.float32, 448), ("lstm_fwd", torch.float32, 449),
+                                ("lstm_fwd", torch.bfloat16, CHAR_HIDDEN),
+                                ("lstm_bwd", torch.float32, 464), ("lstm_bwd", torch.float32, 465),
+                                ("lstm_bwd", torch.bfloat16, CHAR_HIDDEN)):
+        x_proj, h0, c0, w, gen = _layer_inputs(CHAR_BATCH, hidden, dtype, seed=3, hidden=hidden)
+        if name == "lstm_fwd":
+            ms = _time_ms(lambda: fr.lstm_fwd(x_proj, h0, c0, w), 10)
+        else:
+            h_all, c_all, gates = fr.lstm_fwd(x_proj, h0, c0, w)
+            dh_all = torch.randn(h_all.shape, generator=gen, device="cuda").to(dtype)
+            zero = torch.zeros_like(h0)
+            ms = _time_ms(lambda: fr.lstm_bwd(x_proj, h_all, c_all, h0, c0, w, dh_all, zero,
+                                              zero, gates), 10)
+        times[f"{name} {str(dtype)[6:]} H={hidden}"] = ms
+    print("  lstm cluster variants at B=256 (ms): "
+          + ", ".join(f"{key}: {ms:.4f}" for key, ms in times.items()))
+    return times
+
+
 def _print_cluster(name: str, hidden: int, batch: int) -> dict:
     from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
-    cluster = fr.gru_cluster_shape(name, hidden, batch)
+    cluster = fr.cluster_shape(name, hidden, batch)
+    slice_rows = (f", {cluster['smem_slice_rows']} of the {hidden} slice rows in shared memory"
+                  if "smem_slice_rows" in cluster else "")
     print(f"  {name} cluster: C={cluster['ctas']} CTAs x R={cluster['rows']} rows, "
-          f"{cluster['smem_bytes']} B of shared memory a CTA, {cluster['clusters']} "
+          f"{cluster['smem_bytes']} B of shared memory a CTA{slice_rows}, {cluster['clusters']} "
           f"clusters, {cluster['active_clusters']} resident at once: "
           f"{cluster['waves']} waves")
     return cluster
@@ -914,9 +996,11 @@ def phase_timing(runs: dict, errs: dict) -> list:
         ("lstm", MAIN_BATCH, HIDDEN, runs["motion_lstm"]),
         ("gru", MAIN_BATCH, HIDDEN, runs["motion_gru"]),
         ("gru", CHAR_BATCH, CHAR_HIDDEN, runs["char_gru"]),
+        ("lstm", CHAR_BATCH, CHAR_HIDDEN, runs["char_lstm"]),
     ):
-        tile = fr.lstm_fwd_tile(hidden) if cell == "lstm" else fr.gru_tile(hidden)[0]
-        bwd_tile = fr.BLOCK_B if cell == "lstm" else fr.gru_bwd_tile(hidden)[0]
+        fwd_tile = fr.lstm_fwd_tile if cell == "lstm" else fr.gru_tile
+        bwd_tile_of = fr.lstm_bwd_tile if cell == "lstm" else fr.gru_bwd_tile
+        tile, bwd_tile = fwd_tile(hidden)[0], bwd_tile_of(hidden)[0]
         fwd_args, bwd_args, dh_all, gen = _timing_args(cell, batch, hidden)
         tile_fwd = _timing_args(cell, tile, hidden)[0]
         tile_bwd = _timing_args(cell, bwd_tile, hidden)[1]
@@ -949,16 +1033,18 @@ def phase_timing(runs: dict, errs: dict) -> list:
         print(f"timing {cell} at {shape}; serial_ms at B={tile} / {bwd_tile} (one block, or one "
               f"cluster); library_ms is torch.nn.{cell.upper()} (cuDNN) forward / backward incl. "
               "its input projection")
-        if cell == "lstm":
+        if cell == "lstm" and hidden == HIDDEN:
             tiles = _lstm_fwd_tiles(fwd_args)
             print("  lstm_fwd by rows a block (ms): "
                   + ", ".join(f"{r}: {ms:.4f}" for r, ms in tiles.items())
-                  + f"; the wrapper takes {fr.lstm_fwd_tile(hidden)}")
+                  + f"; the wrapper takes {fr.lstm_fwd_tile(hidden)[0]}")
             rows[-2]["ms_by_rows_a_block"] = tiles
-        if cell == "gru" and fr.gru_tile(hidden)[1] == "cluster":
-            rows[-2]["cluster"] = _print_cluster("gru_fwd", hidden, batch)
-        if cell == "gru" and fr.gru_bwd_tile(hidden)[1] == "cluster":
-            rows[-1]["cluster"] = _print_cluster("gru_bwd", hidden, batch)
+        if cell == "lstm" and fwd_tile(hidden)[1] == "cluster":
+            rows[-2]["ms_by_variant"] = _lstm_cluster_variants()
+        if fwd_tile(hidden)[1] == "cluster":
+            rows[-2]["cluster"] = _print_cluster(f"{cell}_fwd", hidden, batch)
+        if bwd_tile_of(hidden)[1] == "cluster":
+            rows[-1]["cluster"] = _print_cluster(f"{cell}_bwd", hidden, batch)
     return rows
 
 
@@ -1095,16 +1181,18 @@ def main() -> int:
         runs = {
             "motion_lstm": phase_motion(workdir, "lstm"),
             "motion_gru": phase_motion(workdir, "gru"),
-            "char_gru": phase_char(workdir),
+            "char_gru": phase_char(workdir, "gru"),
+            "char_lstm": phase_char(workdir, "lstm"),
             "attention": phase_attention(workdir),
         }
     runs["long"], long_train = phase_long_context()
     formatter = TrainingMessageFormatter(1)
     for key, epochs in (("motion_lstm", PROFILE_EPOCHS), ("motion_gru", 2), ("char_gru", 2),
-                        ("attention", 2)):
+                        ("char_lstm", 2), ("attention", 2)):
         run = runs[key]
         phase_step_profile(run.name, lambda t=run.trainer: t._train_epoch(formatter),
                            -(-len(run.trainer.training_set) // run.batch), epochs)
+    phase_scan_profile(runs["char_lstm"], formatter)
     phase_step_profile("long context", lambda: long_train(LONG_STEPS), LONG_STEPS, 2)
     rows = phase_timing(runs, errs) + phase_flash_timing(runs, errs)
     print(f"smoke: {time.perf_counter() - t0:.1f} s")

@@ -208,25 +208,6 @@ static_assert(kClusterThreads / kClusterCtas >=
                   (kClusterMaxHidden + kClusterCtas - 1) / kClusterCtas,
               "the gather's lane groups cover a CTA's units");
 
-// a += v * w, per component
-__device__ __forceinline__ void fma4(float4& a, const float4& v, float w) {
-  a.x = fmaf(v.x, w, a.x);
-  a.y = fmaf(v.y, w, a.y);
-  a.z = fmaf(v.z, w, a.z);
-  a.w = fmaf(v.w, w, a.w);
-}
-
-__device__ __forceinline__ float4 shfl_xor4(const float4& v, int mask) {
-  return make_float4(__shfl_xor_sync(0xffffffffu, v.x, mask),
-                     __shfl_xor_sync(0xffffffffu, v.y, mask),
-                     __shfl_xor_sync(0xffffffffu, v.z, mask),
-                     __shfl_xor_sync(0xffffffffu, v.w, mask));
-}
-
-__device__ __forceinline__ float component(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
 struct ClusterShape {
   int units;   // U: units a CTA owns
   int quads;   // Q: column quads of its W_hh^T slice (3U columns, zero-padded to 4Q)
@@ -487,7 +468,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) gru_bwd_cluster_kernel(
 }
 
 // The cluster kernel's launch configuration at (hidden, batch): see
-// cluster_launch_config (gru_common.cuh).
+// cluster_launch_config (cluster_common.cuh).
 template <typename T>
 int cluster_config(int hidden, int batch, cudaStream_t stream, cudaLaunchConfig_t& cfg,
                    cudaLaunchAttribute& attr, int* active) {

@@ -17,7 +17,8 @@
 // unit up to that width and several beyond it.
 #pragma once
 
-#include "lstm_common.cuh"  // dtype codes, to_f32/from_f32, sigmoid, stage_rows
+#include "cluster_common.cuh"  // kClusterCtas, the split cluster barrier, cluster_launch_config
+#include "lstm_common.cuh"     // dtype codes, to_f32/from_f32, sigmoid, stage_rows
 
 namespace pdrnn {
 
@@ -121,56 +122,10 @@ __device__ __forceinline__ void contract_gates(
   }
 }
 
-// ---------------------------------------------------------------------------
-// Above H = 126 both kernels split W_hh^T over a thread-block cluster: CTA c
-// of kClusterCtas owns the units [c U, (c + 1) U), U = ceil(H / 16), and
-// keeps the 3U columns of W_hh^T of its units' r, z and n gates in shared
-// memory (gru_fwd.cu:gru_fwd_cluster_kernel, gru_bwd.cu:
+// Above H = 126 both kernels split W_hh^T over a thread-block cluster
+// (cluster_common.cuh): CTA c owns the units [c U, (c + 1) U), U = ceil(H /
+// 16), and keeps the 3U columns of W_hh^T of its units' r, z and n gates in
+// shared memory (gru_fwd.cu:gru_fwd_cluster_kernel, gru_bwd.cu:
 // gru_bwd_cluster_kernel).
-// ---------------------------------------------------------------------------
-
-// Mirrored by ops/fused_rnn.py:GRU_CLUSTER_CTAS.
-constexpr int kClusterCtas = 16;     // a non-portable cluster size (> 8)
-constexpr int kClusterThreads = 512;
-constexpr int kClusterMaxHidden = 512;
-
-// The two halves of cluster.sync(), so that work can run between them.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// The launch configuration of a cluster kernel of kClusterCtas CTAs a
-// cluster, kClusterThreads threads and smem bytes a CTA, over tiles
-// clusters: its attributes set, and the clusters that can be resident at
-// once in *active; returns the CUDA error code,
-// cudaErrorLaunchOutOfResources when not even one cluster fits.
-template <typename Kernel>
-int cluster_launch_config(Kernel kernel, size_t smem, int tiles, cudaStream_t stream,
-                          cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int* active) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  if (err != cudaSuccess) return (int)err;
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(tiles * kClusterCtas);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kClusterCtas;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  err = cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
-  if (err != cudaSuccess) return (int)err;
-  return *active < 1 ? (int)cudaErrorLaunchOutOfResources : 0;
-}
 
 }  // namespace pdrnn

@@ -10,6 +10,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "cluster_common.cuh"  // the cluster variants' kClusterCtas, barrier, launch
+
 namespace pdrnn {
 
 // dtype codes passed from Python (ops/fused_rnn.py:_DTYPE_CODES)
@@ -39,6 +41,33 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// Four and eight consecutive values of a W_hh^T slice held in its own dtype,
+// as float32 (exact: a bf16 value is the high half of its float32).  The
+// pointer is 8-byte (quad) or 16-byte (octet) aligned.
+__device__ __forceinline__ float4 load_quad(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load_quad(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+__device__ __forceinline__ void load_octet(const float* p, float (&w)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+}
+__device__ __forceinline__ void load_octet(const __nv_bfloat16* p, float (&w)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const unsigned int words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[2 * i] = __uint_as_float(words[i] << 16);
+    w[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+  }
 }
 
 // w_hh_t staged in shared memory as float32 with a row stride of 4H + 1:

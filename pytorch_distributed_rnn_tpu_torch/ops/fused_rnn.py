@@ -16,17 +16,24 @@ kernels carry the serial part of every LSTM and GRU layer on the card:
   _gru_bwd_kernel``: the reverse sweep that emits ``dx_proj``, the
   hidden-side gate cotangents ``dhgates`` and ``dh0``.
 
-The LSTM kernels take H up to 110: the forward holds each thread's share
-of W_hh^T in registers up to H=32 and reads it from shared memory above
-(``lstm_fwd_tile``), the backward keeps W_hh^T in shared memory.  The GRU
-kernels keep W_hh^T in one block's shared memory up to H=126 (``gru_tile``,
-``gru_bwd_tile``).  Beyond that, up to H=512 (``gru_kernel_supports``),
-both split it over a cluster of ``GRU_CLUSTER_CTAS`` blocks, each holding
-the columns of its own units in shared memory: the forward exchanges h_t
-through distributed shared memory, the backward partial contractions.  All
-loop over T inside one block, or one cluster, per batch tile.  The input projection, ``dW_hh`` and
-``db_hh`` stay plain matrix products and sums (``torch.matmul``), as the
-JAX package leaves them to XLA.
+Every kernel takes 1 <= H <= 512, in two variants chosen by width.  Up
+to H=110 (LSTM) or H=126 (GRU), one block holds all of W_hh^T and owns a
+tile of batch rows for the whole sequence (the LSTM forward holds each
+thread's share of W_hh^T in registers up to H=32, in shared memory above:
+``lstm_fwd_tile``).  Above, W_hh^T is split over a cluster of
+``GRU_CLUSTER_CTAS`` blocks (``csrc/cluster_common.cuh``), each holding
+the columns of its own units' gates in shared memory: the forwards
+exchange h_t through distributed shared memory, the backwards partial
+contractions.  Where an LSTM's float32 slice does not fit in shared
+memory (above H=448 forward, 464 backward), its last rows sit in
+registers.
+``lstm_fwd_tile``, ``lstm_bwd_tile``, ``gru_tile`` and ``gru_bwd_tile``
+are the dispatch rules.  The input projection, ``dW_hh`` and ``db_hh``
+stay plain matrix products and sums (``torch.matmul``), as the JAX
+package leaves them to XLA.  Where the LSTM runs its cluster variant, its
+forward also saves the activated gates, which the backward reads in place
+of recomputing them (``lstm_saves_gates``; ``FusedLSTMScan`` keeps them in
+place of ``x_proj``).
 
 Each wrapper takes the kernel's plain PyTorch version (``*_plain``) only
 for CPU tensors; on CUDA tensors it launches the kernel or raises.
@@ -53,21 +60,25 @@ BLOCK_B = 16  # batch rows per block: 1440 rows -> 90 blocks on the card's 132 S
 LSTM_FWD_BLOCK_B = 4
 LSTM_FWD_REG_HIDDEN = 32  # kRegHidden in csrc/lstm_fwd.cu
 _LSTM_FWD_MAX_THREADS = 512  # kFwdMaxThreads in csrc/lstm_fwd.cu
-GRU_MAX_HIDDEN = 512
-# the GRU cluster variants: CTAs a cluster (kClusterCtas in
-# csrc/gru_common.cuh) and batch rows a cluster of the forward and of the
-# backward (kFwdClusterRows in csrc/gru_fwd.cu, kClusterRows in
-# csrc/gru_bwd.cu)
+MAX_HIDDEN = 512  # kClusterMaxHidden in csrc/cluster_common.cuh
+# the cluster variants: CTAs a cluster (kClusterCtas in
+# csrc/cluster_common.cuh, both cells) and batch rows a cluster of each
+# kernel (kFwdClusterRows in csrc/{gru,lstm}_fwd.cu, kClusterRows in
+# csrc/{gru,lstm}_bwd.cu)
 GRU_CLUSTER_CTAS = 16
 GRU_FWD_CLUSTER_ROWS = 8
 GRU_CLUSTER_ROWS = 4
-_GRU_VARIANTS = {"smem": 0, "cluster": 1}  # the variant codes of csrc/gru_{fwd,bwd}.cu
+LSTM_FWD_CLUSTER_ROWS = 8
+# the LSTM forward's rows a cluster where its float32 slice's last rows sit
+# in registers (kFwdTailClusterRows in csrc/lstm_fwd.cu)
+LSTM_FWD_TAIL_CLUSTER_ROWS = 4
+LSTM_BWD_CLUSTER_ROWS = 4
+_VARIANTS = {"smem": 0, "cluster": 1}  # the variant codes of the C entries
 _ROWS_PER_THREAD = 4  # kRowsPerThread in csrc/lstm_common.cuh
-_MAX_THREADS = 1024
 _MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may use
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (pointer arguments, int arguments) of each kernel's C entry point
-_SIGNATURES = {"lstm_fwd": (6, 5), "lstm_bwd": (12, 5), "gru_fwd": (5, 6), "gru_bwd": (10, 6)}
+_SIGNATURES = {"lstm_fwd": (7, 6), "lstm_bwd": (13, 6), "gru_fwd": (5, 6), "gru_bwd": (10, 6)}
 
 
 def reset_launch_counts():
@@ -76,30 +87,72 @@ def reset_launch_counts():
 
 
 def kernel_supports(hidden: int) -> bool:
-    """Whether both LSTM kernels take this hidden size: the backward's
-    block of ``hidden * BLOCK_B / 4`` threads fits 1024, and W_hh^T (row
-    stride 4H + 1) plus the backward's per-tile state, the larger of the
-    two kernels' (csrc/lstm_bwd.cu:bwd_smem_bytes), fit one block's shared
-    memory: up to H=110.  The forward takes every such width
-    (:func:`lstm_fwd_tile`)."""
+    """Whether both LSTM kernels take this hidden size: 1 <= H <= 512, in
+    float32 and bfloat16.  Up to H=110 W_hh^T is staged in one block's
+    shared memory (:func:`lstm_fwd_tile`, :func:`lstm_bwd_tile`).  Above
+    it both kernels spread W_hh^T over a 16-CTA cluster, each CTA holding
+    an (H, 4 ceil(H/16)) slice: 264 KiB in float32 at H=512, more than a
+    CTA's shared memory, so from H=449 (forward) and H=465 (backward) its
+    last rows sit in registers; the range ends at 512, as the GRU's."""
+    return 1 <= hidden <= MAX_HIDDEN
+
+
+def _lstm_w_in_smem(hidden: int) -> bool:
+    """W_hh^T (row stride 4H + 1) plus the backward's per-tile state
+    (``csrc/lstm_bwd.cu:bwd_smem_bytes``) fit one block, whose
+    ``hidden * BLOCK_B / 4`` threads fit 1024: up to H=110."""
     smem = 4 * (hidden * (4 * hidden + 1) + 5 * BLOCK_B * hidden)
-    return (
-        hidden >= 1
-        and hidden * (BLOCK_B // _ROWS_PER_THREAD) <= _MAX_THREADS
-        and smem <= _MAX_SMEM_BYTES
-    )
+    return hidden * (BLOCK_B // _ROWS_PER_THREAD) <= 1024 and smem <= _MAX_SMEM_BYTES
 
 
-def lstm_fwd_tile(hidden: int) -> int:
-    """The LSTM forward's batch rows a block at this width (a multiple of
-    4, one row per lane of a 4-lane group; ``hidden * rows`` threads):
-    ``LSTM_FWD_BLOCK_B`` up to H=32, where each thread's share of W_hh^T
-    sits in its registers and small blocks share an SM; above it, where
-    W_hh^T sits in shared memory, as many rows as 512 threads take, at
-    most 16."""
+def _lstm_fwd_slice_fits(hidden: int, itemsize: int) -> bool:
+    """Whether the LSTM forward cluster's W_hh^T slice, in its dtype, fits
+    a CTA's shared memory beside the tiles of 8 rows
+    (``csrc/lstm_fwd.cu:fwd_smem_rows``): bf16 always, float32 up to
+    H=448."""
+    units = -(-hidden // GRU_CLUSTER_CTAS)
+    octets = -(-4 * units // 8)
+    stride = 8 * octets + 4 if itemsize == 4 else 8 * (octets | 1)
+    rows = LSTM_FWD_CLUSTER_ROWS
+    tiles = 4 * ((GRU_CLUSTER_CTAS + 2) * units * rows + rows * 8 * octets)
+    return tiles + hidden * stride * itemsize <= _MAX_SMEM_BYTES
+
+
+def lstm_fwd_tile(hidden: int, dtype=torch.float32) -> tuple[int, str]:
+    """The LSTM forward's ``(batch rows a tile, variant)`` at this width
+    and dtype.  ``"smem"`` up to H=110, one block of ``hidden * rows``
+    threads (rows a multiple of 4, one row per lane of a 4-lane group):
+    ``LSTM_FWD_BLOCK_B`` rows up to H=32, where each thread's share of
+    W_hh^T sits in its registers and small blocks share an SM; above it,
+    where W_hh^T sits in shared memory, as many rows as 512 threads take,
+    at most 16.  ``"cluster"`` above H=110, a cluster of
+    ``GRU_CLUSTER_CTAS`` blocks on ``LSTM_FWD_CLUSTER_ROWS`` rows, or on
+    ``LSTM_FWD_TAIL_CLUSTER_ROWS`` where the float32 slice does not fit in
+    shared memory (above H=448)."""
+    if not _lstm_w_in_smem(hidden):
+        if _lstm_fwd_slice_fits(hidden, dtype.itemsize):
+            return LSTM_FWD_CLUSTER_ROWS, "cluster"
+        return LSTM_FWD_TAIL_CLUSTER_ROWS, "cluster"
     if hidden <= LSTM_FWD_REG_HIDDEN:
-        return LSTM_FWD_BLOCK_B
-    return min(BLOCK_B, 4 * (_LSTM_FWD_MAX_THREADS // (4 * hidden)))
+        return LSTM_FWD_BLOCK_B, "smem"
+    return min(BLOCK_B, 4 * (_LSTM_FWD_MAX_THREADS // (4 * hidden))), "smem"
+
+
+def lstm_bwd_tile(hidden: int) -> tuple[int, str]:
+    """The LSTM backward's ``(batch rows a tile, variant)`` at this width:
+    ``"smem"`` (one block, W_hh^T in its shared memory) up to H=110, else
+    ``"cluster"`` (a cluster of ``GRU_CLUSTER_CTAS`` blocks on
+    ``LSTM_BWD_CLUSTER_ROWS`` rows)."""
+    if _lstm_w_in_smem(hidden):
+        return BLOCK_B, "smem"
+    return LSTM_BWD_CLUSTER_ROWS, "cluster"
+
+
+def lstm_saves_gates(hidden: int) -> bool:
+    """Whether the LSTM forward saves its activated gates for the backward
+    at this width: where both run the cluster variant (H > 110), whose
+    backward reads them in place of recomputing the gates from h."""
+    return lstm_bwd_tile(hidden)[1] == "cluster"
 
 
 def gru_kernel_supports(hidden: int) -> bool:
@@ -108,7 +161,7 @@ def gru_kernel_supports(hidden: int) -> bool:
     shared memory.  Above it both kernels spread W_hh^T over a 16-CTA
     cluster, each CTA holding an (H, 3 ceil(H/16)) float32 slice: 200 KiB
     at H=512, which is where the range ends."""
-    return 1 <= hidden <= GRU_MAX_HIDDEN
+    return 1 <= hidden <= MAX_HIDDEN
 
 
 def _gru_w_in_smem(hidden: int) -> bool:
@@ -144,34 +197,41 @@ def gru_bwd_tile(hidden: int) -> tuple[int, str]:
 
 def lstm_fwd_plain(x_proj, h0, c0, w_hh_t):
     """``x_proj`` (T, B, 4H), ``h0``/``c0`` (B, H), ``w_hh_t`` (H, 4H) ->
-    ``h_all``, ``c_all`` (T, B, H) in ``x_proj``'s dtype."""
+    ``h_all``, ``c_all`` (T, B, H) and the activated gates i, f, g, o
+    (T, B, 4H), all in ``x_proj``'s dtype."""
     dtype = x_proj.dtype
     w = w_hh_t.float()
     h, c = h0.float(), c0.float()
-    h_all, c_all = [], []
+    h_all, c_all, gates = [], [], []
     for t in range(x_proj.shape[0]):
-        gates = x_proj[t].float() + h @ w
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        i, f, g, o = (x_proj[t].float() + h @ w).chunk(4, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
         h_all.append(h.to(dtype))
         c_all.append(c.to(dtype))
-    return torch.stack(h_all), torch.stack(c_all)
+        gates.append(torch.cat([i, f, g, o], dim=-1).to(dtype))
+    return torch.stack(h_all), torch.stack(c_all), torch.stack(gates)
 
 
-def lstm_bwd_plain(x_proj, h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T):
+def lstm_bwd_plain(x_proj, h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T, gates=None):
     """Reverse sweep: returns ``dx_proj`` (T, B, 4H) and ``dh0``, ``dc0``
-    (B, H), all in ``x_proj``'s dtype."""
-    dtype = x_proj.dtype
+    (B, H), all in ``dh_all``'s dtype.  Each step's activated gates are
+    recomputed from ``x_proj`` and the stored h_{t-1}, or read from
+    ``gates`` (the forward's, (T, B, 4H)) where it is given, and then
+    ``x_proj`` and ``h_all`` are not read."""
+    dtype = dh_all.dtype
     w = w_hh_t.float()
     dh, dc = dh_T.float(), dc_T.float()
-    dx = [None] * x_proj.shape[0]
-    for t in reversed(range(x_proj.shape[0])):
-        h_prev = (h_all[t - 1] if t > 0 else h0).float()
+    dx = [None] * dh_all.shape[0]
+    for t in reversed(range(dh_all.shape[0])):
         c_prev = (c_all[t - 1] if t > 0 else c0).float()
-        gates = x_proj[t].float() + h_prev @ w
-        i, f, g, o = gates.chunk(4, dim=-1)
-        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        if gates is None:
+            h_prev = (h_all[t - 1] if t > 0 else h0).float()
+            i, f, g, o = (x_proj[t].float() + h_prev @ w).chunk(4, dim=-1)
+            i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        else:
+            i, f, g, o = gates[t].float().chunk(4, dim=-1)
         dh = dh + dh_all[t].float()
         tanh_c = torch.tanh(c_all[t].float())
         dc = dc + dh * o * (1.0 - tanh_c * tanh_c)
@@ -288,61 +348,76 @@ def _launch(name, fn, *args):
 
 
 def lstm_fwd(x_proj, h0, c0, w_hh_t):
-    """Forward time loop: ``h_all``, ``c_all`` (T, B, H).  CPU tensors take
-    :func:`lstm_fwd_plain`; CUDA tensors launch ``csrc/lstm_fwd.cu``."""
+    """Forward time loop: ``h_all``, ``c_all`` (T, B, H) and, where
+    :func:`lstm_saves_gates`, the activated gates (T, B, 4H) for the
+    backward, else None.  CPU tensors take :func:`lstm_fwd_plain`; CUDA
+    tensors launch ``csrc/lstm_fwd.cu`` in the variant
+    :func:`lstm_fwd_tile` names, or raise."""
+    hidden = x_proj.shape[-1] // 4
     if x_proj.device.type == "cpu":
-        return lstm_fwd_plain(x_proj, h0, c0, w_hh_t)
+        h_all, c_all, gates = lstm_fwd_plain(x_proj, h0, c0, w_hh_t)
+        return h_all, c_all, gates if lstm_saves_gates(hidden) else None
     if x_proj.device.type != "cuda":
         raise ValueError(f"lstm_fwd: runs on CPU or CUDA tensors, got {x_proj.device}")
     seq_len, batch, gate_dim = x_proj.shape
-    hidden = gate_dim // 4
     _check(
         "lstm_fwd", [h0, c0, w_hh_t, x_proj],
         [(batch, hidden), (batch, hidden), (hidden, gate_dim),
          (seq_len, batch, 4 * hidden)],
     )
+    block_b, variant = lstm_fwd_tile(hidden, x_proj.dtype)
     h_all = torch.empty((seq_len, batch, hidden), dtype=x_proj.dtype, device=x_proj.device)
     c_all = torch.empty_like(h_all)
+    gates = torch.empty_like(x_proj) if lstm_saves_gates(hidden) else None
     with torch.cuda.device(x_proj.device):
         _launch(
             "lstm_fwd", _library("lstm_fwd"),
             x_proj.data_ptr(), h0.data_ptr(), c0.data_ptr(), w_hh_t.data_ptr(),
-            h_all.data_ptr(), c_all.data_ptr(),
-            seq_len, batch, hidden, lstm_fwd_tile(hidden), _DTYPE_CODES[x_proj.dtype],
+            h_all.data_ptr(), c_all.data_ptr(), None if gates is None else gates.data_ptr(),
+            seq_len, batch, hidden, block_b, _VARIANTS[variant], _DTYPE_CODES[x_proj.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
-    return h_all, c_all
+    return h_all, c_all, gates
 
 
-def lstm_bwd(x_proj, h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T):
-    """Reverse sweep: ``dx_proj`` (T, B, 4H), ``dh0``, ``dc0`` (B, H).  CPU
-    tensors take :func:`lstm_bwd_plain`; CUDA tensors launch
-    ``csrc/lstm_bwd.cu``."""
-    if x_proj.device.type == "cpu":
-        return lstm_bwd_plain(x_proj, h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T)
-    if x_proj.device.type != "cuda":
-        raise ValueError(f"lstm_bwd: runs on CPU or CUDA tensors, got {x_proj.device}")
-    seq_len, batch, gate_dim = x_proj.shape
+def lstm_bwd(x_proj, h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T, gates=None):
+    """Reverse sweep: ``dx_proj`` (T, B, 4H), ``dh0``, ``dc0`` (B, H).
+    Where :func:`lstm_saves_gates`, it reads the forward's activated
+    ``gates`` (then ``x_proj`` may be None), elsewhere it recomputes them
+    from ``x_proj`` (then ``gates`` is None).  CPU tensors take
+    :func:`lstm_bwd_plain`; CUDA tensors launch ``csrc/lstm_bwd.cu`` in the
+    variant :func:`lstm_bwd_tile` names, or raise."""
+    gate_src = x_proj if gates is None else gates
+    seq_len, batch, gate_dim = gate_src.shape
     hidden = gate_dim // 4
+    if (gates is not None) != lstm_saves_gates(hidden):
+        need = "needs" if lstm_saves_gates(hidden) else "takes no"
+        raise ValueError(f"lstm_bwd: H={hidden} {need} saved gates (lstm_saves_gates)")
+    if gate_src.device.type == "cpu":
+        return lstm_bwd_plain(x_proj, h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T, gates)
+    if gate_src.device.type != "cuda":
+        raise ValueError(f"lstm_bwd: runs on CPU or CUDA tensors, got {gate_src.device}")
     seq = (seq_len, batch, hidden)
     state = (batch, hidden)
     _check(
         "lstm_bwd",
-        [h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T, x_proj],
+        [h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T, gate_src],
         [seq, seq, state, state, (hidden, gate_dim), seq, state, state,
          (seq_len, batch, gate_dim)],
     )
-    dx_proj = torch.empty_like(x_proj)
+    block_b, variant = lstm_bwd_tile(hidden)
+    dx_proj = torch.empty_like(gate_src)
     dh0 = torch.empty_like(h0)
     dc0 = torch.empty_like(c0)
-    with torch.cuda.device(x_proj.device):
+    with torch.cuda.device(gate_src.device):
         _launch(
             "lstm_bwd", _library("lstm_bwd"),
-            x_proj.data_ptr(), h_all.data_ptr(), c_all.data_ptr(),
+            None if x_proj is None else x_proj.data_ptr(), h_all.data_ptr(), c_all.data_ptr(),
             h0.data_ptr(), c0.data_ptr(), w_hh_t.data_ptr(),
             dh_all.data_ptr(), dh_T.data_ptr(), dc_T.data_ptr(),
+            None if gates is None else gates.data_ptr(),
             dx_proj.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            seq_len, batch, hidden, BLOCK_B, _DTYPE_CODES[x_proj.dtype],
+            seq_len, batch, hidden, block_b, _VARIANTS[variant], _DTYPE_CODES[gate_src.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     return dx_proj, dh0, dc0
@@ -369,7 +444,7 @@ def gru_fwd(x_proj, h0, w_hh_t, b_hh):
             "gru_fwd", _library("gru_fwd"),
             x_proj.data_ptr(), h0.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
             h_all.data_ptr(),
-            seq_len, batch, hidden, block_b, _GRU_VARIANTS[variant], _DTYPE_CODES[x_proj.dtype],
+            seq_len, batch, hidden, block_b, _VARIANTS[variant], _DTYPE_CODES[x_proj.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     return h_all
@@ -402,33 +477,38 @@ def gru_bwd(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T):
             x_proj.data_ptr(), h_all.data_ptr(), h0.data_ptr(), w_hh_t.data_ptr(),
             b_hh.data_ptr(), dh_all.data_ptr(), dh_T.data_ptr(),
             dx_proj.data_ptr(), dhgates.data_ptr(), dh0.data_ptr(),
-            seq_len, batch, hidden, block_b, _GRU_VARIANTS[variant],
+            seq_len, batch, hidden, block_b, _VARIANTS[variant],
             _DTYPE_CODES[x_proj.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     return dx_proj, dhgates, dh0
 
 
-def gru_cluster_shape(kernel: str, hidden: int, batch: int, dtype=torch.float32) -> dict:
-    """How the cluster variant of ``kernel`` (``"gru_fwd"`` or
-    ``"gru_bwd"``) runs at this width and batch on the current card: CTAs
-    and batch rows a cluster, the clusters resident at once
-    (``cudaOccupancyMaxActiveClusters``), the dynamic shared memory a CTA
-    and the waves of clusters; raises where not even one cluster fits."""
+def cluster_shape(kernel: str, hidden: int, batch: int, dtype=torch.float32) -> dict:
+    """How the cluster variant of ``kernel`` (``"lstm_fwd"``, ``"lstm_bwd"``,
+    ``"gru_fwd"`` or ``"gru_bwd"``) runs at this width, batch and dtype on
+    the current card: CTAs and batch rows a cluster, the clusters resident
+    at once (``cudaOccupancyMaxActiveClusters``), the dynamic shared memory
+    a CTA and the waves of clusters; for the LSTM kernels also the rows of
+    each CTA's W_hh^T slice held in shared memory (the others out of it).
+    Raises where not even one cluster fits."""
     from pytorch_distributed_rnn_tpu_torch import _build
 
     fn = getattr(_build.load(kernel), f"{kernel}_cluster_shape")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     err = fn(hidden, batch, _DTYPE_CODES[dtype], out)
     if err != 0:
         raise RuntimeError(f"{kernel} cluster variant at H={hidden}: CUDA error {err}")
-    ctas, rows, active, smem = out
+    ctas, rows, active, smem, slice_rows = out
     clusters = -(-batch // rows)
-    return {"ctas": ctas, "rows": rows, "active_clusters": active, "smem_bytes": smem,
-            "clusters": clusters, "waves": -(-clusters // active)}
+    shape = {"ctas": ctas, "rows": rows, "active_clusters": active, "smem_bytes": smem,
+             "clusters": clusters, "waves": -(-clusters // active)}
+    if kernel.startswith("lstm"):
+        shape["smem_slice_rows"] = slice_rows
+    return shape
 
 
 # ---------------------------------------------------------------------------
@@ -445,18 +525,22 @@ class FusedLSTMScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_proj, w_hh_t, h0, c0):
-        h_all, c_all = lstm_fwd(x_proj, h0, c0, w_hh_t)
-        ctx.save_for_backward(x_proj, h_all, c_all, h0, c0, w_hh_t)
+        h_all, c_all, gates = lstm_fwd(x_proj, h0, c0, w_hh_t)
+        # where the forward saved the activated gates, the backward reads
+        # them in place of x_proj, which is then not kept
+        ctx.saved_gates = gates is not None
+        ctx.save_for_backward(x_proj if gates is None else gates, h_all, c_all, h0, c0, w_hh_t)
         return h_all, h_all[-1].clone(), c_all[-1].clone()
 
     @staticmethod
     def backward(ctx, dh_all, dh_T, dc_T):
-        x_proj, h_all, c_all, h0, c0, w_hh_t = ctx.saved_tensors
-        dtype = x_proj.dtype
+        first, h_all, c_all, h0, c0, w_hh_t = ctx.saved_tensors
+        x_proj, gates = (None, first) if ctx.saved_gates else (first, None)
+        dtype = first.dtype
         dx_proj, dh0, dc0 = lstm_bwd(
             x_proj, h_all, c_all, h0, c0, w_hh_t,
             dh_all.to(dtype).contiguous(), dh_T.to(dtype).contiguous(),
-            dc_T.to(dtype).contiguous(),
+            dc_T.to(dtype).contiguous(), gates,
         )
         # dW_hh^T = sum_t h_{t-1}^T d_gates[t]: one product over all (t, b)
         h_prev = torch.cat([h0[None], h_all[:-1]])

@@ -149,8 +149,9 @@ def resolve_rnn_impl(impl: str, cell: str, hidden: int | None = None,
     ``"scan"``: the Python loop over T.  ``"fused"``: the hand-written
     kernels of ``ops/fused_rnn.py`` (their plain versions on CPU tensors).
     ``"auto"`` takes ``fused`` for an LSTM or a GRU on a CUDA device at
-    every hidden size the cell's kernels take (``kernel_supports``,
-    ``gru_kernel_supports``), else ``scan``.  Explicit ``fused`` is
+    every hidden size the cell's kernels take, 1..512 for both
+    (``kernel_supports``, ``gru_kernel_supports``: one block up to H=110
+    or 126, a 16-CTA cluster above), else ``scan``.  Explicit ``fused`` is
     honoured on a CPU device at any hidden size, since the plain versions
     take every width (as the JAX package honours it, in interpret mode);
     on any other device, and where ``device`` is None (not known), it

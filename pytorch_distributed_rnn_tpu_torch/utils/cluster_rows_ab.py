@@ -75,7 +75,7 @@ def _time_one() -> dict:
         out[key] = time_ms(lambda: fr.gru_fwd(x, h0, w, b))
         err = (fr.gru_fwd(x, h0, w, b) - fr.gru_fwd_plain(x, h0, w, b)).abs().max().item()
         out[f"{key}_max_abs_err"] = err
-    out.update(fr.gru_cluster_shape("gru_fwd", HIDDEN, BATCH))
+    out.update(fr.cluster_shape("gru_fwd", HIDDEN, BATCH))
     return out
 
 

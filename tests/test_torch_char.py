@@ -264,17 +264,19 @@ def _windows():
     return windows[:90], windows[90:110], windows[110:]
 
 
-def test_char_gru_two_epoch_history_matches_jax_trainer():
+# the char LM with its default LSTM cell, and with --cell gru
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_char_gru_two_epoch_history_matches_jax_trainer(cell):
     train, valid, test = _windows()
     jax_sets = [JaxTextDataset(w) for w in (train, valid, test)]
     jax_cls = jax_wrap_lm(JaxTrainer)
     jt = jax_cls(JaxCharRNN(vocab_size=256, embed_dim=12, hidden_dim=12, layer_dim=2,
-                            cell="gru"), jax_sets[0], batch_size=40, learning_rate=5e-3,
+                            cell=cell), jax_sets[0], batch_size=40, learning_rate=5e-3,
                  validation_set=jax_sets[1], test_set=jax_sets[2], seed=SEED)
     init = jax.tree.map(np.array, jt.params)
     jax_params, jax_train, jax_valid = jt.train(epochs=2)
 
-    model = CharRNN(vocab_size=256, embed_dim=12, hidden_dim=12, layer_dim=2, cell="gru",
+    model = CharRNN(vocab_size=256, embed_dim=12, hidden_dim=12, layer_dim=2, cell=cell,
                     impl="fused")
     model.load_state_dict(interop.jax_params_to_state_dict(init))
     trainer = wrap_lm_trainer(Trainer)(

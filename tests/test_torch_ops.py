@@ -203,10 +203,12 @@ def test_dtype_of_matches_jax_mapping():
     [
         ("auto", "lstm", 32, "cpu", "scan"),
         ("auto", "lstm", 32, "cuda", "fused"),
-        ("auto", "lstm", 110, "cuda", "fused"),  # no TPU-style hidden <= 512 cut
-        ("auto", "lstm", 1280, "cuda", "scan"),  # past the kernel's shared memory
+        ("auto", "lstm", 110, "cuda", "fused"),  # one block
+        ("auto", "lstm", 512, "cuda", "fused"),  # over a cluster
+        ("auto", "lstm", 513, "cuda", "scan"),  # past the kernels' range
+        ("auto", "lstm", 1280, "cuda", "scan"),
         ("auto", "gru", 32, "cuda", "fused"),  # W_hh^T in shared memory
-        ("auto", "gru", 512, "cuda", "fused"),  # W_hh^T read from L2
+        ("auto", "gru", 512, "cuda", "fused"),  # over a cluster
         ("auto", "gru", 513, "cuda", "scan"),
         ("auto", "gru", 512, "cpu", "scan"),
         ("fused", "lstm", 32, "cpu", "fused"),
@@ -234,14 +236,15 @@ def test_resolve_rnn_impl_rejects(impl, cell, hidden):
         trnn.resolve_rnn_impl(impl, cell, hidden, torch.device(device))
 
 
-@pytest.mark.parametrize("cell,hidden", [("lstm", 128), ("gru", 513)])
+@pytest.mark.parametrize("cell,hidden", [("lstm", 513), ("gru", 513)])
 def test_resolve_rnn_impl_unknown_device_keeps_the_width_check(cell, hidden):
     with pytest.raises(ValueError, match="no fused"):
         trnn.resolve_rnn_impl("fused", cell, hidden)
 
 
-# fault C1: explicit fused at a width the kernels do not take returns the
-# JAX fused path's outputs on the CPU (there in Pallas interpret mode)
+# fault C1: explicit fused on the CPU returns the JAX fused path's outputs
+# (there in Pallas interpret mode), also at a width the card's kernels do
+# not take (GRU 513)
 @pytest.mark.parametrize("cell,hidden", [("lstm", 128), ("gru", 513)])
 def test_explicit_fused_past_the_kernel_widths_matches_jax_on_cpu(cell, hidden):
     rng = np.random.RandomState(11)

@@ -9,11 +9,12 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. build: compiles every kernel source of ``pytorch_distributed_rnn_tpu_torch/
    csrc/`` with nvcc, one process per source, all at once; prints each
    kernel's registers and spills (``-Xptxas -v``), checks that the GRU
-   forward's cluster kernel, the LSTM forward kernel and both LSTM cluster
-   kernels have no stack frame and no spills in any instance, and checks
-   in the SASS (``cuobjdump``) that the bf16
-   ``flash_fwd``/``flash_dq``/``flash_dkv`` kernels, and only they, run on
-   the tensor cores (HMMA).
+   forward's cluster kernel, the LSTM forward kernel, both LSTM cluster
+   kernels and the fused f32 flash backward (``flash_dqkv_tc_kernel``) have
+   no stack frame and no spills in any instance, and checks in the SASS
+   (``cuobjdump``) that the bf16 ``flash_fwd``/``flash_dq``/``flash_dkv``
+   kernels and the 3xTF32 ``flash_dqkv``, and only they, run on the tensor
+   cores (HMMA).
 3. kernels: holds each kernel against its plain PyTorch version on the
    card, at the shapes the main paths give them (O(1) random cotangents,
    f32 and bf16, the tolerances of ``TOLERANCES``): the LSTM and GRU
@@ -28,7 +29,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    batches forward only), the long-context shape (64, 1024, 128) in bf16
    and f32 (also causal, where the diagonal tiles mask), D=8, D=72,
    causal with offsets, a ragged T=300, cross lengths 96/160 and a chunk
-   that sees no key (o = 0, lse = -inf).
+   that sees no key (o = 0, lse = -inf); ``flash_dqkv`` at every f32 case
+   in its range (Tq, Tk <= 128, D <= 64: the CLI train batches, D=8,
+   causal offsets, the no-key chunk, a ragged causal 77/100 at D=30 and
+   D=64), and two of its launches bitwise equal.
 4. main paths, each driven with the launch counts set to 0 just before it
    and read just after, on synthetic data at full size:
    a. ``main ... local`` for 2 epochs: the motion LSTM with the default
@@ -42,10 +46,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    f. the same with the CLI's default cell, the LSTM (run after c);
    d. the attention classifier ``--model attention --hidden-units 128
       --num-heads 4 --stacked-layer 2 --batch-size 256 --dropout 0`` on the
-      HAR windows of (a);
+      HAR windows of (a): ``flash_fwd`` and one ``flash_dqkv`` a block a
+      train step, no ``flash_dq``/``flash_dkv``;
    e. the long-context classifier (dim 512, 4 heads, depth 2, bf16,
       T=1024) trained 10 Adam steps at batch 16 on seeded random windows,
-      through the model and a train-step loop.
+      through the model and a train-step loop: ``flash_fwd``, ``flash_dq``
+      and ``flash_dkv``, no ``flash_dqkv``.
    Each checks finite losses (a-d, f: and the perf line), that its kernels
    were launched and no others (c, f: one of each a layer a train step),
    and that the trained model's kernel path agrees with its plain path:
@@ -62,7 +68,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    the backward kernels SDPA's whole backward, timed as the device time of
    its kernels under ``torch.profiler`` so that the host's pace does not
    count; timed here only, never called by the port) at each main shape
-   (the RNN kernels at (1440, 32) and (256, 512)), beside each kernel's
+   (the RNN kernels at (1440, 32) and (256, 512); ``flash_dqkv`` beside
+   the split route it replaced, on the same inputs), beside each kernel's
    bound; each kernel at one block (or one cluster), its serial floor; the
    LSTM forward at 4, 8, 12 and 16 rows a block; the LSTM cluster kernels
    on both sides of their f32 slices' fit and in bf16; and the cluster
@@ -127,7 +134,7 @@ LSTM_FWD_TILES = (4, 8, 12, 16)
 # the kernels whose ptxas report must show no stack frame and no spills,
 # every instance (dtype, variant)
 NO_STACK_KERNELS = ("gru_fwd_cluster_kernel", "lstm_fwd_kernel", "lstm_fwd_cluster_kernel",
-                    "lstm_bwd_cluster_kernel")
+                    "lstm_bwd_cluster_kernel", "flash_dqkv_tc_kernel")
 # the scan path's train steps profiled once beside path f (the char LSTM)
 SCAN_PROFILE_EPOCHS = 1
 LOGIT_TOL = 1e-4  # trained fused logits against the scan path, f32
@@ -153,9 +160,11 @@ PROFILE_EPOCHS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense
-# the bf16 flash kernels, one instance per padded head dim (16, 32, 64, 128):
-# flash_fwd_tc_kernel, flash_dq_tc_kernel, flash_dkv_tc_kernel
-N_TENSOR_CORE_KERNELS = 12
+TF32_FLOPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense
+# the tensor-core kernels, one instance per padded head dim: the bf16
+# flash_fwd_tc_kernel, flash_dq_tc_kernel, flash_dkv_tc_kernel (16, 32, 64,
+# 128) and the float32 3xTF32 flash_dqkv_tc_kernel (16, 32, 64)
+N_TENSOR_CORE_KERNELS = 15
 REPLACES = {
     "lstm_fwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:100",
     "lstm_bwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:166",
@@ -164,9 +173,11 @@ REPLACES = {
     "flash_fwd": "pytorch_distributed_rnn_tpu/ops/pallas_attention.py:108",
     "flash_dq": "pytorch_distributed_rnn_tpu/ops/pallas_attention.py:230",
     "flash_dkv": "pytorch_distributed_rnn_tpu/ops/pallas_attention.py:266",
+    "flash_dqkv": "pytorch_distributed_rnn_tpu/ops/pallas_attention.py:230,266",
 }
 SOURCES = {name: f"pytorch_distributed_rnn_tpu_torch/csrc/{name}.cu" for name in REPLACES}
-SOURCES["flash_dq"] = SOURCES["flash_dkv"] = "pytorch_distributed_rnn_tpu_torch/csrc/flash_bwd.cu"
+for _name in ("flash_dq", "flash_dkv", "flash_dqkv"):
+    SOURCES[_name] = "pytorch_distributed_rnn_tpu_torch/csrc/flash_bwd.cu"
 
 
 def phase_device():
@@ -231,8 +242,9 @@ def _hmma_counts(lib: Path) -> dict:
 
 def phase_build():
     """Build every kernel source; print each kernel's registers and spills,
-    and check in the SASS that the bf16 flash kernels run on the tensor
-    cores (HMMA) and the others (the f32 flash and all RNN kernels) do not."""
+    and check in the SASS that the tensor-core flash kernels (``*_tc_kernel``:
+    bf16, and the 3xTF32 ``flash_dqkv``) hold HMMA and the others (the split
+    f32 flash and all RNN kernels) do not."""
     from pytorch_distributed_rnn_tpu_torch import _build
 
     t0 = time.perf_counter()
@@ -248,7 +260,7 @@ def phase_build():
                 checked += names
                 if stack or spill_st or spill_ld:
                     raise RuntimeError(f"{kernel}: a stack frame or spills in the ptxas report")
-    if any(checked.count(name) < 2 for name in NO_STACK_KERNELS):  # f32 and bf16 at least
+    if any(checked.count(name) < 2 for name in NO_STACK_KERNELS):  # two instances at least
         raise RuntimeError(f"ptxas reported {checked}, not every instance of {NO_STACK_KERNELS}")
     hmma = {}
     for source in sorted(libs):
@@ -257,9 +269,9 @@ def phase_build():
         hmma.update(counts)
     tc = {name: n for name, n in hmma.items() if "_tc_kernel" in name}
     if len(tc) != N_TENSOR_CORE_KERNELS or not all(tc.values()):
-        raise RuntimeError(f"the bf16 flash kernels are not all on the tensor cores: {tc}")
+        raise RuntimeError(f"the tensor-core flash kernels are not all on the tensor cores: {tc}")
     if others := {name: n for name, n in hmma.items() if name not in tc and n}:
-        raise RuntimeError(f"kernels other than the bf16 flash kernels hold HMMA: {others}")
+        raise RuntimeError(f"kernels other than the tensor-core flash kernels hold HMMA: {others}")
 
 
 def _max_err(got, want) -> float:
@@ -406,6 +418,10 @@ def _flash_cases(dtype) -> list:
          True),
         # a head dim of whole 16-byte chunks but not of whole 16-column k-steps
         ("D=72", 16, SEQ_LEN, SEQ_LEN, 72, False, 0, 0, True),
+        # flash_dqkv's edges: ragged chunks and keys, rows not 16-byte aligned
+        # (element copies), causal with an offset; its widest head dim
+        ("short ragged causal", 16, 77, 100, 30, True, 40, 0, True),
+        ("D=64", 16, SEQ_LEN, SEQ_LEN, 64, False, 0, 0, True),
     ]
 
 
@@ -430,6 +446,22 @@ def _check_lse(got, want, tol, label, failures):
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"flash_fwd lse {label}")
+
+
+def _check_dqkv(args, kw, tol, label, failures) -> float:
+    """``flash_dqkv`` against its plain version, and a second launch
+    bitwise equal to the first; returns the max abs error."""
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_attention as fa
+
+    got = fa.flash_dqkv(*args, **kw)
+    again = fa.flash_dqkv(*args, **kw)
+    err = _report("flash_dqkv", torch.float32, label, got, fa.flash_dqkv_plain(*args, **kw), tol,
+                  failures)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"flash_dqkv float32 {label}: two launches bitwise equal={same}")
+    if not same:
+        failures.append(f"flash_dqkv {label}: two launches differ")
+    return err
 
 
 def phase_flash_kernels() -> dict:
@@ -464,6 +496,9 @@ def phase_flash_kernels() -> dict:
                                            (fa.flash_dq_plain(*args, **kw),), tol_b, failures)
                 errs["flash_dkv"] = _report("flash_dkv", dtype, full, fa.flash_dkv(*args, **kw),
                                             fa.flash_dkv_plain(*args, **kw), tol_b, failures)
+                if fa.flash_bwd_route(t_q, t_k, d, dtype) == "dqkv":
+                    errs["flash_dqkv"] = _check_dqkv((q, k, v, o_p, do, lse_p), kw, tol_b, full,
+                                                     failures)
             shape = _flash_shape(bh, t_q, d, dtype)
             if shape == main_shapes[dtype] and backward and not causal:
                 main_errs.update({(name, shape): err for name, err in errs.items()})
@@ -666,22 +701,23 @@ def phase_char(workdir: Path, cell: str) -> PathRun:
     return run
 
 
-def _check_flash_path(name, trainer, launches, steps, eval_forwards, batch):
-    """The flash kernels launched and no others; launches per train step
-    from the counts: every train step runs each block's forward, dQ and
-    dK/dV kernel once; ``eval_forwards`` block calls ran forward only."""
-    kernels = ("flash_fwd", "flash_dq", "flash_dkv")
+def _check_flash_path(name, trainer, launches, steps, eval_forwards, batch, backward):
+    """``flash_fwd`` and the ``backward`` kernels launched and no others;
+    launches per train step from the counts: every train step runs each
+    block's forward and each backward kernel once; ``eval_forwards`` block
+    calls ran forward only."""
+    kernels = ("flash_fwd", *backward)
     for kernel, count in launches.items():
         if kernel in kernels and count <= 0:
             raise RuntimeError(f"{name}: main path never launched kernel {kernel}")
         if kernel not in kernels and count != 0:
             raise RuntimeError(f"{name}: main path launched {kernel} {count} times")
     train_fwd = launches["flash_fwd"] - eval_forwards
-    if not train_fwd == launches["flash_dq"] == launches["flash_dkv"]:
-        raise RuntimeError(f"{name}: train-step forwards {train_fwd}, dQ {launches['flash_dq']}, "
-                           f"dK/dV {launches['flash_dkv']}")
-    per_step = {"flash_fwd": train_fwd / steps, "flash_dq": launches["flash_dq"] / steps,
-                "flash_dkv": launches["flash_dkv"] / steps}
+    if any(launches[kernel] != train_fwd for kernel in backward):
+        raise RuntimeError(f"{name}: train-step forwards {train_fwd}, backward launches "
+                           f"{ {kernel: launches[kernel] for kernel in backward} }")
+    per_step = {kernel: launches[kernel] / steps for kernel in kernels}
+    per_step["flash_fwd"] = train_fwd / steps
     print(f"  train steps: {steps}, forward-only block calls: {eval_forwards}, "
           f"launches per train step: {per_step}")
     return PathRun(name, trainer, batch, kernels, launches, per_step)
@@ -716,7 +752,7 @@ def phase_attention(workdir: Path) -> PathRun:
     steps = -(-len(trainer.training_set) // ATTN_BATCH) * len(history["train_history"])
     evaluations = len(history["validation_history"]) + 1
     run = _check_flash_path("attention", trainer, launches, steps,
-                            evaluations * len(trainer.model.blocks), ATTN_BATCH)
+                            evaluations * len(trainer.model.blocks), ATTN_BATCH, ("flash_dqkv",))
     x = torch.from_numpy(trainer.test_set.features[:64]).cuda()
     flash = _flash_vs_dense(trainer.model, x, LOGIT_TOL, "attention")
     if flash.shape != (64, 6):
@@ -760,7 +796,8 @@ def phase_long_context():
     print(f"  {time.perf_counter() - t0:.2f} s, losses={losses}, launches={launches}")
     if not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"long context: losses not finite: {losses}")
-    run = _check_flash_path("long context", model, launches, LONG_STEPS, 0, LONG_BATCH)
+    run = _check_flash_path("long context", model, launches, LONG_STEPS, 0, LONG_BATCH,
+                            ("flash_dq", "flash_dkv"))
     flash = _flash_vs_dense(model, x, LOGIT_TOL_BF16, "long context")
     if flash.shape != (LONG_BATCH, 6):
         raise RuntimeError(f"long context: logits of shape {tuple(flash.shape)}")
@@ -1054,24 +1091,34 @@ def _flash_bounds(bh: int, t: int, d: int, dtype) -> dict:
     the card's rate for the dtype (float32 on the CUDA cores, bf16 on the
     tensor cores).  The forward reads q, k, v and writes o and lse; dQ
     reads q, k, v, dO, lse and delta and writes dQ; dK/dV reads the same
-    and writes dK and dV.  Each product is 2 BH T^2 D operations: the
+    and writes dK and dV; the fused backward reads q, k, v, o, dO and lse
+    and writes dQ, dK and dV.  Each product is 2 BH T^2 D operations: the
     forward does 2 (q k^T, p v), dQ 3 (s, dp, ds k), dK/dV 4 (s, dp, p^T
-    dO, ds^T q)."""
+    dO, ds^T q), the fused backward 5 (s, dp, ds k, p^T dO, ds^T q).  The
+    fused backward is bounded by the pipe it runs on: in float32 each of
+    its products is three TF32 products (3xTF32) on the tensor cores, at
+    the TF32 rate."""
     seq = bh * t * d * (2 if dtype == torch.bfloat16 else 4)
     rows = bh * t * 4
     product = 2 * bh * t * t * d
-    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    if dtype == torch.bfloat16:
+        rate, fused_ops, fused_rate = BF16_FLOPS_PER_S, 5 * product, BF16_FLOPS_PER_S
+    else:
+        rate, fused_ops, fused_rate = F32_FLOPS_PER_S, 3 * 5 * product, TF32_FLOPS_PER_S
     return {
         "flash_fwd": _bound_ms(4 * seq + rows, 2 * product, rate),
         "flash_dq": _bound_ms(5 * seq + 2 * rows, 3 * product, rate),
         "flash_dkv": _bound_ms(6 * seq + 2 * rows, 4 * product, rate),
+        "flash_dqkv": _bound_ms(8 * seq + rows, fused_ops, fused_rate),
     }
 
 
 def _flash_calls(bh: int, t: int, d: int, dtype, heads: int) -> dict:
     """Each flash kernel, its plain version, the same kernel at one block
-    and ``scaled_dot_product_attention`` (forward, or its whole backward)
-    on the same inputs, as ``(kernel, plain, one block, library)``."""
+    (``flash_dqkv``: one head) and ``scaled_dot_product_attention``
+    (forward, or its whole backward) on the same inputs, as ``(kernel,
+    plain, one block, library)``; under ``"split"`` the backward as the
+    split route runs it (delta in torch, ``flash_dq``, ``flash_dkv``)."""
     from pytorch_distributed_rnn_tpu_torch.ops import fused_attention as fa
 
     q, k, v, do = _flash_inputs(bh, t, t, d, dtype, seed=11)
@@ -1100,6 +1147,14 @@ def _flash_calls(bh: int, t: int, d: int, dtype, heads: int) -> dict:
     def lib_bwd():
         torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
 
+    fused = (q, k, v, o, do, lse)
+    one_head = tuple(first(x) for x in fused)
+
+    def split():
+        delta = (do.float() * o.float()).sum(dim=-1)
+        fa.flash_dq(q, k, v, do, lse, delta)
+        fa.flash_dkv(q, k, v, do, lse, delta)
+
     return {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_fwd_plain(q, k, v),
                       lambda: fa.flash_fwd(*one_q[:3]), lib_fwd),
@@ -1107,6 +1162,9 @@ def _flash_calls(bh: int, t: int, d: int, dtype, heads: int) -> dict:
                      lambda: fa.flash_dq(*one_q), lib_bwd),
         "flash_dkv": (lambda: fa.flash_dkv(*bwd), lambda: fa.flash_dkv_plain(*bwd),
                       lambda: fa.flash_dkv(*one_k), lib_bwd),
+        "flash_dqkv": (lambda: fa.flash_dqkv(*fused), lambda: fa.flash_dqkv_plain(*fused),
+                       lambda: fa.flash_dqkv(*one_head), lib_bwd),
+        "split": split,
     }
 
 
@@ -1126,9 +1184,14 @@ def _glue_ms(batch: int, heads: int, t: int, d: int, dtype) -> float:
 
 
 def phase_flash_timing(runs: dict, errs: dict) -> list:
-    """Each flash kernel at the two main shapes beside its bound, its plain
-    version and SDPA; ``serial_ms`` is the kernel at one block (one 64-row
-    tile of one head)."""
+    """The flash kernels of each main path at its shape beside their bounds,
+    plain versions and SDPA; ``serial_ms`` is the kernel at one block (one
+    64-row tile of one head; ``flash_dqkv``: one head).  At the CLI shape
+    ``flash_dqkv`` also carries the split route's times on the same inputs
+    (``split_dq_ms``, ``split_dkv_ms``, and ``split_ms``: delta, dQ and
+    dK/dV as the backward ran them before)."""
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_attention as fa
+
     rows = []
     for run, batch, dim, heads, t, dtype in (
         (runs["attention"], ATTN_BATCH, ATTN_DIM, ATTN_HEADS, SEQ_LEN, torch.float32),
@@ -1139,7 +1202,9 @@ def phase_flash_timing(runs: dict, errs: dict) -> list:
         bounds = _flash_bounds(bh, t, d, dtype)
         calls = _flash_calls(bh, t, d, dtype, heads)
         sdpa_bwd_ms, sdpa_bwd_kernels = _device_ms(calls["flash_dq"][3])
-        for name, (kernel, plain, one_block, library) in calls.items():
+        fused = fa.flash_bwd_route(t, t, d, dtype) == "dqkv"
+        for name in ("flash_fwd", *(("flash_dqkv",) if fused else ("flash_dq", "flash_dkv"))):
+            kernel, plain, one_block, library = calls[name]
             rows.append({
                 "name": name,
                 "route": "cuda",
@@ -1156,6 +1221,12 @@ def phase_flash_timing(runs: dict, errs: dict) -> list:
                 "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1],
                 "library_ms": _time_ms(library, 20) if name == "flash_fwd" else sdpa_bwd_ms,
+            })
+        if fused:
+            rows[-1].update({
+                "split_dq_ms": _time_ms(calls["flash_dq"][0], 20),
+                "split_dkv_ms": _time_ms(calls["flash_dkv"][0], 20),
+                "split_ms": _time_ms(calls["split"], 20),
             })
         print(f"timing flash at {shape}; serial_ms at one block; library_ms is "
               "scaled_dot_product_attention forward (CUDA events) / whole backward (dQ, dK, dV: "

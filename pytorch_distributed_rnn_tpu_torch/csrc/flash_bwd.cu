@@ -1,9 +1,11 @@
-// Flash-attention backward for Hopper (sm_90a): the dQ and the dK/dV kernel.
+// Flash-attention backward for Hopper (sm_90a): the dQ and the dK/dV kernel,
+// and the two fused into one for float32 at short key lengths.
 //
 // Replace the TPU kernels pytorch_distributed_rnn_tpu/ops/pallas_attention.py:
 // _dq_kernel (flash_dq) and _dkv_kernel (flash_dkv), both launched by
-// _bwd_impl.  Both recompute the probabilities from the forward's row
-// logsumexp instead of storing them:
+// _bwd_impl, and for float32 at Tk <= 128, D <= 64 both of them and
+// _delta_of (flash_dqkv).  All recompute the probabilities from the
+// forward's row logsumexp instead of storing them:
 //   p  = exp(q . k^T * scale - lse), 0 where masked or not finite
 //   dp = dO . v^T,  ds = p * (dp - delta) * scale   (delta = rowsum(dO * o))
 //   flash_dq:  dQ = ds . K            (ds cast to k's dtype first)
@@ -52,6 +54,26 @@
 // K, V and ds (149 KB at D = 128); dK/dV holds K, V, Q, dO, p^T, ds^T and
 // the tile's lse and delta (166 KB), with dK and dV accumulating in
 // registers.
+//
+// float32 at Tq, Tk <= 128 and D <= 64 (flash_dqkv_tc_kernel, the attention
+// classifier's backward at BH = 1024, T = 128, D = 32): the split pair
+// forms S and dP twice (7 products where 5 do), reads Q, K, V and dO twice,
+// feeds its CUDA-core products with scalar shared-memory reads (about 3
+// loads for 4 FMAs), and needs delta from a torch pass over O and dO.  Here
+// one block of 8 warps owns a head: its K and V stay in shared memory, warp
+// w owns keys 16w .. 16w + 15 and their dK and dV in registers, and the
+// block walks the queries in chunks of 32, forming delta, S and dP once per
+// (query, key), writing dQ per chunk and dK, dV once (no atomics, the same
+// bits every run).  The products run on the tensor cores as 3xTF32
+// (mma.sync m16n8k8: each float32 operand split into a TF32 high part and
+// the rest, three TF32 products a product, float32 sums), which keeps
+// float32's accuracy; on the CUDA cores the same products wait on
+// shared-memory reads (16 bytes for every 8 FMAs with 4 x 4 register
+// tiles).  p and ds go from the S^T and dP^T C tiles straight into the A
+// operands of dV and dK; dS also goes through shared memory for dQ.  Bound at the CLI shape:
+// 135 MB moved (40 us at 3.35 TB/s) against 5 products as three TF32
+// products each, 16.1 GFLOP (33 us at the tensor cores' 495 TFLOP/s), so
+// bytes bound.  108 KB of shared memory at D = 32: two blocks an SM.
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 
@@ -299,6 +321,342 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<DP>(dv + k_base * d, dv_acc, k0, t_k, d, ty, tx);
 }
 
+// p = exp(s * scale - lse) of a visible score, else 0; not finite (a row
+// with lse = -inf) gives 0 too.  s_log2 = s * scale * log2(e), lse_log2 =
+// lse * log2(e).
+__device__ __forceinline__ float recompute_p_log2(float s_log2, float lse_log2, bool ok) {
+  const float p = ok ? exp2f(s_log2 - lse_log2) : 0.0f;
+  return isfinite(p) ? p : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// float32 at short key lengths: dQ, dK, dV and delta in one block a head,
+// on the tensor cores in 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int kDqkvMaxKeys = 128;    // a head's keys, all in shared memory
+constexpr int kDqkvMaxHeadDim = 64;
+constexpr int kChunkRows = 32;       // queries a chunk
+constexpr int kDsStride = kDqkvMaxKeys + 8;  // dS rows: 8 banks apart
+constexpr int kDqParts = 4;  // dQ: the keys split in quarters over the warps
+
+template <int DP>
+struct Dqkv {
+  static_assert(DP == 16 || DP == 32 || DP == 64, "padded head dim");
+  // K, V, Q, dO and O rows 8 banks apart: a half-warp's 8-byte reads of
+  // (row g, columns 2t, 2t + 1) are free of bank conflicts
+  static constexpr int kStride = DP + 8;
+  static constexpr int kVecs = DP / 4;                // 16-byte chunks a row
+  static constexpr int kSteps = DP / 8;               // 8-wide steps of the head dim
+  static constexpr int kMinBlocks = DP <= 32 ? 2 : 1;  // blocks an SM (registers <= 128)
+};
+
+// K, V; Q, dO and O in two stages; dS; dQ's partial sums; lse in two
+// stages and delta of the chunk
+template <int DP>
+size_t dqkv_smem_bytes() {
+  return sizeof(float) * ((size_t)(2 * kDqkvMaxKeys + 6 * kChunkRows) * Dqkv<DP>::kStride +
+                          kChunkRows * kDsStride + kDqParts * kChunkRows * (DP + 4) +
+                          3 * kChunkRows);
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Rows [row0, row0 + ROWS) of one head's (n_rows, d) float32 matrix into a
+// shared tile of row stride DP + 8 by cp.async, which the caller commits and
+// waits for; rows past n_rows and columns past d are zero.  16-byte copies
+// with vec (d % 4 == 0 and 16-byte aligned rows), else 4-byte ones.
+template <int ROWS, int DP>
+__device__ __forceinline__ void stage_rows(float* tile, const float* __restrict__ src, int row0,
+                                           int n_rows, int d, int vec) {
+  using C = Dqkv<DP>;
+  const uint32_t base = smem_addr(tile);
+  if (vec) {
+    for (int i = threadIdx.x; i < ROWS * C::kVecs; i += kThreads) {
+      const int r = i / C::kVecs;
+      const int c = 4 * (i % C::kVecs);
+      const int row = row0 + r;
+      const bool ok = row < n_rows && c < d;
+      cp_async_16(base + 4 * (r * C::kStride + c), ok ? src + (size_t)row * d + c : src, ok);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < ROWS * DP; i += kThreads) {
+    const int r = i / DP;
+    const int c = i % DP;
+    const int row = row0 + r;
+    const bool ok = row < n_rows && c < d;
+    cp_async_4(base + 4 * (r * C::kStride + c), ok ? src + (size_t)row * d + c : src, ok);
+  }
+}
+
+// The 3xTF32 operands of m16n8k8 from float32 values, and the product.
+// Inside each 8-wide step of a contraction, mma index t stands for the
+// step's element 2t and t + 4 for 2t + 1 (any order of a sum's terms gives
+// the same product): so A's a[0], a[2] are one row's neighbours 2t, 2t + 1,
+// B's b0, b1 one column's, one 8-byte read each, and a C tile's (c[0],
+// c[2], c[1], c[3]) is the A operand of the next product over its columns.
+struct A3 {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ A3(float a0, float a1, float a2, float a3) {
+    split_tf32(a0, hi[0], lo[0]);
+    split_tf32(a1, hi[1], lo[1]);
+    split_tf32(a2, hi[2], lo[2]);
+    split_tf32(a3, hi[3], lo[3]);
+  }
+};
+
+struct B3 {
+  uint32_t hi0, hi1, lo0, lo1;
+  __device__ __forceinline__ B3(float b0, float b1) {
+    split_tf32(b0, hi0, lo0);
+    split_tf32(b1, hi1, lo1);
+  }
+};
+
+__device__ __forceinline__ void mma3(float (&c)[4], const A3& a, const B3& b) {
+  mma_tf32(c, a.lo, b.hi0, b.hi1);
+  mma_tf32(c, a.hi, b.lo0, b.lo1);
+  mma_tf32(c, a.hi, b.hi0, b.hi1);
+}
+
+// the same with the two small terms in their own sums, so a long
+// contraction is two chains of dependent mma, not one
+__device__ __forceinline__ void mma3(float (&c)[4], float (&small)[4], const A3& a, const B3& b) {
+  mma_tf32(small, a.lo, b.hi0, b.hi1);
+  mma_tf32(small, a.hi, b.lo0, b.lo1);
+  mma_tf32(c, a.hi, b.hi0, b.hi1);
+}
+
+// dQ, dK and dV of one head (blockIdx.x) of Tq, Tk <= 128, its keys in
+// shared memory for the whole launch.  The block walks the queries in
+// chunks of 32, Q, dO, O and lse of chunk c + 1 arriving by cp.async while
+// chunk c computes.  Warp w owns keys 16w .. 16w + 15 and their dK, dV C
+// tiles.  Per chunk:
+//   1. delta = rowsum(dO * O) of the chunk's rows (8 lanes a row);
+//   2. each warp: S^T = K_w Q^T and dP^T = V_w dO^T (four 16 x 8 C tiles
+//      each), p^T and ds^T in those registers, ds^T also stored to shared
+//      memory as dS; dV += P^T dO and dK += dS^T Q with P^T and dS^T as A
+//      operands straight from the C tiles;
+//   3. dQ = dS K for the chunk: warp w sums 16 queries by all columns over
+//      a quarter of the keys (each A operand split once for DP / 8
+//      products), the quarters are added in shared memory in a fixed order
+//      and stored to device memory in 16-byte rows.
+// Every output element has one writer and a fixed order of sums: no
+// atomics, and two launches give the same bits.  Warps whose keys lie
+// wholly past the chunk's last visible key skip their products.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, Dqkv<DP>::kMinBlocks)
+    flash_dqkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ o,
+                         const float* __restrict__ d_o, const float* __restrict__ lse,
+                         float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                         int t_q, int t_k, int d, float scale, int causal, int q_off, int k_off,
+                         int vec) {
+  using C = Dqkv<DP>;
+  constexpr int S = C::kStride;
+  constexpr int KS = C::kSteps;
+  constexpr int kTile = kChunkRows * S;
+  extern __shared__ float smem[];
+  float* k_s = smem;                          // (128, S)
+  float* v_s = k_s + kDqkvMaxKeys * S;        // (128, S)
+  float* q_s = v_s + kDqkvMaxKeys * S;        // two stages of (32, S)
+  float* do_s = q_s + 2 * kTile;              // two stages
+  float* o_s = do_s + 2 * kTile;              // two stages
+  float* ds_s = o_s + 2 * kTile;              // (32, kDsStride)
+  float* part_s = ds_s + kChunkRows * kDsStride;  // (kDqParts, 32, DP + 4)
+  float* lse_s = part_s + kDqParts * kChunkRows * (DP + 4);  // two stages of (32)
+  float* delta_s = lse_s + 2 * kChunkRows;       // (32)
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int kr = 16 * warp;  // the warp's keys
+  const size_t q_base = (size_t)blockIdx.x * t_q;
+  const size_t k_base = (size_t)blockIdx.x * t_k;
+  const int n_chunks = (t_q + kChunkRows - 1) / kChunkRows;
+  const float scale_log2 = scale * kLog2e;
+
+  auto stage_chunk = [&](int c) {
+    const int st = c & 1;
+    const int row0 = c * kChunkRows;
+    stage_rows<kChunkRows, DP>(q_s + st * kTile, q + q_base * d, row0, t_q, d, vec);
+    stage_rows<kChunkRows, DP>(do_s + st * kTile, d_o + q_base * d, row0, t_q, d, vec);
+    stage_rows<kChunkRows, DP>(o_s + st * kTile, o + q_base * d, row0, t_q, d, vec);
+    if (threadIdx.x < kChunkRows) {
+      const bool ok = row0 + threadIdx.x < t_q;
+      cp_async_4(smem_addr(lse_s + st * kChunkRows + threadIdx.x),
+                 ok ? lse + q_base + row0 + threadIdx.x : lse, ok);
+    }
+  };
+  stage_rows<kDqkvMaxKeys, DP>(k_s, k + k_base * d, 0, t_k, d, vec);
+  stage_rows<kDqkvMaxKeys, DP>(v_s, v + k_base * d, 0, t_k, d, vec);
+  stage_chunk(0);
+  cp_async_commit();
+
+  float dk_acc[KS][4], dv_acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
+  }
+
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    const int q0 = chunk * kChunkRows;
+    cp_async_wait<0>();
+    __syncthreads();  // the chunk has landed; every thread is done with the last one
+    if (chunk + 1 < n_chunks) stage_chunk(chunk + 1);
+    cp_async_commit();
+    const int st = chunk & 1;
+    const float* qc = q_s + st * kTile;
+    const float* doc = do_s + st * kTile;
+    const float* lc = lse_s + st * kChunkRows;
+    const int k_end = key_end(q0, t_q, t_k, causal, q_off, k_off, kChunkRows);
+
+    // 1. delta of row threadIdx.x / 8, its columns split over 8 lanes
+    {
+      const int row = threadIdx.x / 8;
+      const float* a = doc + row * S;
+      const float* b = o_s + st * kTile + row * S;
+      float part = 0.0f;
+#pragma unroll
+      for (int c = threadIdx.x % 8; c < DP; c += 8) part = fmaf(a[c], b[c], part);
+#pragma unroll
+      for (int m = 1; m < 8; m *= 2) part += __shfl_xor_sync(0xffffffffu, part, m);
+      if (threadIdx.x % 8 == 0) delta_s[row] = part;
+    }
+    __syncthreads();  // delta of the chunk
+
+    // 2. the warp's 16 keys against the chunk's 32 queries (4 n-tiles)
+    if (kr < k_end) {
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const int col = 8 * ks + 2 * t;
+        const float2 k0 = ld2(k_s + (kr + g) * S + col), k1 = ld2(k_s + (kr + g + 8) * S + col);
+        const float2 v0 = ld2(v_s + (kr + g) * S + col), v1 = ld2(v_s + (kr + g + 8) * S + col);
+        const A3 ka(k0.x, k1.x, k0.y, k1.y);
+        const A3 va(v0.x, v1.x, v0.y, v1.y);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 qv = ld2(qc + (8 * j + g) * S + col);
+          const float2 ov = ld2(doc + (8 * j + g) * S + col);
+          mma3(s[j], ka, B3(qv.x, qv.y));
+          mma3(dp[j], va, B3(ov.x, ov.y));
+        }
+      }
+      // p^T and ds^T in place: element e of tile j is (key kr + g + 8 (e >> 1),
+      // query q0 + 8 j + 2 t + (e & 1))
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * j + 2 * t + (e & 1);
+          const int key = kr + g + 8 * (e >> 1);
+          const bool ok = visible(q0 + qi, key, t_q, t_k, causal, q_off, k_off);
+          const float p = recompute_p_log2(s[j][e] * scale_log2, lc[qi] * kLog2e, ok);
+          const float ds = p * (dp[j][e] - delta_s[qi]) * scale;
+          s[j][e] = p;
+          dp[j][e] = ds;
+          ds_s[qi * kDsStride + key] = ds;
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q: k-step j is the chunk's queries 8 j ..
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const A3 pa(s[j][0], s[j][2], s[j][1], s[j][3]);
+        const A3 sa(dp[j][0], dp[j][2], dp[j][1], dp[j][3]);
+        const float* o0 = doc + (8 * j + 2 * t) * S + g;
+        const float* q0r = qc + (8 * j + 2 * t) * S + g;
+#pragma unroll
+        for (int n = 0; n < KS; ++n) {
+          mma3(dv_acc[n], pa, B3(o0[8 * n], o0[8 * n + S]));
+          mma3(dk_acc[n], sa, B3(q0r[8 * n], q0r[8 * n + S]));
+        }
+      }
+    }
+    __syncthreads();  // dS of the chunk
+
+    // 3. dQ of the chunk: warp w sums queries 16 (w % 2) .. + 15, all
+    // columns, over the keys 32 (w / 2) .. + 31 of its quarter; the four
+    // quarters' partial sums are added in shared memory in a fixed order
+    {
+      constexpr int P = DP + 4;  // partial rows: 4 banks apart
+      const int m = 16 * (warp % 2);
+      const int k0 = 32 * (warp / 2);
+      float acc[KS][4] = {}, small[KS][4] = {};
+      const int k1 = min(k0 + 32, (max(k_end, 0) + 7) / 8 * 8);  // dS is 0 from there on
+      for (int kk = k0; kk < k1; kk += 8) {
+        const float2 a0 = ld2(ds_s + (m + g) * kDsStride + kk + 2 * t);
+        const float2 a1 = ld2(ds_s + (m + g + 8) * kDsStride + kk + 2 * t);
+        const A3 a(a0.x, a1.x, a0.y, a1.y);
+        const float* kb = k_s + (kk + 2 * t) * S + g;
+#pragma unroll
+        for (int n = 0; n < KS; ++n) mma3(acc[n], small[n], a, B3(kb[8 * n], kb[8 * n + S]));
+      }
+      float* part = part_s + (warp / 2) * kChunkRows * P;
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        const int col = 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(part + (m + g) * P + col) =
+            make_float2(acc[n][0] + small[n][0], acc[n][1] + small[n][1]);
+        *reinterpret_cast<float2*>(part + (m + g + 8) * P + col) =
+            make_float2(acc[n][2] + small[n][2], acc[n][3] + small[n][3]);
+      }
+      __syncthreads();  // the partial sums
+      for (int i = threadIdx.x; i < kChunkRows * C::kVecs; i += kThreads) {
+        const int r = i / C::kVecs;
+        const int c = 4 * (i % C::kVecs);
+        float4 sum = ld4(part_s + r * P + c);
+#pragma unroll
+        for (int h = 1; h < kDqParts; ++h) {
+          const float4 x = ld4(part_s + (h * kChunkRows + r) * P + c);
+          sum.x += x.x;
+          sum.y += x.y;
+          sum.z += x.z;
+          sum.w += x.w;
+        }
+        const int row = q0 + r;
+        if (row >= t_q || c >= d) continue;
+        float* out = dq + (q_base + row) * d + c;
+        if (vec) {
+          *reinterpret_cast<float4*>(out) = sum;
+        } else {
+          out[0] = sum.x;
+          if (c + 1 < d) out[1] = sum.y;
+          if (c + 2 < d) out[2] = sum.z;
+          if (c + 3 < d) out[3] = sum.w;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kr + g + 8 * (e >> 1);
+      const int col = 8 * n + 2 * t + (e & 1);
+      if (key < t_k && col < d) {
+        dk[(k_base + key) * d + col] = dk_acc[n][e];
+        dv[(k_base + key) * d + col] = dv_acc[n][e];
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores
 // ---------------------------------------------------------------------------
@@ -322,14 +680,6 @@ size_t dq_tc_smem_bytes() {
 template <int DP>
 size_t dkv_tc_smem_bytes() {
   return 6 * tile_bytes<DP>() + 2 * 2 * kBlockM * sizeof(float);
-}
-
-// p = exp(s * scale - lse) of a visible score, else 0; not finite (a row
-// with lse = -inf) gives 0 too.  s_log2 = s * scale * log2(e), lse_log2 =
-// lse * log2(e).
-__device__ __forceinline__ float recompute_p_log2(float s_log2, float lse_log2, bool ok) {
-  const float p = ok ? exp2f(s_log2 - lse_log2) : 0.0f;
-  return isfinite(p) ? p : 0.0f;
 }
 
 // dQ of one (head, 64-query tile).  Warp w owns queries q0 + 16w..+15: its
@@ -672,6 +1022,52 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* d_o
   });
 }
 
+template <int DP>
+int launch_dqkv_dp(const void* q, const void* k, const void* v, const void* o, const void* d_o,
+                   const void* lse, void* dq, void* dk, void* dv, int bh, int t_q, int t_k,
+                   int d, float scale, int causal, int q_off, int k_off, int vec,
+                   cudaStream_t stream) {
+  const auto kernel = flash_dqkv_tc_kernel<DP>;
+  const size_t smem = dqkv_smem_bytes<DP>();
+  // all of the SM's shared memory as the carveout: two blocks an SM up to DP = 32
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<bh, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(d_o),
+      static_cast<const float*>(lse), static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), t_q, t_k, d, scale, causal, q_off, k_off, vec);
+  return (int)cudaGetLastError();
+}
+
+int launch_dqkv(const void* q, const void* k, const void* v, const void* o, const void* d_o,
+                const void* lse, void* dq, void* dk, void* dv, int bh, int t_q, int t_k, int d,
+                float scale, int causal, int q_off, int k_off, cudaStream_t stream) {
+  if (bh < 1 || t_q < 1 || t_q > kDqkvMaxKeys || t_k < 1 || t_k > kDqkvMaxKeys || d < 1 ||
+      d > kDqkvMaxHeadDim) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+                        reinterpret_cast<uintptr_t>(d_o);
+  const int vec = d % 4 == 0 && any % 16 == 0;
+  if (d <= 16) {
+    return launch_dqkv_dp<16>(q, k, v, o, d_o, lse, dq, dk, dv, bh, t_q, t_k, d, scale, causal,
+                              q_off, k_off, vec, stream);
+  }
+  if (d <= 32) {
+    return launch_dqkv_dp<32>(q, k, v, o, d_o, lse, dq, dk, dv, bh, t_q, t_k, d, scale, causal,
+                              q_off, k_off, vec, stream);
+  }
+  return launch_dqkv_dp<64>(q, k, v, o, d_o, lse, dq, dk, dv, bh, t_q, t_k, d, scale, causal,
+                            q_off, k_off, vec, stream);
+}
+
 }  // namespace
 
 // Each returns cudaGetLastError() after its launch (0 = launched); shapes
@@ -709,4 +1105,17 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                            q_off, k_off, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// dQ, dK and dV in one launch, float32 only, Tq, Tk <= 128 and D <= 64 (the
+// wrapper's route, ops/fused_attention.py:flash_bwd_route); delta is formed
+// in the kernel from o and dO.  Other dtypes and shapes return
+// cudaErrorInvalidValue.
+extern "C" int flash_dqkv(const void* q, const void* k, const void* v, const void* o,
+                          const void* d_o, const void* lse, void* dq, void* dk, void* dv,
+                          int bh, int t_q, int t_k, int d, float scale, int causal, int q_off,
+                          int k_off, int dtype, void* stream) {
+  if (dtype != kFloat32) return (int)cudaErrorInvalidValue;
+  return launch_dqkv(q, k, v, o, d_o, lse, dq, dk, dv, bh, t_q, t_k, d, scale, causal, q_off,
+                     k_off, static_cast<cudaStream_t>(stream));
 }

@@ -117,13 +117,13 @@ __device__ __forceinline__ bool visible(int qi, int kj, int t_q, int t_k,
   return qi < t_q && kj < t_k && (!causal || qi + q_off >= kj + k_off);
 }
 
-// One past the last key a block of queries [q0, q0 + kBlockM) can see: key
+// One past the last key a block of queries [q0, q0 + rows) can see: key
 // tiles from there on lie wholly above the causal diagonal and are skipped
 // (pallas_attention.py:_causal_skip).  May be <= 0: no visible key.
 __device__ __forceinline__ int key_end(int q0, int t_q, int t_k, int causal,
-                                       int q_off, int k_off) {
+                                       int q_off, int k_off, int rows = kBlockM) {
   if (!causal) return t_k;
-  const int q_last = min(q0 + kBlockM, t_q) - 1;
+  const int q_last = min(q0 + rows, t_q) - 1;
   return min(t_k, q_last + q_off - k_off + 1);
 }
 

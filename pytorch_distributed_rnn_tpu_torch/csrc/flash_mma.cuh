@@ -1,7 +1,8 @@
 // Tensor-core building blocks of the bf16 flash kernels (sm_90a), shared by
 // flash_fwd.cu and flash_bwd.cu: inline PTX for mma.sync, ldmatrix and
 // cp.async, the swizzled shared-memory tile layout they read, the C-tile
-// store and the launch.
+// store and the launch; and the TF32 mma and 3xTF32 split of the float32
+// fused backward (flash_bwd.cu: flash_dqkv_tc_kernel).
 //
 // Products are mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: A is a
 // 16 x 16 bf16 tile (4 registers of 2 values), B a 16 x 8 one (2
@@ -96,6 +97,28 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo exactly, hi x with its 13 low mantissa bits cleared (a TF32
+// value), lo the rest: the 3xTF32 split.  A TF32 mma reads the top 19 bits
+// of each operand, so lo enters truncated to TF32 (2^-10 of itself), and
+// a . b summed as a_lo b_hi + a_hi b_lo + a_hi b_hi leaves out a_lo b_lo:
+// about 2^-20 of the product, float32's accuracy, where TF32 alone (2^-11)
+// misses the float32 tolerance.  Two full-rate instructions, no cvt.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a . b on the tensor cores, m16n8k8, TF32 operands, float32 sums.  A
+// (16 x 8): a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8,
+// t + 4); B (8 x 8): b0 (t, g), b1 (t + 4, g); C as m16n8k16's.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -10,19 +10,27 @@ CUDA kernels carry the attention of every encoder block on the card:
   block per query tile looping over the key tiles.
 - ``flash_dkv`` (``csrc/flash_bwd.cu``) replaces ``_dkv_kernel``: dK and
   dV, one block per key tile looping over the query tiles.
+- ``flash_dqkv`` (``csrc/flash_bwd.cu``) replaces both of those and
+  ``_delta_of`` for float32 at short key lengths: one block per head forms
+  delta, S and dP once and writes dQ, dK and dV (:func:`flash_bwd_route`
+  picks it or the split pair by shape and dtype).
 
 The kernels take contiguous ``(B*H, T, D)`` tensors, float32 or bfloat16,
-any T and a head dim D of 1 to 128; ``lse`` and ``delta`` are ``(B*H, Tq)``
-float32.  ``scale = D ** -0.5`` multiplies the float32 product, and each
-operand the TPU kernel casts to the input dtype before a product (p before
-p.V, ds before ds.K, p for dV, ds for dK) is rounded to it.  Every product
-sums in float32.  The dtype picks the kernels: bfloat16 runs all three on
-the tensor cores (``mma.sync``, with p and ds kept in registers between
-products), float32 on the CUDA cores (TF32 would miss the float32
-tolerance).  Causal masking works on the runtime global positions
+any T and a head dim D of 1 to 128 (``flash_dqkv``: float32, Tq and Tk up
+to ``DQKV_MAX_LEN``, D up to ``DQKV_MAX_HEAD_DIM``); ``lse`` and ``delta``
+are ``(B*H, Tq)`` float32.  ``scale = D ** -0.5`` multiplies the float32
+product, and each operand the TPU kernel casts to the input dtype before
+a product (p before p.V, ds before ds.K, p for dV, ds for dK) is rounded
+to it.  Every product sums in float32.  The dtype picks the kernels:
+bfloat16 runs all three on the tensor cores (``mma.sync``, with p and ds
+kept in registers between products), float32 the forward and the split
+backward on the CUDA cores (TF32 alone would miss the float32 tolerance)
+and ``flash_dqkv`` on the tensor cores in 3xTF32 (each operand split
+into two TF32 parts, three products).  Causal masking works on the runtime global positions
 ``q_offset``/``k_offset`` of the first query and key, and a query that sees
-no key gives ``o = 0`` and ``lse = -inf``.  ``delta = rowsum(dO * O)`` is
-plain torch, as ``_delta_of`` is XLA outside the TPU kernels.
+no key gives ``o = 0`` and ``lse = -inf``.  On the split route ``delta =
+rowsum(dO * O)`` is plain torch, as ``_delta_of`` is XLA outside the TPU
+kernels; ``flash_dqkv`` forms it itself.
 
 Each wrapper takes the kernel's plain PyTorch version (``*_plain``) only
 for CPU tensors; on CUDA tensors it launches the kernel or raises.
@@ -38,15 +46,21 @@ import ctypes
 import torch
 
 # kernel launches since the last reset_launch_counts(), by kernel name
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_dqkv": 0}
 # the source (library) each kernel's C entry point lives in
-LIBRARIES = {"flash_fwd": "flash_fwd", "flash_dq": "flash_bwd", "flash_dkv": "flash_bwd"}
+LIBRARIES = {"flash_fwd": "flash_fwd", "flash_dq": "flash_bwd", "flash_dkv": "flash_bwd",
+             "flash_dqkv": "flash_bwd"}
 MAX_HEAD_DIM = 128  # kMaxHeadDim in csrc/flash_common.cuh
+# flash_dqkv's range, Tq and Tk up to DQKV_MAX_LEN (kDqkvMaxKeys and
+# kDqkvMaxHeadDim in csrc/flash_bwd.cu): a head's K and V sit in one
+# block's shared memory
+DQKV_MAX_LEN = 128
+DQKV_MAX_HEAD_DIM = 64
 BLOCK_ROWS = 64  # rows of a query or key tile (kBlockM, kBlockN): one block's share
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # pointer arguments of each kernel's C entry point; then the ints bh, t_q,
 # t_k, d, the float scale, the ints causal, q_off, k_off, dtype, the stream
-_POINTERS = {"flash_fwd": 5, "flash_dq": 7, "flash_dkv": 8}
+_POINTERS = {"flash_fwd": 5, "flash_dq": 7, "flash_dkv": 8, "flash_dqkv": 9}
 
 
 def reset_launch_counts():
@@ -68,6 +82,20 @@ def resolve_attention_impl(impl: str, device=None, head_dim: int | None = None) 
         fits = head_dim is None or head_dim <= MAX_HEAD_DIM
         return "flash" if on_cuda and fits else "dense"
     return impl
+
+
+def flash_bwd_route(t_q: int, t_k: int, d: int, dtype) -> str:
+    """The backward's kernels at this shape and dtype: ``"dqkv"`` (one
+    ``flash_dqkv`` launch) for float32 with Tq and Tk up to
+    ``DQKV_MAX_LEN`` and D up to ``DQKV_MAX_HEAD_DIM``, else ``"split"``
+    (``flash_dq`` and ``flash_dkv``, delta in torch; on the card they take
+    float32 and bfloat16 and refuse other dtypes).  The CPU takes the same
+    route through the plain versions.  A dtype that is not floating point
+    raises."""
+    if not dtype.is_floating_point:
+        raise TypeError(f"flash backward: dtype {dtype} not supported (a floating dtype)")
+    short = t_q <= DQKV_MAX_LEN and t_k <= DQKV_MAX_LEN and d <= DQKV_MAX_HEAD_DIM
+    return "dqkv" if dtype == torch.float32 and short else "split"
 
 
 # ---------------------------------------------------------------------------
@@ -122,19 +150,42 @@ def _recompute(q, k, v, do, lse, delta, causal, q_offset, k_offset):
     return p, p * (dp - delta[..., None]) * q.shape[-1] ** -0.5
 
 
-def flash_dq_plain(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
-    """dQ (BH, Tq, D) in q's dtype: ``ds`` cast to k's dtype before ds.K."""
-    _, ds = _recompute(q, k, v, do, lse, delta, causal, q_offset, k_offset)
+def _dq_of(ds, q, k):
+    """dQ in q's dtype: ``ds`` cast to k's dtype before ds.K."""
     return (ds.to(k.dtype).float() @ k.float()).to(q.dtype)
 
 
-def flash_dkv_plain(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
-    """dK, dV (BH, Tk, D) in k's and v's dtypes: ``p`` cast to dO's dtype
-    before p^T.dO, ``ds`` to q's dtype before ds^T.Q."""
-    p, ds = _recompute(q, k, v, do, lse, delta, causal, q_offset, k_offset)
+def _dkv_of(p, ds, q, k, v, do):
+    """dK, dV in k's and v's dtypes: ``p`` cast to dO's dtype before
+    p^T.dO, ``ds`` to q's dtype before ds^T.Q."""
     dv = p.to(do.dtype).float().transpose(-1, -2) @ do.float()
     dk = ds.to(q.dtype).float().transpose(-1, -2) @ q.float()
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(do, o):
+    """``rowsum(dO * O)`` in float32 (``_delta_of``)."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_dq_plain(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
+    """dQ (BH, Tq, D) in q's dtype."""
+    _, ds = _recompute(q, k, v, do, lse, delta, causal, q_offset, k_offset)
+    return _dq_of(ds, q, k)
+
+
+def flash_dkv_plain(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
+    """dK, dV (BH, Tk, D) in k's and v's dtypes."""
+    p, ds = _recompute(q, k, v, do, lse, delta, causal, q_offset, k_offset)
+    return _dkv_of(p, ds, q, k, v, do)
+
+
+def flash_dqkv_plain(q, k, v, o, do, lse, causal=False, q_offset=0, k_offset=0):
+    """``(dQ, dK, dV)`` from the forward's ``o`` and ``lse``: delta, p and
+    ds formed once for all three products (``_bwd_impl`` with
+    ``_delta_of``)."""
+    p, ds = _recompute(q, k, v, do, lse, _delta(do, o), causal, q_offset, k_offset)
+    return (_dq_of(ds, q, k), *_dkv_of(p, ds, q, k, v, do))
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +304,30 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
     return dk, dv
 
 
+def flash_dqkv(q, k, v, o, do, lse, causal=False, q_offset=0, k_offset=0):
+    """``(dQ, dK, dV)`` in one launch.  CPU tensors take
+    :func:`flash_dqkv_plain`; CUDA tensors launch
+    ``csrc/flash_bwd.cu:flash_dqkv``, which takes what
+    :func:`flash_bwd_route` sends it (float32, Tq and Tk up to
+    ``DQKV_MAX_LEN``, D up to ``DQKV_MAX_HEAD_DIM``) and nothing else."""
+    if q.device.type == "cpu":
+        return flash_dqkv_plain(q, k, v, o, do, lse, causal, q_offset, k_offset)
+    _require_cuda("flash_dqkv", q)
+    bh, t_q, d = q.shape
+    rows = [(o, (bh, t_q, d), q.dtype), (do, (bh, t_q, d), q.dtype),
+            (lse, (bh, t_q), torch.float32)]
+    sizes = _check("flash_dqkv", q, k, v, rows)
+    if flash_bwd_route(t_q, sizes[2], d, q.dtype) != "dqkv":
+        raise ValueError(f"flash_dqkv: no kernel for Tq={t_q} Tk={sizes[2]} D={d} {q.dtype} "
+                         f"(float32, T up to {DQKV_MAX_LEN}, D up to {DQKV_MAX_HEAD_DIM})")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        _launch("flash_dqkv", (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                               do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                               dv.data_ptr()), sizes, causal, q_offset, k_offset, q.dtype)
+    return dq, dk, dv
+
+
 # ---------------------------------------------------------------------------
 # Autograd binding and the attention API
 # ---------------------------------------------------------------------------
@@ -261,8 +336,9 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention on (B*H, T, D), the semantics of the
     JAX package's ``_flash`` custom VJP: the forward saves ``(q, k, v, o,
-    lse)``; the backward forms ``delta = rowsum(dO * O)`` in float32 and
-    runs the dQ and the dK/dV kernel."""
+    lse)``; the backward takes :func:`flash_bwd_route`'s kernels, one
+    ``flash_dqkv`` (delta formed inside), or ``delta = rowsum(dO * O)`` in
+    float32 and the dQ and the dK/dV kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, k_offset):
@@ -275,9 +351,12 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.to(o.dtype).contiguous()
-        delta = (do.float() * o.float()).sum(dim=-1)
-        dq = flash_dq(q, k, v, do, lse, delta, *ctx.mask)
-        dk, dv = flash_dkv(q, k, v, do, lse, delta, *ctx.mask)
+        if flash_bwd_route(q.shape[1], k.shape[1], q.shape[2], q.dtype) == "dqkv":
+            dq, dk, dv = flash_dqkv(q, k, v, o, do, lse, *ctx.mask)
+        else:
+            delta = _delta(do, o)
+            dq = flash_dq(q, k, v, do, lse, delta, *ctx.mask)
+            dk, dv = flash_dkv(q, k, v, do, lse, delta, *ctx.mask)
         return dq, dk, dv, None, None, None
 
 
@@ -287,9 +366,10 @@ def flash_attention(q, k, v, *, causal: bool = False, q_offset: int = 0, k_offse
     ``q`` (B, H, Tq, D), ``k``/``v`` (B, H, Tk, D) -> (B, H, Tq, D);
     ``q_offset``/``k_offset`` are the global positions of the first query
     and key, so causal masking works on sequence chunks.  Differentiable
-    through the dQ and dK/dV kernels.  The JAX function's ``block_q`` /
-    ``block_k`` are TPU tiling (multiples of 128 lanes) and have no
-    counterpart: the Hopper tile sizes belong to the kernels."""
+    through the backward kernels of :func:`flash_bwd_route`.  The JAX
+    function's ``block_q`` / ``block_k`` are TPU tiling (multiples of 128
+    lanes) and have no counterpart: the Hopper tile sizes belong to the
+    kernels."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention wants (B, H, T, D) inputs, got "
                          f"{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}")

@@ -1,0 +1,242 @@
+"""A/B runs of the port's kernels and of a training step on one card.
+
+    python -m pytorch_distributed_rnn_tpu_torch.utils.ab rows
+    python -m pytorch_distributed_rnn_tpu_torch.utils.ab split
+    python -m pytorch_distributed_rnn_tpu_torch.utils.ab step --other DIR [--rounds N]
+
+Each run measures one tree (a copy of this package with a source
+substitution, or another checkout) in its own process, with the measuring
+code of this file, in turns (A, B, B, A for each round), and prints one
+JSON line after the card's name and power limit.
+
+``rows``: the GRU forward's cluster kernel at 8 batch rows a cluster (the
+package's ``kFwdClusterRows``) against 4, ``gru_fwd`` at the char-LM shape
+(T=128, B=256, H=512, float32): the whole call and one cluster's rows (the
+serial floor), with the error against the plain version.
+
+``split``: ``flash_dqkv``'s 3xTF32 split by a bit mask (the package's
+``csrc/flash_mma.cuh:split_tf32``) against ``cvt.rna.tf32.f32`` rounding,
+at the attention CLI's shapes (BH=1024 and 512, T=128, D=32, float32),
+beside the split route on the same inputs (delta in torch, ``flash_dq``,
+``flash_dkv``), with the scaled error against the plain version and whether
+two launches give the same bits.
+
+``step``: path d (``--model attention --hidden-units 128 --num-heads 4
+--stacked-layer 2 --batch-size 256 --dropout 0``, 2 epochs on seeded
+synthetic HAR windows at the UCI sizes) with the package under DIR (for
+example a ``git archive`` of another commit) and with this one, then 4
+more epochs a step on the host clock and one under ``torch.profiler``
+(device time a step, and that of each flash kernel).
+
+Copies go to ``build/ab/``.  Kernel times are CUDA events over repeated
+launches.  This file imports nothing of the package at module level, so a
+tree that does not hold it can be measured with it.
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+PACKAGE = Path(__file__).resolve().parents[1]
+WORK = PACKAGE.parent / "build" / "ab"
+ROWS_8_TO_4 = (
+    ("csrc/gru_fwd.cu", "constexpr int kFwdClusterRows = 8;", "constexpr int kFwdClusterRows = 4;"),
+    ("ops/fused_rnn.py", "GRU_FWD_CLUSTER_ROWS = 8", "GRU_FWD_CLUSTER_ROWS = 4"),
+)
+MASK_TO_CVT = ((
+    "csrc/flash_mma.cuh",
+    """  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));""",
+    """  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(rest));""",
+),)
+GRU_SHAPE = (128, 256, 512)  # T, B, H of the char LM
+ATTN_BATCHES = (1024, 512)  # B*H of the CLI's train batches (256 and 128 windows, 4 heads)
+ATTN_SEQ_LEN, ATTN_HEAD_DIM = 128, 32
+PATH_D = ["--model", "attention", "--hidden-units", "128", "--num-heads", "4",
+          "--stacked-layer", "2", "--batch-size", "256", "--dropout", "0"]
+
+
+def patched_copy(dest: Path, substitutions) -> Path:
+    """A copy of the package under ``dest`` with each ``(file, old, new)``
+    substitution made; ``dest`` goes on ``sys.path``.  Raises if an old
+    text is not in its file."""
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(PACKAGE, dest / PACKAGE.name, ignore=shutil.ignore_patterns("__pycache__"))
+    for rel, old, new in substitutions:
+        path = dest / PACKAGE.name / rel
+        text = path.read_text()
+        if old not in text:
+            raise RuntimeError(f"{rel}: {old!r} not found")
+        path.write_text(text.replace(old, new))
+    return dest
+
+
+def _own(module: str):
+    """``module`` of the package, checked to come from the tree on
+    ``sys.path[0]`` (in a child process)."""
+    mod = importlib.import_module(f"{PACKAGE.name}.{module}")
+    if not Path(mod.__file__).resolve().is_relative_to(Path(sys.path[0]).resolve()):
+        raise RuntimeError(f"imported {mod.__file__}, not the tree on {sys.path[0]}")
+    return mod
+
+
+def _time_ms(fn, iters: int) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _time_rows() -> dict:
+    """The tree's ``gru_fwd`` at the char-LM shape and at one cluster's rows."""
+    import torch
+
+    fr = _own("ops.fused_rnn")
+    seq_len, batch, hidden = GRU_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"rows": fr.gru_tile(hidden)[0]}
+    for rows, key in ((batch, "ms"), (out["rows"], "serial_ms")):
+        x = torch.randn(seq_len, rows, 3 * hidden, generator=gen, device="cuda")
+        h0 = 0.5 * torch.randn(rows, hidden, generator=gen, device="cuda")
+        w = torch.randn(hidden, 3 * hidden, generator=gen, device="cuda") / hidden ** 0.5
+        b = 0.1 * torch.randn(3 * hidden, generator=gen, device="cuda")
+        out[key] = _time_ms(lambda: fr.gru_fwd(x, h0, w, b), 20)  # noqa: B023
+        out[f"{key}_max_abs_err"] = (fr.gru_fwd(x, h0, w, b)
+                                     - fr.gru_fwd_plain(x, h0, w, b)).abs().max().item()
+    out.update(fr.cluster_shape("gru_fwd", hidden, batch))
+    return out
+
+
+def _time_split() -> dict:
+    """The tree's ``flash_dqkv`` and the split route at the CLI's batches."""
+    import torch
+
+    fa = _own("ops.fused_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for bh in ATTN_BATCHES:
+        gen = torch.Generator(device="cuda").manual_seed(bh)
+        q, k, v, do = (torch.randn(bh, ATTN_SEQ_LEN, ATTN_HEAD_DIM, generator=gen, device="cuda")
+                       for _ in range(4))
+        o, lse = fa.flash_fwd_plain(q, k, v)
+        args = (q, k, v, o, do, lse)
+        got, again = fa.flash_dqkv(*args), fa.flash_dqkv(*args)
+        want = fa.flash_dqkv_plain(*args)
+
+        def split():
+            delta = (do * o).sum(dim=-1)  # noqa: B023
+            fa.flash_dq(q, k, v, do, lse, delta)  # noqa: B023
+            fa.flash_dkv(q, k, v, do, lse, delta)  # noqa: B023
+
+        out[f"BH={bh}"] = {
+            "ms": _time_ms(lambda: fa.flash_dqkv(*args), 30),  # noqa: B023
+            "split_ms": _time_ms(split, 30),
+            "scaled_err": max(((a - b).abs() / (1 + b.abs())).max().item()
+                              for a, b in zip(got, want)),
+            "bitwise_repeat": all(torch.equal(a, b) for a, b in zip(got, again)),
+        }
+    return out
+
+
+def _time_step() -> dict:
+    """Path d with the tree's package: 2 epochs, then 4 on the host clock
+    and one profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    port_main = _own("main")
+    har = _own("data.synthetic")
+    formatter = _own("training.formatter").TrainingMessageFormatter(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="ab_step_") as tmp:
+        work = Path(tmp)
+        har.write_synthetic_har_cache(work / "data", num_train=7352, num_test=2947, seed=0)
+        os.chdir(work)  # main writes history.json into the working directory
+        trainer = port_main.main([*PATH_D, "--dataset-path", str(work / "data"),
+                                  "--checkpoint-directory", str(work / "models"),
+                                  "--epochs", "2", "--seed", "0", "local"])
+        steps = -(-len(trainer.training_set) // 256)
+        host_ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer._train_epoch(formatter)
+            host_ms.append((time.perf_counter() - t0) * 1e3 / steps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer._train_epoch(formatter)
+    device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                 if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
+    flash = {key.split("::")[-1].split("(")[0]: us / 1e3 / steps
+             for key, us in device_us.items() if "flash_" in key}
+    return {"host_ms": host_ms, "device_ms": sum(device_us.values()) / 1e3 / steps,
+            "flash_device_ms": flash}
+
+
+def _run(root: Path, what: str) -> dict:
+    """``what`` of this file in a child process whose ``sys.path[0]`` is
+    ``root``."""
+    code = ("import json, runpy, sys; sys.path.insert(0, sys.argv[1]); "
+            "print(json.dumps(runpy.run_path(sys.argv[2])[sys.argv[3]]()))")
+    proc = subprocess.run([sys.executable, "-c", code, str(root), str(Path(__file__)), what],
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{root}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _parse(argv: list) -> tuple:
+    """``(mode, other tree or None, rounds)``; raises SystemExit on misuse."""
+    usage = "usage: ab rows | ab split | ab step --other DIR [--rounds N]"
+    if argv in (["rows"], ["split"]):
+        return argv[0], None, 1
+    if argv[:2] == ["step", "--other"] and len(argv) in (3, 5):
+        if len(argv) == 3:
+            return "step", Path(argv[2]).resolve(), 1
+        if argv[3] == "--rounds" and argv[4].isdigit() and int(argv[4]) > 0:
+            return "step", Path(argv[2]).resolve(), int(argv[4])
+    raise SystemExit(usage)
+
+
+def main(argv=None) -> int:
+    mode, other, rounds = _parse(sys.argv[1:] if argv is None else argv)
+    if mode == "rows":
+        runs = [("8", PACKAGE.parent, "_time_rows"),
+                ("4", patched_copy(WORK / "rows4", ROWS_8_TO_4), "_time_rows")]
+    elif mode == "split":
+        runs = [("mask", PACKAGE.parent, "_time_split"),
+                ("cvt", patched_copy(WORK / "cvt", MASK_TO_CVT), "_time_split")]
+    else:
+        runs = [("other", other, "_time_step"), ("this", PACKAGE.parent, "_time_step")]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    for i in (0, 1, 1, 0) * rounds:
+        label, root, what = runs[i]
+        result = _run(root, what)
+        if mode == "rows" and str(result["rows"]) != label:
+            raise RuntimeError(f"the copy for {label} rows ran {result['rows']}")
+        print(json.dumps({"run": label, **result}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

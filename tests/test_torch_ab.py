@@ -1,0 +1,44 @@
+"""The A/B runner of the port (``utils/ab.py``) on the CPU: its command
+line, and the copies of the package it measures (the substitutions each
+A/B makes are still found in the package's sources)."""
+
+from pathlib import Path
+
+import pytest
+
+from pytorch_distributed_rnn_tpu_torch.utils import ab
+
+
+@pytest.mark.parametrize("argv, want", [
+    (["rows"], ("rows", None, 1)),
+    (["split"], ("split", None, 1)),
+    (["step", "--other", "x"], ("step", Path("x").resolve(), 1)),
+    (["step", "--other", "x", "--rounds", "5"], ("step", Path("x").resolve(), 5)),
+])
+def test_parse(argv, want):
+    assert ab._parse(argv) == want
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["rows", "x"], ["step"], ["step", "--other"], ["step", "--other", "x", "--rounds"],
+    ["step", "--other", "x", "--rounds", "0"], ["step", "--other", "x", "--pairs", "5"],
+    ["kernels"],
+])
+def test_parse_rejects(argv):
+    with pytest.raises(SystemExit):
+        ab._parse(argv)
+
+
+@pytest.mark.parametrize("substitutions", [ab.ROWS_8_TO_4, ab.MASK_TO_CVT],
+                         ids=["rows", "split"])
+def test_patched_copy_makes_each_substitution(tmp_path, substitutions):
+    root = ab.patched_copy(tmp_path / "copy", substitutions)
+    for rel, old, new in substitutions:
+        text = (root / ab.PACKAGE.name / rel).read_text()
+        assert old not in text and new in text
+        assert old in (ab.PACKAGE / rel).read_text()
+
+
+def test_patched_copy_raises_on_a_missing_text(tmp_path):
+    with pytest.raises(RuntimeError, match="not found"):
+        ab.patched_copy(tmp_path / "copy", (("ops/fused_rnn.py", "no such text", "x"),))

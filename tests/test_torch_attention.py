@@ -3,7 +3,9 @@
 ``ops/fused_attention.py`` (the flash kernels' plain versions, the
 ``FlashAttention`` binding and ``flash_attention``) against the JAX
 ``flash_attention`` in Pallas interpret mode and the JAX kernels' own
-``_fwd_impl``/``_bwd_impl``, and against ``mha_attention``;
+``_fwd_impl``/``_bwd_impl`` (``flash_dqkv_plain`` against ``_bwd_impl``
+with ``_delta_of``), and against ``mha_attention``; the backward's route
+(``flash_bwd_route``);
 ``ops/attention.py:mha_attention``; ``models/attention.py`` (layer norm,
 the GELU epilogue, ``AttentionClassifier`` forward and gradients with
 weights carried over by ``interop``); a two-epoch ``local`` loss history
@@ -14,8 +16,9 @@ Tolerances: the JAX attention tests' (f32 1e-5 forward, gradients rtol
 tests' (f32 1e-5 forward and 1e-4 gradients, bf16 5e-2) for the model.
 
 The ``cuda``-marked tests hold the CUDA kernels against the plain
-versions on a card (bf16 there at 1e-2 of each output's largest value)
-and skip without one; JAX is imported inside the tests that use it, so
+versions on a card (bf16 there at 1e-2 of each output's largest value),
+check that two ``flash_dqkv`` launches give the same bits, and skip
+without one; JAX is imported inside the tests that use it, so
 on a card (where JAX is not installed) they run alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_attention.py
@@ -210,6 +213,95 @@ def test_plain_versions_match_jax_kernels(dtype, causal, q_offset, k_offset, t, 
                                    err_msg=name)
 
 
+@pytest.mark.parametrize(
+    "t_q,t_k,d,causal,q_offset,k_offset",
+    [pytest.param(100, 100, 16, False, 0, 0, id="T100-D16"),
+     pytest.param(100, 100, 16, True, 32, 0, id="T100-D16-causal-32-0"),
+     pytest.param(200, 200, 72, False, 0, 0, id="T200-D72"),
+     pytest.param(200, 200, 72, True, 32, 0, id="T200-D72-causal-32-0"),
+     pytest.param(64, 64, 16, True, 128, 64, id="causal-offsets-128-64"),
+     pytest.param(96, 160, 32, False, 0, 0, id="cross-96-160"),
+     pytest.param(77, 100, 30, True, 40, 0, id="ragged-77-100-causal"),
+     # every query before every key: dQ, dK and dV are exactly 0
+     pytest.param(32, 32, 32, True, 0, 512, id="no-visible-key")],
+)
+def test_dqkv_plain_matches_jax_kernels(t_q, t_k, d, causal, q_offset, k_offset):
+    """``flash_dqkv_plain`` (delta formed inside) against the JAX kernels
+    ``_bwd_impl`` with ``_delta_of`` in float32, the forward's o and lse
+    from ``_fwd_impl``, at lengths padded to the JAX blocks."""
+    import jax.numpy as jnp
+
+    from pytorch_distributed_rnn_tpu.ops import pallas_attention as jpa
+
+    bh, blk = 3, 128
+    rng = np.random.RandomState(t_q + t_k + d)
+    q, do = (rng.randn(bh, t_q, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(bh, t_k, d).astype(np.float32) for _ in range(2))
+
+    def pad(a):
+        return jnp.pad(a, ((0, 0), (0, -(-a.shape[1] // blk) * blk - a.shape[1]), (0, 0)))
+
+    jq, jk, jv, jdo = (pad(a) for a in _jax((q, k, v, do)))
+    offs = jnp.array([q_offset, k_offset], jnp.int32)
+    j_o, j_lse = jpa._fwd_impl(jq, jk, jv, offs, causal, blk, blk, t_q, t_k)
+    j_grads = jpa._bwd_impl(jq, jk, jv, jdo, j_lse, jpa._delta_of(jdo, j_o), offs, causal, blk,
+                            blk, t_q, t_k)
+    tq, tk, tv, tdo = _torch((q, k, v, do))
+    o, lse = fa.flash_fwd_plain(tq, tk, tv, causal, q_offset, k_offset)
+    got = fa.flash_dqkv_plain(tq, tk, tv, o, tdo, lse, causal, q_offset, k_offset)
+    for name, g, want, t in zip(("dq", "dk", "dv"), got, j_grads, (t_q, t_k, t_k)):
+        assert g.dtype == torch.float32 and g.shape == (bh, t, d)
+        np.testing.assert_allclose(_np(g), _np(want[:, :t]), rtol=F32_GRAD, atol=F32_GRAD,
+                                   err_msg=name)
+    if k_offset == 512:
+        assert not any(g.any() for g in got)
+
+
+@pytest.mark.parametrize(
+    "t_q,t_k,d,dtype,want",
+    [(128, 128, 32, torch.float32, "dqkv"),  # the attention CLI's heads
+     (128, 128, 8, torch.float32, "dqkv"),
+     (128, 128, 64, torch.float32, "dqkv"),
+     (96, 160, 32, torch.float32, "split"),
+     (1024, 1024, 128, torch.float32, "split"),  # long context
+     (128, 128, 72, torch.float32, "split"),
+     (129, 128, 32, torch.float32, "split"),
+     (128, 128, 32, torch.bfloat16, "split"),
+     (1024, 1024, 128, torch.bfloat16, "split"),
+     (128, 128, 32, torch.float64, "split")],  # CPU only: the plain versions
+)
+def test_flash_bwd_route(t_q, t_k, d, dtype, want):
+    assert fa.flash_bwd_route(t_q, t_k, d, dtype) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.bool])
+def test_flash_bwd_route_rejects_unknown_dtype(dtype):
+    with pytest.raises(TypeError, match="not supported"):
+        fa.flash_bwd_route(128, 128, 32, dtype)
+
+
+@pytest.mark.parametrize(
+    "dtype,t,want",
+    [("f32", 20, {"flash_dqkv_plain"}), ("f32", 160, {"flash_dq_plain", "flash_dkv_plain"}),
+     ("bf16", 20, {"flash_dq_plain", "flash_dkv_plain"})],
+)
+def test_cpu_backward_takes_its_routes_plain_version(dtype, t, want, monkeypatch):
+    """On CPU tensors ``FlashAttention.backward`` walks the route the card
+    would take, through the plain versions, and launches nothing."""
+    called = set()
+    for name in ("flash_dqkv_plain", "flash_dq_plain", "flash_dkv_plain"):
+        def record(*args, _name=name, _fn=getattr(fa, name), **kw):
+            called.add(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(fa, name, record)
+    fa.reset_launch_counts()
+    q, k, v = _torch(_qkv(t_q=t, b=1, h=2, d=8), dtype, grad=True)
+    fa.flash_attention(q, k, v, causal=True).float().sum().backward()
+    assert called == want
+    assert not any(fa.LAUNCHES.values()), fa.LAUNCHES
+    assert q.grad.shape == k.grad.shape == v.grad.shape == (1, 2, t, 8)
+
+
 def test_plain_backward_is_the_gradient_of_plain_forward():
     """The FlashAttention backward (delta, dQ, dK/dV) is the autograd
     gradient of the plain forward's math, in float64."""
@@ -293,11 +385,12 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     assert q.grad is not None and k.grad is not None and v.grad is not None
 
 
-@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dq", "flash_dkv"])
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dq", "flash_dkv", "flash_dqkv"])
 def test_wrappers_reject_devices_other_than_cpu_and_cuda(kernel):
     q = torch.zeros(2, 5, 8, device="meta")
     rows = torch.zeros(2, 5, device="meta")
-    args = (q, q, q) if kernel == "flash_fwd" else (q, q, q, q, rows, rows)
+    args = {"flash_fwd": (q, q, q), "flash_dqkv": (q, q, q, q, q, rows)}.get(
+        kernel, (q, q, q, q, rows, rows))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         getattr(fa, kernel)(*args)
 
@@ -589,5 +682,35 @@ def test_cuda_kernels_match_plain_versions(bh, t_q, t_k, d, causal, q_offset, k_
     assert_kernel_close(fa.flash_dq(*args, **kw), fa.flash_dq_plain(*args, **kw), F32_GRAD)
     for got, want in zip(fa.flash_dkv(*args, **kw), fa.flash_dkv_plain(*args, **kw)):
         assert_kernel_close(got, want, F32_GRAD)
+    fused = fa.flash_bwd_route(t_q, t_k, d, dtype) == "dqkv"
+    if fused:
+        fused_args = (q, k, v, o_p, do, lse_p)
+        for got, want in zip(fa.flash_dqkv(*fused_args, **kw),
+                             fa.flash_dqkv_plain(*fused_args, **kw)):
+            assert_kernel_close(got, want, F32_GRAD)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
+                           "flash_dqkv": int(fused)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bh,t_q,t_k,d,causal,q_offset,k_offset",
+    [(1024, 128, 128, 32, False, 0, 0), (16, 77, 100, 30, True, 40, 0),
+     (16, 128, 128, 64, False, 0, 0)],
+)
+def test_cuda_dqkv_is_bitwise_repeatable(bh, t_q, t_k, d, causal, q_offset, k_offset):
+    """``flash_dqkv`` has one writer for every output element and no
+    atomics: two launches on the same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(t_q + t_k + d)
+    q, do = (torch.randn(bh, t_q, d, generator=gen, device="cuda") for _ in range(2))
+    k, v = (torch.randn(bh, t_k, d, generator=gen, device="cuda") for _ in range(2))
+    kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
+    o, lse = fa.flash_fwd_plain(q, k, v, **kw)
+    first = fa.flash_dqkv(q, k, v, o, do, lse, **kw)
+    second = fa.flash_dqkv(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

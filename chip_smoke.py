@@ -10,11 +10,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    csrc/`` with nvcc, one process per source, all at once; prints each
    kernel's registers and spills (``-Xptxas -v``), checks that the GRU
    forward's cluster kernel, the LSTM forward kernel, both LSTM cluster
-   kernels and the fused f32 flash backward (``flash_dqkv_tc_kernel``) have
-   no stack frame and no spills in any instance, and checks in the SASS
-   (``cuobjdump``) that the bf16 ``flash_fwd``/``flash_dq``/``flash_dkv``
-   kernels and the 3xTF32 ``flash_dqkv``, and only they, run on the tensor
-   cores (HMMA).
+   kernels, the LSTM forward's tensor-core cluster kernel
+   (``lstm_fwd_tc_kernel``), the LSTM backward up to H=32
+   (``lstm_bwd_reg_kernel``) and the fused f32 flash backward
+   (``flash_dqkv_tc_kernel``) have no stack frame and no spills in any
+   instance, and checks in the SASS (``cuobjdump``) that the bf16
+   ``flash_fwd``/``flash_dq``/``flash_dkv`` kernels, the 3xTF32
+   ``flash_dqkv`` and the 3xTF32 ``lstm_fwd_tc_kernel``, and only they, run
+   on the tensor cores (HMMA).
 3. kernels: holds each kernel against its plain PyTorch version on the
    card, at the shapes the main paths give them (O(1) random cotangents,
    f32 and bf16, the tolerances of ``TOLERANCES``): the LSTM and GRU
@@ -22,7 +25,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    H=512 (input 512, the char LM's train and evaluation batches), the
    LSTM one-block kernels' edges (B=37, H=110), the LSTM cluster kernels'
    edges (H=111, 200, 300, both sides of the f32 slice's fit in shared
-   memory: 448/449 forward, 464/465 backward, B=250 and 37 at 512), the
+   memory: 448/449 forward, where the tensor-core kernel starts, 464/465
+   backward, B=250, 37 and generate's 8 prompts at 512), the
    GRU cluster kernels' edges (H=127, 200, 300, B=250 and 37 at 512); the
    flash kernels at the
    attention CLI's (B*H, T, D) shapes (train batches, and the evaluation
@@ -74,7 +78,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    LSTM forward at 4, 8, 12 and 16 rows a block; the LSTM cluster kernels
    on both sides of their f32 slices' fit and in bf16; and the cluster
    kernels' shapes at H=512 (CTAs and rows a cluster, clusters resident at once,
-   waves, the LSTM slices' rows in shared memory).
+   waves, the LSTM slices' rows in shared memory); the LSTM forward's
+   tensor-core kernel at one cluster of 8 .. 40 rows, and each bound by the
+   pipe its products run on (TF32 tensor cores for the 3xTF32 kernels).
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}`` as its last line.
@@ -124,17 +130,19 @@ LSTM_EDGES = ((HIDDEN, 37), (110, 64), (110, 37))
 # (H, B) of the LSTM cluster kernels' edges: the narrowest width over a
 # cluster, widths that split unevenly over the 16 CTAs, both sides of the
 # width where the f32 slice stops fitting in shared memory (forward 448 /
-# 449, where its rows a cluster go from 8 to 4; backward 464 / 465), and
-# ragged last tiles at 512
+# 449, where the tensor-core kernel takes over; backward 464 / 465), ragged
+# last tiles at 512 and the generate prefill's 8 prompts
 LSTM_CLUSTER_EDGES = ((111, 37), (200, 64), (300, 37), (448, 37), (449, 37), (464, 37),
-                      (465, 37), (CHAR_HIDDEN, 250), (CHAR_HIDDEN, 37))
+                      (465, 37), (CHAR_HIDDEN, 250), (CHAR_HIDDEN, 37),
+                      (CHAR_HIDDEN, GENERATE_PROMPTS))
 # the LSTM forward's rows a block, timed at the motion shape to choose
 # LSTM_FWD_BLOCK_B
 LSTM_FWD_TILES = (4, 8, 12, 16)
 # the kernels whose ptxas report must show no stack frame and no spills,
 # every instance (dtype, variant)
 NO_STACK_KERNELS = ("gru_fwd_cluster_kernel", "lstm_fwd_kernel", "lstm_fwd_cluster_kernel",
-                    "lstm_bwd_cluster_kernel", "flash_dqkv_tc_kernel")
+                    "lstm_fwd_tc_kernel", "lstm_bwd_reg_kernel", "lstm_bwd_cluster_kernel",
+                    "flash_dqkv_tc_kernel")
 # the scan path's train steps profiled once beside path f (the char LSTM)
 SCAN_PROFILE_EPOCHS = 1
 LOGIT_TOL = 1e-4  # trained fused logits against the scan path, f32
@@ -161,10 +169,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 TF32_FLOPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense
-# the tensor-core kernels, one instance per padded head dim: the bf16
-# flash_fwd_tc_kernel, flash_dq_tc_kernel, flash_dkv_tc_kernel (16, 32, 64,
-# 128) and the float32 3xTF32 flash_dqkv_tc_kernel (16, 32, 64)
-N_TENSOR_CORE_KERNELS = 15
+# the tensor-core kernels: the bf16 flash_fwd_tc_kernel, flash_dq_tc_kernel,
+# flash_dkv_tc_kernel (one instance per padded head dim 16, 32, 64, 128),
+# the float32 3xTF32 flash_dqkv_tc_kernel (16, 32, 64) and
+# lstm_fwd_tc_kernel (8, 16, 24, 32, 40 rows a cluster)
+N_TENSOR_CORE_KERNELS = 20
 REPLACES = {
     "lstm_fwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:100",
     "lstm_bwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:166",
@@ -242,9 +251,10 @@ def _hmma_counts(lib: Path) -> dict:
 
 def phase_build():
     """Build every kernel source; print each kernel's registers and spills,
-    and check in the SASS that the tensor-core flash kernels (``*_tc_kernel``:
-    bf16, and the 3xTF32 ``flash_dqkv``) hold HMMA and the others (the split
-    f32 flash and all RNN kernels) do not."""
+    and check in the SASS that the tensor-core kernels (``*_tc_kernel``: the
+    bf16 flash kernels, the 3xTF32 ``flash_dqkv`` and LSTM forward) hold
+    HMMA and the others (the split f32 flash and the other RNN kernels) do
+    not."""
     from pytorch_distributed_rnn_tpu_torch import _build
 
     t0 = time.perf_counter()
@@ -269,9 +279,9 @@ def phase_build():
         hmma.update(counts)
     tc = {name: n for name, n in hmma.items() if "_tc_kernel" in name}
     if len(tc) != N_TENSOR_CORE_KERNELS or not all(tc.values()):
-        raise RuntimeError(f"the tensor-core flash kernels are not all on the tensor cores: {tc}")
+        raise RuntimeError(f"the tensor-core kernels are not all on the tensor cores: {tc}")
     if others := {name: n for name, n in hmma.items() if name not in tc and n}:
-        raise RuntimeError(f"kernels other than the tensor-core flash kernels hold HMMA: {others}")
+        raise RuntimeError(f"kernels other than the tensor-core kernels hold HMMA: {others}")
 
 
 def _max_err(got, want) -> float:
@@ -905,11 +915,25 @@ def _timing_args(cell: str, batch: int, hidden: int):
     return (x_proj, h0, w, b), bwd, dh_all, gen
 
 
+def _lstm_fwd_on_tensor_cores(hidden: int) -> bool:
+    """Whether the f32 LSTM forward runs its tensor-core cluster kernel at
+    this width (where the slice does not fit in shared memory)."""
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
+
+    return (fr.lstm_fwd_tile(hidden)[1] == "cluster"
+            and not fr._lstm_fwd_slice_fits(hidden, torch.float32.itemsize))
+
+
 def _kernel_bounds(cell: str, batch: int, hidden: int) -> tuple:
     """Each kernel's least time at f32: every input read once, every
-    output written once, and the f32 FMAs of its recurrent products (the
-    backward recomputes the forward's and adds the contraction, except the
-    LSTM's cluster variant, which reads the gates its forward saved)."""
+    output written once, and its recurrent products at the rate of the
+    pipe they run on (f32 FMAs on the CUDA cores; the LSTM forward's
+    tensor-core kernel three TF32 products each): the backward recomputes
+    the forward's and adds the contraction, except where the LSTM reads
+    the gates its forward saved (up to H=32 and over a cluster).  The
+    forward's bound is that of the function it replaces, which writes
+    h_all and c_all only: the gates it saves for the backward are a cost
+    of the design (``ms_saving_no_gates`` beside its time)."""
     from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
     gates = (4 if cell == "lstm" else 3) * hidden
@@ -919,14 +943,16 @@ def _kernel_bounds(cell: str, batch: int, hidden: int) -> tuple:
     gate_seq = SEQ_LEN * batch * gates * item
     weight = hidden * gates * item
     flops = 2 * SEQ_LEN * batch * hidden * gates
+    if cell == "lstm":
+        # x_proj, h0, c0, w in; h_all, c_all out; the tensor-core kernel's
+        # products as 3 TF32 products each
+        by_pipe = ((3 * flops, TF32_FLOPS_PER_S) if _lstm_fwd_on_tensor_cores(hidden)
+                   else (flops, F32_FLOPS_PER_S))
+        fwd = _bound_ms(gate_seq + 2 * state + weight + 2 * seq, *by_pipe)
     if cell == "lstm" and fr.lstm_saves_gates(hidden):
-        # x_proj, h0, c0, w in; h_all, c_all, the activated gates out
-        fwd = _bound_ms(2 * gate_seq + 2 * state + weight + 2 * seq, flops)
         # the gates, c_all, dh_all, c0, dh_T, dc_T, w in; dx_proj, dh0, dc0 out
         bwd = _bound_ms(2 * gate_seq + 2 * seq + 5 * state + weight, flops)
     elif cell == "lstm":
-        # x_proj, h0, c0, w in; h_all, c_all out
-        fwd = _bound_ms(gate_seq + 2 * state + weight + 2 * seq, flops)
         # x_proj, h_all, c_all, dh_all, h0, c0, dh_T, dc_T, w in; dx_proj, dh0, dc0 out
         bwd = _bound_ms(2 * gate_seq + 3 * seq + 6 * state + weight, 2 * flops)
     else:
@@ -960,33 +986,50 @@ def _library_calls(cell: str, batch: int, hidden: int, dh_all, gen):
     return fwd, bwd
 
 
-def _lstm_fwd_tiles(args) -> dict:
-    """``lstm_fwd`` at the motion shape with each of ``LSTM_FWD_TILES`` rows
-    a block, through its C entry (uncounted: not a main-path launch)."""
+def _lstm_fwd_at_rows(args, all_rows, variant: str, gates: bool) -> dict:
+    """``lstm_fwd`` on ``args`` at each of ``all_rows`` rows a block (or a
+    cluster), through its C entry (uncounted: not a main-path launch)."""
     from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
     x_proj, h0, c0, w = args
     seq_len, batch, gate_dim = x_proj.shape
     h_all = torch.empty((seq_len, batch, gate_dim // 4), device="cuda")
     c_all = torch.empty_like(h_all)
+    saved = torch.empty_like(x_proj) if gates else None
     fn = fr._library("lstm_fwd")
     stream = torch.cuda.current_stream().cuda_stream
 
     def call(rows):
         err = fn(x_proj.data_ptr(), h0.data_ptr(), c0.data_ptr(), w.data_ptr(), h_all.data_ptr(),
-                 c_all.data_ptr(), None, seq_len, batch, gate_dim // 4, rows, fr._VARIANTS["smem"],
-                 fr._DTYPE_CODES[torch.float32], stream)
+                 c_all.data_ptr(), None if saved is None else saved.data_ptr(), seq_len, batch,
+                 gate_dim // 4, rows, fr._VARIANTS[variant], fr._DTYPE_CODES[torch.float32],
+                 stream)
         if err != 0:
-            raise RuntimeError(f"lstm_fwd at {rows} rows a block: CUDA error {err}")
+            raise RuntimeError(f"lstm_fwd at {rows} rows: CUDA error {err}")
 
-    return {rows: _time_ms(lambda r=rows: call(r), 20) for rows in LSTM_FWD_TILES}
+    return {rows: _time_ms(lambda r=rows: call(r), 20) for rows in all_rows}
+
+
+def _lstm_fwd_tc_serial(hidden: int) -> dict:
+    """The tensor-core forward at one cluster of each of its row counts
+    (B = R, its serial floor at that R)."""
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
+
+    times = {}
+    for rows in range(8, fr.LSTM_FWD_TC_MAX_ROWS + 1, 8):
+        args = _layer_inputs(rows, hidden, torch.float32, seed=5, hidden=hidden)[:4]
+        times[rows] = _lstm_fwd_at_rows(args, (rows,), "cluster", True)[rows]
+    print("  lstm_fwd tensor-core kernel at one cluster of R rows (ms): "
+          + ", ".join(f"R={r}: {ms:.4f}" for r, ms in times.items()))
+    return times
 
 
 def _lstm_cluster_variants() -> dict:
     """Both LSTM kernels at B=256 on both sides of the width where their
-    f32 slice stops fitting in shared memory (the forward's rows a cluster
-    go from 8 to 4 there), and in bf16 at 512, whose slice fits: CUDA
-    events over 10 launches, by kernel, dtype and H."""
+    f32 slice stops fitting in shared memory (the forward goes from the
+    CUDA-core kernel on 8 rows a cluster to the tensor-core kernel on 40
+    there), and in bf16 at 512, whose slice fits: CUDA events over 10
+    launches, by kernel, dtype and H."""
     from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
     times = {}
@@ -1041,6 +1084,10 @@ def phase_timing(runs: dict, errs: dict) -> list:
         fwd_args, bwd_args, dh_all, gen = _timing_args(cell, batch, hidden)
         tile_fwd = _timing_args(cell, tile, hidden)[0]
         tile_bwd = _timing_args(cell, bwd_tile, hidden)[1]
+        tc = cell == "lstm" and _lstm_fwd_on_tensor_cores(hidden)
+        if tc:  # one cluster on the rows the wrapper takes at the main batch
+            tile = fr.lstm_fwd_tile(hidden, torch.float32, batch)[0]
+            tile_fwd = _timing_args(cell, tile, hidden)[0]
         lib_fwd, lib_bwd = _library_calls(cell, batch, hidden, dh_all, gen)
         bounds = _kernel_bounds(cell, batch, hidden)
         shape = _shape(batch, hidden)
@@ -1050,6 +1097,10 @@ def phase_timing(runs: dict, errs: dict) -> list:
             (f"{cell}_bwd", getattr(fr, f"{cell}_bwd"), getattr(fr, f"{cell}_bwd_plain"),
              lib_bwd, bounds[1], bwd_args, tile_bwd),
         ):
+            # at B = R the wrapper would split the tensor-core kernel's rows
+            # over several clusters: one cluster through the C entry
+            serial = (_lstm_fwd_at_rows(tile_args, (tile,), "cluster", True)[tile]
+                      if tc and name == "lstm_fwd" else _time_ms(lambda: kernel(*tile_args), 20))
             rows.append({
                 "name": name,
                 "route": "cuda",
@@ -1061,7 +1112,7 @@ def phase_timing(runs: dict, errs: dict) -> list:
                 "launches_per_step": run.per_step[name],
                 "max_abs_err": errs[(name, shape)],
                 "ms": _time_ms(lambda: kernel(*args), 20),
-                "serial_ms": _time_ms(lambda: kernel(*tile_args), 20),
+                "serial_ms": serial,
                 "plain_ms": _time_ms(lambda: plain(*args), 3, warmup=1),
                 "bound_ms": bound[0],
                 "bound_by": bound[1],
@@ -1071,11 +1122,23 @@ def phase_timing(runs: dict, errs: dict) -> list:
               f"cluster); library_ms is torch.nn.{cell.upper()} (cuDNN) forward / backward incl. "
               "its input projection")
         if cell == "lstm" and hidden == HIDDEN:
-            tiles = _lstm_fwd_tiles(fwd_args)
+            tiles = _lstm_fwd_at_rows(fwd_args, LSTM_FWD_TILES, "smem", False)
             print("  lstm_fwd by rows a block (ms): "
                   + ", ".join(f"{r}: {ms:.4f}" for r, ms in tiles.items())
                   + f"; the wrapper takes {fr.lstm_fwd_tile(hidden)[0]}")
             rows[-2]["ms_by_rows_a_block"] = tiles
+        if cell == "lstm" and fr.lstm_saves_gates(hidden):
+            # the forward storing no gates, on the same inputs: the gate
+            # store's cost, which its bound leaves out
+            rows[-2]["ms_saving_no_gates"] = _time_ms(
+                lambda: fr.lstm_fwd(*fwd_args, save_gates=False), 20)
+            print(f"  lstm_fwd storing no gates {rows[-2]['ms_saving_no_gates']:.4f} ms "
+                  f"(storing them {rows[-2]['ms']:.4f} ms)")
+        if tc:
+            rows[-2]["ms_by_rows_a_cluster"] = _lstm_fwd_tc_serial(hidden)
+            rows[-2]["bound_pipe"] = "TF32 tensor cores, 3 products each"
+            print(f"  lstm_fwd bound by the pipe its products run on: {bounds[0][0]:.4f} ms "
+                  f"({bounds[0][1]}; 3xTF32 at {TF32_FLOPS_PER_S / 1e12:g} TFLOP/s)")
         if cell == "lstm" and fwd_tile(hidden)[1] == "cluster":
             rows[-2]["ms_by_variant"] = _lstm_cluster_variants()
         if fwd_tile(hidden)[1] == "cluster":

@@ -54,13 +54,14 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // The launch configuration of a cluster kernel of kClusterCtas CTAs a
-// cluster, kClusterThreads threads and smem bytes a CTA, over tiles
-// clusters: its attributes set, and the clusters that can be resident at
-// once in *active; returns the CUDA error code,
-// cudaErrorLaunchOutOfResources when not even one cluster fits.
+// cluster, threads threads and smem bytes a CTA, over tiles clusters: its
+// attributes set, and the clusters that can be resident at once in
+// *active; returns the CUDA error code, cudaErrorLaunchOutOfResources when
+// not even one cluster fits.
 template <typename Kernel>
 int cluster_launch_config(Kernel kernel, size_t smem, int tiles, cudaStream_t stream,
-                          cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int* active) {
+                          cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int* active,
+                          int threads = kClusterThreads) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess) {
@@ -69,7 +70,7 @@ int cluster_launch_config(Kernel kernel, size_t smem, int tiles, cudaStream_t st
   if (err != cudaSuccess) return (int)err;
   cfg = cudaLaunchConfig_t{};
   cfg.gridDim = dim3(tiles * kClusterCtas);
-  cfg.blockDim = dim3(kClusterThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr.id = cudaLaunchAttributeClusterDimension;

@@ -3,7 +3,8 @@
 // Replaces the TPU kernel pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:
 // _lstm_bwd_kernel (launched by _lstm_bwd_pallas).  Per step t, from T-1
 // down to 0, with dh and dc carried in float32 (dh_T, dc_T at the start):
-//   recompute gates from h_{t-1}, c_{t-1} (h0, c0 at t = 0)
+//   the activated gates of step t: read from the forward's where it saved
+//   them (H <= 32, H > 110), else recomputed from h_{t-1} (h0 at t = 0)
 //   dh += dh_all[t];  tc = tanh(c_all[t]);  do = dh * tc
 //   dc += dh * o * (1 - tc^2);  di = dc * g;  df = dc * c_{t-1};  dg = dc * i
 //   d_gates = [di i(1-i), df f(1-f), dg (1-g^2), do o(1-o)]  -> dx_proj[t]
@@ -12,19 +13,35 @@
 // it as one matrix product over (t, b) of dx_proj and h_{t-1}, as the JAX
 // package leaves it to XLA (_fused_bwd).
 //
-// What bounds it: bytes.  At T=128, B=1440, H=32, f32 it reads x_proj
-// (94 MB) and h_all, c_all, dh_all (71 MB) and writes dx_proj (94 MB):
-// about 77 us at 3.35 TB/s, against 3.0 GFLOP of f32 FMAs (45 us); and it
-// is a chain of T dependent steps with two barriers each.
+// What bounds it: bytes.  At T=128, B=1440, H=32, f32 it reads the
+// activated gates the forward saved (94 MB) and c_all, dh_all (47 MB) and
+// writes dx_proj (94 MB): about 70 us at 3.35 TB/s, against 1.5 GFLOP of
+// f32 FMAs (23 us); and it
+// is a chain of T dependent steps, so what a design can reach is set by
+// how short one step is.
 //
-// Design: as the forward, one block owns one tile of block_b rows for the
-// whole reverse sweep.  The SAME shared-memory copy of W_hh^T serves the
-// gate recompute (rows read across units) and dh_prev = d_gates @ W_hh
-// (columns read across units; the odd row stride keeps both conflict-
-// free).  Each step stages h_{t-1} in shared memory, recomputes the gates
-// of the thread's unit, publishes d_gates to shared memory, and after a
-// barrier each thread contracts it into dh for its own unit - the unit it
-// needs next step - so dh and dc stay in registers.
+// Up to H = kRegHidden = 32 (lstm_bwd_reg_kernel), as the forward
+// (csrc/lstm_fwd.cu:lstm_fwd_kernel): a block of 4H threads owns one quad
+// of 4 batch rows for the whole reverse sweep (1440 rows -> 360 blocks,
+// several to an SM).  Lane p of the 4-lane group of unit j owns (row p,
+// unit j): its dh and dc live in its registers.  A step: the lane forms
+// its d_gates and stores them to a double-buffered shared tile; one
+// barrier; then the group splits dh_{t-1}[., j] = d_gates[., :] . W_hh^T[j,
+// :] by gate: lane p takes gate p's H columns for all four rows (its 32
+// weights, W_hh^T[j, p H ..], sit in registers for the whole sweep), and
+// the shuffle exchange (reduce_scatter) leaves lane p with row p's sum.
+// The step's gates are the forward's saved activations (the forward saves
+// them up to H = 32 for the backward), so no product recomputes them.  The
+// next step's inputs are loaded while this one computes.  One barrier a
+// step.
+//
+// From H = 33 to 110 (lstm_bwd_kernel) one block owns one tile of block_b
+// rows.  The SAME shared-memory copy of W_hh^T serves the gate recompute
+// (rows read across units) and dh_prev = d_gates @ W_hh (columns read
+// across units; the odd row stride keeps both conflict-free).  Each step
+// stages h_{t-1} in shared memory, recomputes the gates of the thread's
+// unit, publishes d_gates to shared memory, and after a barrier each
+// thread contracts it into dh for its own unit.
 //
 // Cluster (lstm_bwd_cluster_kernel, H = 111..512): as csrc/gru_bwd.cu:
 // gru_bwd_cluster_kernel, a cluster of kClusterCtas = 16 CTAs owns one tile
@@ -64,6 +81,105 @@ namespace cg = cooperative_groups;
 namespace {
 
 using namespace pdrnn;
+
+constexpr int kLanes = 4;       // lanes of a unit's group: the quad's rows, the gates
+constexpr int kRegHidden = 32;  // up to this width W_hh^T sits in registers
+// the d_gates tile: row r, gate k, unit j at r kDgRow + k kDgGate + j; the
+// four lanes' 16-byte reads of their gate blocks fall in distinct bank
+// quads (kDgGate = 9 quads), and a warp's stores of 4 rows x 8 units in
+// distinct banks (kDgRow = 24 mod 32)
+constexpr int kDgGate = kRegHidden + 4;
+constexpr int kDgRow = 4 * kDgGate + 8;
+static_assert(kLanes == kRowsPerThread, "lane p of a group owns row p of its quad");
+
+template <typename T>
+__global__ void __launch_bounds__(kLanes * kRegHidden, 3) lstm_bwd_reg_kernel(
+    const T* __restrict__ gates, const T* __restrict__ c_all, const T* __restrict__ c0,
+    const T* __restrict__ w_hh_t, const T* __restrict__ dh_all, const T* __restrict__ dh_T,
+    const T* __restrict__ dc_T, T* __restrict__ dx_proj, T* __restrict__ dh0,
+    T* __restrict__ dc0, int seq_len, int batch, int hidden) {
+  __shared__ __align__(16) float dg_s[2][kLanes * kDgRow];
+  const int gate_dim = 4 * hidden;
+  const size_t step = (size_t)batch * hidden;
+  const int tid = threadIdx.x;
+  // thread (unit j, lane p); the block is rounded up to a whole warp, and
+  // the threads past 4H shuffle along but write nothing
+  const bool valid = tid < kLanes * hidden;
+  const int p = tid % kLanes;
+  const int j = valid ? tid / kLanes : 0;
+  const int b = blockIdx.x * kLanes + p;
+  const bool live = valid && b < batch;
+  const size_t o = (size_t)b * hidden + j;
+
+  // the columns and rows past H read as zero
+  for (int i = tid; i < 2 * kLanes * kDgRow; i += blockDim.x) (&dg_s[0][0])[i] = 0.0f;
+  // the contraction's weights: W_hh^T[j][p H + i], gate p's columns of row j
+  float wc[kRegHidden];
+#pragma unroll
+  for (int i = 0; i < kRegHidden; ++i) {
+    wc[i] = valid && i < hidden ? to_f32(w_hh_t[(size_t)j * gate_dim + p * hidden + i]) : 0.0f;
+  }
+
+  float dh = live ? to_f32(dh_T[o]) : 0.0f;
+  float dc = live ? to_f32(dc_T[o]) : 0.0f;
+  // step t's inputs: its activated gates, c_t, c_{t-1} and dh_all[t]
+  float ga[4], c_t, c_prev, dh_in;
+  auto load = [&](int t) {
+    const size_t g = ((size_t)t * batch + b) * gate_dim + j;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ga[k] = live ? to_f32(gates[g + k * hidden]) : 0.0f;
+    c_t = live ? to_f32(c_all[t * step + o]) : 0.0f;
+    c_prev = live ? to_f32(t > 0 ? c_all[(t - 1) * step + o] : c0[o]) : 0.0f;
+    dh_in = live ? to_f32(dh_all[t * step + o]) : 0.0f;
+  };
+  load(seq_len - 1);
+  __syncthreads();  // the d_gates tiles zeroed
+
+  for (int t = seq_len - 1; t >= 0; --t) {
+    const float ig = ga[0], fg = ga[1], gg = ga[2], og = ga[3];
+    const float dhv = dh + dh_in;
+    const float tc = tanhf(c_t);
+    const float dcv = dc + dhv * og * (1.0f - tc * tc);
+    const float d[4] = {dcv * gg * ig * (1.0f - ig), dcv * c_prev * fg * (1.0f - fg),
+                        dcv * ig * (1.0f - gg * gg), dhv * tc * og * (1.0f - og)};
+    dc = dcv * fg;
+    if (valid) {
+      float* dgw = dg_s[t & 1] + p * kDgRow + j;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dgw[k * kDgGate] = d[k];
+    }
+    if (live) {
+      T* dx = dx_proj + ((size_t)t * batch + b) * gate_dim + j;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dx[k * hidden] = from_f32<T>(d[k]);
+    }
+    if (t > 0) load(t - 1);  // lands while the contraction runs
+    __syncthreads();  // d_gates whole
+
+    // dh_{t-1}[row r, j] over gate p's columns, then summed over the group
+    float part[kLanes] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float* dgr = dg_s[t & 1] + p * kDgGate;
+#pragma unroll
+    for (int i4 = 0; i4 < kRegHidden / 4; ++i4) {
+#pragma unroll
+      for (int r = 0; r < kLanes; ++r) {
+        const float4 dv = reinterpret_cast<const float4*>(dgr + r * kDgRow)[i4];
+        part[r] = fmaf(dv.x, wc[4 * i4], part[r]);
+        part[r] = fmaf(dv.y, wc[4 * i4 + 1], part[r]);
+        part[r] = fmaf(dv.z, wc[4 * i4 + 2], part[r]);
+        part[r] = fmaf(dv.w, wc[4 * i4 + 3], part[r]);
+      }
+    }
+    reduce_scatter<kLanes, kLanes>(part, p);  // part[0]: row p
+    dh = part[0];
+    // no second barrier: the next step writes the other d_gates buffer,
+    // which every thread finished reading before this barrier
+  }
+  if (live) {
+    dh0[o] = from_f32<T>(dh);
+    dc0[o] = from_f32<T>(dc);
+  }
+}
 
 size_t bwd_smem_bytes(int hidden, int block_b) {
   return sizeof(float) * ((size_t)hidden * w_stride(hidden) +
@@ -204,11 +320,34 @@ __global__ void lstm_bwd_kernel(
 }
 
 template <typename T>
-int launch_smem(const void* x_proj, const void* h_all, const void* c_all,
-           const void* h0, const void* c0, const void* w_hh_t,
-           const void* dh_all, const void* dh_T, const void* dc_T,
-           void* dx_proj, void* dh0, void* dc0, int seq_len, int batch,
-           int hidden, int block_b, cudaStream_t stream) {
+int launch_reg(const void* gates, const void* c_all, const void* c0, const void* w_hh_t,
+               const void* dh_all, const void* dh_T, const void* dc_T, void* dx_proj, void* dh0,
+               void* dc0, int seq_len, int batch, int hidden, cudaStream_t stream) {
+  const dim3 grid((batch + kLanes - 1) / kLanes);
+  const int threads = (kLanes * hidden + 31) / 32 * 32;
+  lstm_bwd_reg_kernel<T><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(gates), static_cast<const T*>(c_all), static_cast<const T*>(c0),
+      static_cast<const T*>(w_hh_t), static_cast<const T*>(dh_all),
+      static_cast<const T*>(dh_T), static_cast<const T*>(dc_T), static_cast<T*>(dx_proj),
+      static_cast<T*>(dh0), static_cast<T*>(dc0), seq_len, batch, hidden);
+  return (int)cudaGetLastError();
+}
+
+// The one-block kernels: up to H = kRegHidden on quads of rows (block_b =
+// kLanes) and the saved gates; above, on block_b-row tiles, recomputing
+// the gates.
+template <typename T>
+int launch_smem(const void* x_proj, const void* gates, const void* h_all, const void* c_all,
+                const void* h0, const void* c0, const void* w_hh_t,
+                const void* dh_all, const void* dh_T, const void* dc_T,
+                void* dx_proj, void* dh0, void* dc0, int seq_len, int batch,
+                int hidden, int block_b, cudaStream_t stream) {
+  if (hidden <= kRegHidden) {
+    if (block_b != kLanes || gates == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_reg<T>(gates, c_all, c0, w_hh_t, dh_all, dh_T, dc_T, dx_proj, dh0, dc0,
+                         seq_len, batch, hidden, stream);
+  }
+  if (gates != nullptr || block_b % kRowsPerThread != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem_bytes(hidden, block_b);
   cudaError_t err = cudaFuncSetAttribute(
       lstm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -573,8 +712,8 @@ int launch_dtype(const void* x_proj, const void* h_all, const void* c_all, const
                  int seq_len, int batch, int hidden, int block_b, int variant,
                  cudaStream_t stream) {
   if (variant == kVariantSmem) {
-    return launch_smem<T>(x_proj, h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T, dx_proj,
-                          dh0, dc0, seq_len, batch, hidden, block_b, stream);
+    return launch_smem<T>(x_proj, gates, h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T,
+                          dx_proj, dh0, dc0, seq_len, batch, hidden, block_b, stream);
   }
   if (variant == kVariantCluster && gates != nullptr) {
     const BwdArgs<T> args{
@@ -595,9 +734,11 @@ int launch_dtype(const void* x_proj, const void* h_all, const void* c_all, const
 // Returns cudaGetLastError() after the launch (0 = launched), or the error
 // that kept the variant from launching.  Shapes, dtypes, block_b and the
 // variant are checked and chosen by the Python wrapper (ops/fused_rnn.py:
-// lstm_bwd, lstm_bwd_tile): variant 0 runs the one-block kernel on
-// block_b-row tiles, recomputing the gates from x_proj and h_all (gates
-// unused, may be null); variant 1 the cluster kernel (block_b =
+// lstm_bwd, lstm_bwd_tile): variant 0 runs the one-block kernels: up to H
+// = 32 on quads of rows (block_b = 4) on the activated gates the forward
+// saved (then x_proj, h_all and h0 are unused); above, on block_b-row
+// tiles, recomputing them from x_proj and h_all (gates null); variant 1 the
+// cluster kernel (block_b =
 // kClusterRows) on the activated gates the forward's cluster kernel saved
 // (x_proj, h_all and h0 unused).
 extern "C" int lstm_bwd(const void* x_proj, const void* h_all,

@@ -7,8 +7,9 @@ kernels carry the serial part of every LSTM and GRU layer on the card:
   _lstm_fwd_kernel``: the forward recurrence, h and c in float32, h_all
   and c_all stored in the input dtype.
 - ``lstm_bwd`` (``csrc/lstm_bwd.cu``) replaces ``pallas_rnn.py:
-  _lstm_bwd_kernel``: the reverse sweep that recomputes the gates and
-  emits the gate cotangents (= ``dx_proj``), ``dh0`` and ``dc0``.
+  _lstm_bwd_kernel``: the reverse sweep that reads (or, from H=33 to 110,
+  recomputes) the gates and emits the gate cotangents (= ``dx_proj``), ``dh0`` and
+  ``dc0``.
 - ``gru_fwd`` (``csrc/gru_fwd.cu``) replaces ``pallas_rnn.py:
   _gru_fwd_kernel``: the GRU forward recurrence, ``b_hh`` inside the
   hidden-side product, h in float32, h_all stored in the input dtype.
@@ -18,22 +19,23 @@ kernels carry the serial part of every LSTM and GRU layer on the card:
 
 Every kernel takes 1 <= H <= 512, in two variants chosen by width.  Up
 to H=110 (LSTM) or H=126 (GRU), one block holds all of W_hh^T and owns a
-tile of batch rows for the whole sequence (the LSTM forward holds each
-thread's share of W_hh^T in registers up to H=32, in shared memory above:
-``lstm_fwd_tile``).  Above, W_hh^T is split over a cluster of
-``GRU_CLUSTER_CTAS`` blocks (``csrc/cluster_common.cuh``), each holding
-the columns of its own units' gates in shared memory: the forwards
-exchange h_t through distributed shared memory, the backwards partial
-contractions.  Where an LSTM's float32 slice does not fit in shared
-memory (above H=448 forward, 464 backward), its last rows sit in
-registers.
+tile of batch rows for the whole sequence (both LSTM kernels hold each
+thread's share of W_hh^T in registers up to H=32, on quads of rows).
+Above, W_hh^T is split over a cluster of ``GRU_CLUSTER_CTAS`` blocks
+(``csrc/cluster_common.cuh``), each holding the columns of its own units'
+gates: the forwards exchange h_t through distributed shared memory, the
+backwards partial contractions.  Where the LSTM forward's float32 slice
+does not fit in shared memory (H=449..512), its products run on the
+tensor cores (3xTF32) on as many rows a cluster as put the batch in one
+wave, the slice split between registers and shared
+memory; the backward's last slice rows sit in registers above H=464.
 ``lstm_fwd_tile``, ``lstm_bwd_tile``, ``gru_tile`` and ``gru_bwd_tile``
 are the dispatch rules.  The input projection, ``dW_hh`` and ``db_hh``
 stay plain matrix products and sums (``torch.matmul``), as the JAX
-package leaves them to XLA.  Where the LSTM runs its cluster variant, its
+package leaves them to XLA.  Up to H=32 and over a cluster, the LSTM
 forward also saves the activated gates, which the backward reads in place
 of recomputing them (``lstm_saves_gates``; ``FusedLSTMScan`` keeps them in
-place of ``x_proj``).
+place of ``x_proj``); it saves none where autograd needs no backward.
 
 Each wrapper takes the kernel's plain PyTorch version (``*_plain``) only
 for CPU tensors; on CUDA tensors it launches the kernel or raises.
@@ -48,6 +50,7 @@ stored (bf16) h (and c).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -55,10 +58,11 @@ import torch
 LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0, "gru_fwd": 0, "gru_bwd": 0}
 
 BLOCK_B = 16  # batch rows per block: 1440 rows -> 90 blocks on the card's 132 SMs
-# the LSTM forward's batch rows a block up to H=32, where W_hh^T sits in
+# both LSTM kernels' batch rows a block up to H=32, where W_hh^T sits in
 # registers: 1440 rows -> 360 blocks of 128 threads, about 3 an SM
 LSTM_FWD_BLOCK_B = 4
-LSTM_FWD_REG_HIDDEN = 32  # kRegHidden in csrc/lstm_fwd.cu
+LSTM_BWD_BLOCK_B = 4  # kLanes in csrc/lstm_bwd.cu
+LSTM_FWD_REG_HIDDEN = 32  # kRegHidden in csrc/lstm_{fwd,bwd}.cu
 _LSTM_FWD_MAX_THREADS = 512  # kFwdMaxThreads in csrc/lstm_fwd.cu
 MAX_HIDDEN = 512  # kClusterMaxHidden in csrc/cluster_common.cuh
 # the cluster variants: CTAs a cluster (kClusterCtas in
@@ -69,9 +73,10 @@ GRU_CLUSTER_CTAS = 16
 GRU_FWD_CLUSTER_ROWS = 8
 GRU_CLUSTER_ROWS = 4
 LSTM_FWD_CLUSTER_ROWS = 8
-# the LSTM forward's rows a cluster where its float32 slice's last rows sit
-# in registers (kFwdTailClusterRows in csrc/lstm_fwd.cu)
-LSTM_FWD_TAIL_CLUSTER_ROWS = 4
+# the LSTM forward's tensor-core cluster kernel (float32 where its slice does
+# not fit in shared memory): rows a cluster at most (kTcMaxRows in
+# csrc/lstm_fwd.cu)
+LSTM_FWD_TC_MAX_ROWS = 40
 LSTM_BWD_CLUSTER_ROWS = 4
 _VARIANTS = {"smem": 0, "cluster": 1}  # the variant codes of the C entries
 _ROWS_PER_THREAD = 4  # kRowsPerThread in csrc/lstm_common.cuh
@@ -92,8 +97,10 @@ def kernel_supports(hidden: int) -> bool:
     shared memory (:func:`lstm_fwd_tile`, :func:`lstm_bwd_tile`).  Above
     it both kernels spread W_hh^T over a 16-CTA cluster, each CTA holding
     an (H, 4 ceil(H/16)) slice: 264 KiB in float32 at H=512, more than a
-    CTA's shared memory, so from H=449 (forward) and H=465 (backward) its
-    last rows sit in registers; the range ends at 512, as the GRU's."""
+    CTA's shared memory, so from H=449 the forward splits it between
+    registers and shared memory (and multiplies on the tensor cores), and
+    from H=465 the backward's last rows sit in registers; the range ends
+    at 512, as the GRU's."""
     return 1 <= hidden <= MAX_HIDDEN
 
 
@@ -108,7 +115,7 @@ def _lstm_w_in_smem(hidden: int) -> bool:
 def _lstm_fwd_slice_fits(hidden: int, itemsize: int) -> bool:
     """Whether the LSTM forward cluster's W_hh^T slice, in its dtype, fits
     a CTA's shared memory beside the tiles of 8 rows
-    (``csrc/lstm_fwd.cu:fwd_smem_rows``): bf16 always, float32 up to
+    (``csrc/lstm_fwd.cu:slice_fits``): bf16 always, float32 up to
     H=448."""
     units = -(-hidden // GRU_CLUSTER_CTAS)
     octets = -(-4 * units // 8)
@@ -118,7 +125,7 @@ def _lstm_fwd_slice_fits(hidden: int, itemsize: int) -> bool:
     return tiles + hidden * stride * itemsize <= _MAX_SMEM_BYTES
 
 
-def lstm_fwd_tile(hidden: int, dtype=torch.float32) -> tuple[int, str]:
+def lstm_fwd_tile(hidden: int, dtype=torch.float32, batch: int | None = None) -> tuple[int, str]:
     """The LSTM forward's ``(batch rows a tile, variant)`` at this width
     and dtype.  ``"smem"`` up to H=110, one block of ``hidden * rows``
     threads (rows a multiple of 4, one row per lane of a 4-lane group):
@@ -126,13 +133,20 @@ def lstm_fwd_tile(hidden: int, dtype=torch.float32) -> tuple[int, str]:
     W_hh^T sits in its registers and small blocks share an SM; above it,
     where W_hh^T sits in shared memory, as many rows as 512 threads take,
     at most 16.  ``"cluster"`` above H=110, a cluster of
-    ``GRU_CLUSTER_CTAS`` blocks on ``LSTM_FWD_CLUSTER_ROWS`` rows, or on
-    ``LSTM_FWD_TAIL_CLUSTER_ROWS`` where the float32 slice does not fit in
-    shared memory (above H=448)."""
+    ``GRU_CLUSTER_CTAS`` blocks on ``LSTM_FWD_CLUSTER_ROWS`` rows where
+    the slice fits in shared memory; where the float32 slice does not
+    (H=449..512) the tensor-core kernel on the rows its C side takes at
+    ``batch`` (``csrc/lstm_fwd.cu:tc_rows``: the fewest whole 8-row
+    n-tiles that run the batch in one wave of the card's resident
+    clusters, at most ``LSTM_FWD_TC_MAX_ROWS``; 40 at B=256, 16 at 104,
+    32 at 204 and 8 at 8 on the H100 80GB HBM3's 7), through
+    :func:`cluster_shape` (without a batch: ``LSTM_FWD_TC_MAX_ROWS``)."""
     if not _lstm_w_in_smem(hidden):
         if _lstm_fwd_slice_fits(hidden, dtype.itemsize):
             return LSTM_FWD_CLUSTER_ROWS, "cluster"
-        return LSTM_FWD_TAIL_CLUSTER_ROWS, "cluster"
+        if batch is None:
+            return LSTM_FWD_TC_MAX_ROWS, "cluster"
+        return cluster_shape("lstm_fwd", hidden, batch, dtype)["rows"], "cluster"
     if hidden <= LSTM_FWD_REG_HIDDEN:
         return LSTM_FWD_BLOCK_B, "smem"
     return min(BLOCK_B, 4 * (_LSTM_FWD_MAX_THREADS // (4 * hidden))), "smem"
@@ -140,9 +154,13 @@ def lstm_fwd_tile(hidden: int, dtype=torch.float32) -> tuple[int, str]:
 
 def lstm_bwd_tile(hidden: int) -> tuple[int, str]:
     """The LSTM backward's ``(batch rows a tile, variant)`` at this width:
-    ``"smem"`` (one block, W_hh^T in its shared memory) up to H=110, else
-    ``"cluster"`` (a cluster of ``GRU_CLUSTER_CTAS`` blocks on
+    ``"smem"`` (one block) up to H=110, on ``LSTM_BWD_BLOCK_B`` rows up to
+    H=32 (W_hh^T in registers, the gates read from the forward's) and on
+    ``BLOCK_B`` above (W_hh^T in shared memory, the gates recomputed);
+    else ``"cluster"`` (a cluster of ``GRU_CLUSTER_CTAS`` blocks on
     ``LSTM_BWD_CLUSTER_ROWS`` rows)."""
+    if hidden <= LSTM_FWD_REG_HIDDEN:
+        return LSTM_BWD_BLOCK_B, "smem"
     if _lstm_w_in_smem(hidden):
         return BLOCK_B, "smem"
     return LSTM_BWD_CLUSTER_ROWS, "cluster"
@@ -150,9 +168,9 @@ def lstm_bwd_tile(hidden: int) -> tuple[int, str]:
 
 def lstm_saves_gates(hidden: int) -> bool:
     """Whether the LSTM forward saves its activated gates for the backward
-    at this width: where both run the cluster variant (H > 110), whose
-    backward reads them in place of recomputing the gates from h."""
-    return lstm_bwd_tile(hidden)[1] == "cluster"
+    at this width, which then reads them in place of recomputing the gates
+    from h: up to H=32 and where both run the cluster variant (H > 110)."""
+    return hidden <= LSTM_FWD_REG_HIDDEN or lstm_bwd_tile(hidden)[1] == "cluster"
 
 
 def gru_kernel_supports(hidden: int) -> bool:
@@ -347,16 +365,18 @@ def _launch(name, fn, *args):
     LAUNCHES[name] += 1
 
 
-def lstm_fwd(x_proj, h0, c0, w_hh_t):
+def lstm_fwd(x_proj, h0, c0, w_hh_t, save_gates: bool = True):
     """Forward time loop: ``h_all``, ``c_all`` (T, B, H) and, where
-    :func:`lstm_saves_gates`, the activated gates (T, B, 4H) for the
-    backward, else None.  CPU tensors take :func:`lstm_fwd_plain`; CUDA
-    tensors launch ``csrc/lstm_fwd.cu`` in the variant
-    :func:`lstm_fwd_tile` names, or raise."""
+    ``save_gates`` and :func:`lstm_saves_gates`, the activated gates (T,
+    B, 4H) for the backward, else None (the kernels then store none).
+    CPU tensors take :func:`lstm_fwd_plain`; CUDA tensors launch
+    ``csrc/lstm_fwd.cu`` in the variant :func:`lstm_fwd_tile` names, or
+    raise."""
     hidden = x_proj.shape[-1] // 4
+    saves = save_gates and lstm_saves_gates(hidden)
     if x_proj.device.type == "cpu":
         h_all, c_all, gates = lstm_fwd_plain(x_proj, h0, c0, w_hh_t)
-        return h_all, c_all, gates if lstm_saves_gates(hidden) else None
+        return h_all, c_all, gates if saves else None
     if x_proj.device.type != "cuda":
         raise ValueError(f"lstm_fwd: runs on CPU or CUDA tensors, got {x_proj.device}")
     seq_len, batch, gate_dim = x_proj.shape
@@ -365,11 +385,11 @@ def lstm_fwd(x_proj, h0, c0, w_hh_t):
         [(batch, hidden), (batch, hidden), (hidden, gate_dim),
          (seq_len, batch, 4 * hidden)],
     )
-    block_b, variant = lstm_fwd_tile(hidden, x_proj.dtype)
     h_all = torch.empty((seq_len, batch, hidden), dtype=x_proj.dtype, device=x_proj.device)
     c_all = torch.empty_like(h_all)
-    gates = torch.empty_like(x_proj) if lstm_saves_gates(hidden) else None
+    gates = torch.empty_like(x_proj) if saves else None
     with torch.cuda.device(x_proj.device):
+        block_b, variant = lstm_fwd_tile(hidden, x_proj.dtype, batch)
         _launch(
             "lstm_fwd", _library("lstm_fwd"),
             x_proj.data_ptr(), h0.data_ptr(), c0.data_ptr(), w_hh_t.data_ptr(),
@@ -487,11 +507,18 @@ def gru_bwd(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T):
 def cluster_shape(kernel: str, hidden: int, batch: int, dtype=torch.float32) -> dict:
     """How the cluster variant of ``kernel`` (``"lstm_fwd"``, ``"lstm_bwd"``,
     ``"gru_fwd"`` or ``"gru_bwd"``) runs at this width, batch and dtype on
-    the current card: CTAs and batch rows a cluster, the clusters resident
+    the current card: CTAs and batch rows a cluster (the LSTM forward's
+    tensor-core kernel: ``csrc/lstm_fwd.cu:tc_rows``), the clusters resident
     at once (``cudaOccupancyMaxActiveClusters``), the dynamic shared memory
     a CTA and the waves of clusters; for the LSTM kernels also the rows of
-    each CTA's W_hh^T slice held in shared memory (the others out of it).
-    Raises where not even one cluster fits."""
+    each CTA's W_hh^T slice held in shared memory (the others in
+    registers).  Raises where not even one cluster fits.  Cached by
+    (kernel, width, batch, dtype, device)."""
+    return dict(_cluster_shape(kernel, hidden, batch, dtype, torch.cuda.current_device()))
+
+
+@functools.cache
+def _cluster_shape(kernel: str, hidden: int, batch: int, dtype, device: int) -> tuple:
     from pytorch_distributed_rnn_tpu_torch import _build
 
     fn = getattr(_build.load(kernel), f"{kernel}_cluster_shape")
@@ -508,7 +535,7 @@ def cluster_shape(kernel: str, hidden: int, batch: int, dtype=torch.float32) -> 
              "clusters": clusters, "waves": -(-clusters // active)}
     if kernel.startswith("lstm"):
         shape["smem_slice_rows"] = slice_rows
-    return shape
+    return tuple(shape.items())
 
 
 # ---------------------------------------------------------------------------
@@ -520,12 +547,14 @@ class FusedLSTMScan(torch.autograd.Function):
     """Differentiable fused LSTM time loop, the semantics of the JAX
     package's ``fused_lstm_scan`` custom VJP.
 
-    ``forward(x_proj (T, B, 4H), w_hh_t (H, 4H), h0, c0 (B, H))``
-    returns ``(h_all (T, B, H), h_T, c_T)``."""
+    ``forward(x_proj (T, B, 4H), w_hh_t (H, 4H), h0, c0 (B, H),
+    save_gates)`` returns ``(h_all (T, B, H), h_T, c_T)``; the forward
+    saves the activated gates for the backward only with ``save_gates``
+    (where autograd will call it)."""
 
     @staticmethod
-    def forward(ctx, x_proj, w_hh_t, h0, c0):
-        h_all, c_all, gates = lstm_fwd(x_proj, h0, c0, w_hh_t)
+    def forward(ctx, x_proj, w_hh_t, h0, c0, save_gates):
+        h_all, c_all, gates = lstm_fwd(x_proj, h0, c0, w_hh_t, save_gates)
         # where the forward saved the activated gates, the backward reads
         # them in place of x_proj, which is then not kept
         ctx.saved_gates = gates is not None
@@ -548,7 +577,7 @@ class FusedLSTMScan(torch.autograd.Function):
             h_prev.reshape(-1, h_prev.shape[-1]).float().T
             @ dx_proj.reshape(-1, dx_proj.shape[-1]).float()
         ).to(dtype)
-        return dx_proj, dw_hh_t, dh0, dc0
+        return dx_proj, dw_hh_t, dh0, dc0, None
 
 
 def lstm_layer_fused(params, x, h0=None, c0=None):
@@ -569,10 +598,11 @@ def lstm_layer_fused(params, x, h0=None, c0=None):
         h0 = x.new_zeros((batch, hidden), dtype=dtype)
     if c0 is None:
         c0 = x.new_zeros((batch, hidden), dtype=dtype)
-    h_all, h_t, c_t = FusedLSTMScan.apply(
-        x_proj, params["w_hh"].T.contiguous(), h0.to(dtype).contiguous(),
-        c0.to(dtype).contiguous(),
-    )
+    inputs = (x_proj, params["w_hh"].T.contiguous(), h0.to(dtype).contiguous(),
+              c0.to(dtype).contiguous())
+    # the activated gates only where autograd will run the backward
+    backward = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+    h_all, h_t, c_t = FusedLSTMScan.apply(*inputs, backward)
     return h_all.transpose(0, 1), (h_t, c_t)
 
 

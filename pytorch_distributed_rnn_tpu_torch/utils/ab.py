@@ -2,7 +2,8 @@
 
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab rows
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab split
-    python -m pytorch_distributed_rnn_tpu_torch.utils.ab step --other DIR [--rounds N]
+    python -m pytorch_distributed_rnn_tpu_torch.utils.ab tc
+    python -m pytorch_distributed_rnn_tpu_torch.utils.ab step --other DIR [--rounds N] [--path P]
 
 Each run measures one tree (a copy of this package with a source
 substitution, or another checkout) in its own process, with the measuring
@@ -21,12 +22,27 @@ beside the split route on the same inputs (delta in torch, ``flash_dq``,
 ``flash_dkv``), with the scaled error against the plain version and whether
 two launches give the same bits.
 
-``step``: path d (``--model attention --hidden-units 128 --num-heads 4
---stacked-layer 2 --batch-size 256 --dropout 0``, 2 epochs on seeded
-synthetic HAR windows at the UCI sizes) with the package under DIR (for
-example a ``git archive`` of another commit) and with this one, then 4
-more epochs a step on the host clock and one under ``torch.profiler``
-(device time a step, and that of each flash kernel).
+``tc``: the float32 LSTM forward's tensor-core kernel (``csrc/lstm_fwd.cu:
+lstm_fwd_tc_kernel``) at the char-LM shape (T=128, B=256, H=512) and one
+cluster of 40 rows, with the worst scaled error against the plain version
+over its edge cases (H=512 at B=256, 104, 204; H=449 at 37; H=480 at 61;
+two seeds each), and each instance's registers, stack and local memory
+(``cuobjdump -res-usage``): this tree, a copy whose k-steps chain their
+products straight into the accumulators (``chained``), and a copy that
+keeps its thread index from the kernel's start (``hoisted``: the compiler
+then holds the addresses it derives across the step).
+
+``step``: a main path with the package under DIR (for example a ``git
+archive`` of another commit) and with this one: 2 epochs on seeded
+synthetic data at the CLI's sizes, then 4 more epochs a step on the host
+clock and one under ``torch.profiler`` (device time a step, and that of
+each of the port's kernels).  ``--path`` (default d): ``a``, the motion
+LSTM with the CLI's defaults (batch 1440, 2 x 32) on HAR windows at the
+UCI sizes; ``d``, ``--model attention --hidden-units 128 --num-heads 4
+--stacked-layer 2 --batch-size 256 --dropout 0`` on the same windows;
+``f``, ``--model char --hidden-units 512 --stacked-layer 2 --seq-length
+128 --batch-size 256 --dropout 0`` (the default LSTM cell) on the
+synthetic motif corpus.
 
 Copies go to ``build/ab/``.  Kernel times are CUDA events over repeated
 launches.  This file imports nothing of the package at module level, so a
@@ -62,8 +78,30 @@ MASK_TO_CVT = ((
 GRU_SHAPE = (128, 256, 512)  # T, B, H of the char LM
 ATTN_BATCHES = (1024, 512)  # B*H of the CLI's train batches (256 and 128 windows, 4 heads)
 ATTN_SEQ_LEN, ATTN_HEAD_DIM = 128, 32
-PATH_D = ["--model", "attention", "--hidden-units", "128", "--num-heads", "4",
-          "--stacked-layer", "2", "--batch-size", "256", "--dropout", "0"]
+TC_CHAINED = ((
+    "csrc/lstm_fwd.cu",
+    """      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      flash::mma_tf32(d, al, bh0, bh1);
+      flash::mma_tf32(d, ah, bl0, bl1);
+      flash::mma_tf32(d, ah, bh0, bh1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += d[e];""",
+    """      flash::mma_tf32(acc[n], al, bh0, bh1);
+      flash::mma_tf32(acc[n], ah, bl0, bl1);
+      flash::mma_tf32(acc[n], ah, bh0, bh1);""",
+),)
+TC_HOISTED = (("csrc/lstm_fwd.cu", "    const int tid = step_tid();", "    const int tid = threadIdx.x;"),)
+TC_SHAPE = (128, 256, 512)  # T, B, H of the char LM
+TC_CASES = ((512, 256), (512, 104), (512, 204), (449, 37), (480, 61))  # (H, B)
+# each main path's flags beyond the data and checkpoint paths, and its batch
+PATHS = {
+    "a": ([], 1440),
+    "d": (["--model", "attention", "--hidden-units", "128", "--num-heads", "4",
+           "--stacked-layer", "2", "--batch-size", "256", "--dropout", "0"], 256),
+    "f": (["--model", "char", "--hidden-units", "512", "--stacked-layer", "2",
+           "--seq-length", "128", "--batch-size", "256", "--dropout", "0"], 256),
+}
+PORT_KERNELS = ("lstm_", "gru_", "flash_")  # name prefixes of the port's kernels
 
 
 def patched_copy(dest: Path, substitutions) -> Path:
@@ -156,9 +194,63 @@ def _time_split() -> dict:
     return out
 
 
-def _time_step() -> dict:
-    """Path d with the tree's package: 2 epochs, then 4 on the host clock
-    and one profiled."""
+def _time_tc() -> dict:
+    """The tree's tensor-core LSTM forward: time, error and resources."""
+    import re
+
+    import torch
+
+    fr = _own("ops.fused_rnn")
+    build = _own("_build")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def inputs(hidden, batch, seed):
+        gen = torch.Generator(device="cuda").manual_seed(batch + hidden + seed)
+        x = torch.randn(TC_SHAPE[0], batch, 4 * hidden, generator=gen, device="cuda")
+        h0, c0 = (0.5 * torch.randn(batch, hidden, generator=gen, device="cuda") for _ in "hc")
+        w = 0.2 * (32 / hidden) ** 0.5 * torch.randn(hidden, 4 * hidden, generator=gen,
+                                                     device="cuda")
+        return x, h0, c0, w
+
+    worst = 0.0
+    for hidden, batch in TC_CASES:
+        for seed in (0, 1):
+            args = inputs(hidden, batch, seed)
+            for got, want in zip(fr.lstm_fwd(*args), fr.lstm_fwd_plain(*args)):
+                worst = max(worst, ((got - want).abs() / (1 + want.abs())).max().item())
+    _, batch, hidden = TC_SHAPE
+    args = inputs(hidden, batch, 0)
+    rows = fr.lstm_fwd_tile(hidden, torch.float32, batch)[0]
+    one = inputs(hidden, rows, 0)
+    h_all = torch.empty(TC_SHAPE[0], rows, hidden, device="cuda")
+    c_all, gates = torch.empty_like(h_all), torch.empty_like(one[0])
+    fn = fr._library("lstm_fwd")
+
+    def one_cluster():  # B = R rows on one cluster (the wrapper would split them)
+        err = fn(*(t.data_ptr() for t in (*one, h_all, c_all, gates)), TC_SHAPE[0], rows, hidden,
+                 rows, fr._VARIANTS["cluster"], 0, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"lstm_fwd at {rows} rows: CUDA error {err}")
+
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    usage = subprocess.run([str(cuobjdump), "-res-usage", str(build.library_path("lstm_fwd"))],
+                           capture_output=True, text=True, timeout=300, check=True).stdout
+    resources, name = {}, None
+    for line in usage.splitlines():
+        if m := re.search(r"Function (\S*lstm_fwd_tc_kernelILi(\d+)\S*):", line):
+            name = f"R={m.group(2)}"
+        elif name and (m := re.search(r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", line)):
+            resources[name] = {"registers": int(m.group(1)), "stack": int(m.group(2)),
+                               "local": int(m.group(3))}
+            name = None
+    return {"ms": _time_ms(lambda: fr.lstm_fwd(*args), 20), "rows": rows,
+            "one_cluster_ms": _time_ms(one_cluster, 20), "worst_scaled_err": worst,
+            "resources": resources}
+
+
+def _time_step(path: str = "d") -> dict:
+    """A main path with the tree's package: 2 epochs, then 4 on the host
+    clock and one profiled."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -167,14 +259,17 @@ def _time_step() -> dict:
     formatter = _own("training.formatter").TrainingMessageFormatter(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    flags, batch = PATHS[path]
     with tempfile.TemporaryDirectory(prefix="ab_step_") as tmp:
         work = Path(tmp)
         har.write_synthetic_har_cache(work / "data", num_train=7352, num_test=2947, seed=0)
         os.chdir(work)  # main writes history.json into the working directory
-        trainer = port_main.main([*PATH_D, "--dataset-path", str(work / "data"),
+        # the char path makes its synthetic corpus where the path holds none
+        data = work / ("no-corpus" if path == "f" else "data")
+        trainer = port_main.main([*flags, "--dataset-path", str(data),
                                   "--checkpoint-directory", str(work / "models"),
                                   "--epochs", "2", "--seed", "0", "local"])
-        steps = -(-len(trainer.training_set) // 256)
+        steps = -(-len(trainer.training_set) // batch)
         host_ms = []
         for _ in range(4):
             torch.cuda.synchronize()
@@ -185,53 +280,63 @@ def _time_step() -> dict:
             trainer._train_epoch(formatter)
     device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
-    flash = {key.split("::")[-1].split("(")[0]: us / 1e3 / steps
-             for key, us in device_us.items() if "flash_" in key}
-    return {"host_ms": host_ms, "device_ms": sum(device_us.values()) / 1e3 / steps,
-            "flash_device_ms": flash}
+    kernels = {key.split("::")[-1].split("(")[0]: us / 1e3 / steps
+               for key, us in device_us.items() if any(k in key for k in PORT_KERNELS)}
+    return {"path": path, "host_ms": host_ms,
+            "device_ms": sum(device_us.values()) / 1e3 / steps, "kernel_device_ms": kernels}
 
 
-def _run(root: Path, what: str) -> dict:
-    """``what`` of this file in a child process whose ``sys.path[0]`` is
-    ``root``."""
+def _run(root: Path, what: str, *args: str) -> dict:
+    """``what(*args)`` of this file in a child process whose ``sys.path[0]``
+    is ``root``."""
     code = ("import json, runpy, sys; sys.path.insert(0, sys.argv[1]); "
-            "print(json.dumps(runpy.run_path(sys.argv[2])[sys.argv[3]]()))")
-    proc = subprocess.run([sys.executable, "-c", code, str(root), str(Path(__file__)), what],
-                          capture_output=True, text=True, timeout=900)
+            "print(json.dumps(runpy.run_path(sys.argv[2])[sys.argv[3]](*sys.argv[4:])))")
+    proc = subprocess.run([sys.executable, "-c", code, str(root), str(Path(__file__)), what,
+                           *args], capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"{root}: {proc.stderr[-2000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def _parse(argv: list) -> tuple:
-    """``(mode, other tree or None, rounds)``; raises SystemExit on misuse."""
-    usage = "usage: ab rows | ab split | ab step --other DIR [--rounds N]"
-    if argv in (["rows"], ["split"]):
-        return argv[0], None, 1
-    if argv[:2] == ["step", "--other"] and len(argv) in (3, 5):
-        if len(argv) == 3:
-            return "step", Path(argv[2]).resolve(), 1
-        if argv[3] == "--rounds" and argv[4].isdigit() and int(argv[4]) > 0:
-            return "step", Path(argv[2]).resolve(), int(argv[4])
+    """``(mode, other tree or None, rounds, path)``; raises SystemExit on
+    misuse."""
+    usage = "usage: ab rows | ab split | ab tc | ab step --other DIR [--rounds N] [--path a|d|f]"
+    if argv in (["rows"], ["split"], ["tc"]):
+        return argv[0], None, 1, None
+    mode, rest = (argv[0], argv[1:]) if argv else (None, [])
+    options = dict(zip(rest[::2], rest[1::2]))
+    if len(rest) % 2 or len(options) != len(rest) // 2:
+        raise SystemExit(usage)
+    rounds = options.pop("--rounds", "1")
+    if not rounds.isdigit() or int(rounds) < 1:
+        raise SystemExit(usage)
+    path = options.pop("--path", "d")
+    if mode == "step" and "--other" in options and path in PATHS and len(options) == 1:
+        return "step", Path(options["--other"]).resolve(), int(rounds), path
     raise SystemExit(usage)
 
 
 def main(argv=None) -> int:
-    mode, other, rounds = _parse(sys.argv[1:] if argv is None else argv)
+    mode, other, rounds, path = _parse(sys.argv[1:] if argv is None else argv)
     if mode == "rows":
         runs = [("8", PACKAGE.parent, "_time_rows"),
                 ("4", patched_copy(WORK / "rows4", ROWS_8_TO_4), "_time_rows")]
     elif mode == "split":
         runs = [("mask", PACKAGE.parent, "_time_split"),
                 ("cvt", patched_copy(WORK / "cvt", MASK_TO_CVT), "_time_split")]
+    elif mode == "tc":
+        runs = [("this", PACKAGE.parent, "_time_tc"),
+                ("chained", patched_copy(WORK / "chained", TC_CHAINED), "_time_tc"),
+                ("hoisted", patched_copy(WORK / "hoisted", TC_HOISTED), "_time_tc")]
     else:
         runs = [("other", other, "_time_step"), ("this", PACKAGE.parent, "_time_step")]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    for i in (0, 1, 1, 0) * rounds:
+    for i in (*range(len(runs)), *reversed(range(len(runs)))) * rounds:
         label, root, what = runs[i]
-        result = _run(root, what)
+        result = _run(root, what, *([path] if path else []))
         if mode == "rows" and str(result["rows"]) != label:
             raise RuntimeError(f"the copy for {label} rows ran {result['rows']}")
         print(json.dumps({"run": label, **result}), flush=True)

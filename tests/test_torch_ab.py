@@ -10,10 +10,14 @@ from pytorch_distributed_rnn_tpu_torch.utils import ab
 
 
 @pytest.mark.parametrize("argv, want", [
-    (["rows"], ("rows", None, 1)),
-    (["split"], ("split", None, 1)),
-    (["step", "--other", "x"], ("step", Path("x").resolve(), 1)),
-    (["step", "--other", "x", "--rounds", "5"], ("step", Path("x").resolve(), 5)),
+    (["rows"], ("rows", None, 1, None)),
+    (["split"], ("split", None, 1, None)),
+    (["tc"], ("tc", None, 1, None)),
+    (["step", "--other", "x"], ("step", Path("x").resolve(), 1, "d")),
+    (["step", "--other", "x", "--rounds", "5"], ("step", Path("x").resolve(), 5, "d")),
+    (["step", "--path", "f", "--other", "x"], ("step", Path("x").resolve(), 1, "f")),
+    (["step", "--other", "x", "--rounds", "3", "--path", "a"],
+     ("step", Path("x").resolve(), 3, "a")),
 ])
 def test_parse(argv, want):
     assert ab._parse(argv) == want
@@ -22,15 +26,17 @@ def test_parse(argv, want):
 @pytest.mark.parametrize("argv", [
     [], ["rows", "x"], ["step"], ["step", "--other"], ["step", "--other", "x", "--rounds"],
     ["step", "--other", "x", "--rounds", "0"], ["step", "--other", "x", "--pairs", "5"],
-    ["kernels"],
+    ["kernels"], ["tc", "--rounds", "2"], ["step", "--other", "x", "--path", "b"], ["gates"],
+    ["rows", "--rounds", "2"], ["step", "--other", "x", "--other", "y"],
 ])
 def test_parse_rejects(argv):
     with pytest.raises(SystemExit):
         ab._parse(argv)
 
 
-@pytest.mark.parametrize("substitutions", [ab.ROWS_8_TO_4, ab.MASK_TO_CVT],
-                         ids=["rows", "split"])
+@pytest.mark.parametrize("substitutions", [ab.ROWS_8_TO_4, ab.MASK_TO_CVT, ab.TC_CHAINED,
+                                           ab.TC_HOISTED],
+                         ids=["rows", "split", "chained", "hoisted"])
 def test_patched_copy_makes_each_substitution(tmp_path, substitutions):
     root = ab.patched_copy(tmp_path / "copy", substitutions)
     for rel, old, new in substitutions:

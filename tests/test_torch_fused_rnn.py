@@ -117,6 +117,68 @@ def test_fused_layer_matches_jax_at_cluster_widths(hidden, dtype_name):
                        {k: state[f"rnn.0.{k}"] for k in NAMES})
 
 
+# the motion width, where the backward reads the forward's saved gates: a
+# batch of 37 (ragged against the card's 4-row tiles), in one JAX tile
+def _h32_case(batch=37, seq=10, seed=32):
+    rng = np.random.RandomState(seed)
+    hidden = 32
+    x_proj = rng.randn(seq, batch, 4 * hidden).astype(np.float32)
+    w = (0.2 * rng.randn(hidden, 4 * hidden)).astype(np.float32)
+    h0, c0 = (0.5 * rng.randn(batch, hidden).astype(np.float32) for _ in range(2))
+    cot = [rng.randn(*s).astype(np.float32)
+           for s in ((seq, batch, hidden), (batch, hidden), (batch, hidden))]
+    return x_proj, w, h0, c0, cot
+
+
+def test_plain_backward_on_saved_gates_matches_jax_kernel_at_h32():
+    """``lstm_bwd_plain`` with the forward's gates at H=32 against the JAX
+    ``_lstm_bwd_pallas`` (Pallas interpret mode), which recomputes them."""
+    import jax.numpy as jnp
+
+    from pytorch_distributed_rnn_tpu.ops.pallas_rnn import _lstm_bwd_pallas
+
+    x_proj, w, h0, c0, (dh_all, dh_t, dc_t) = _h32_case()
+    t = [torch.from_numpy(a) for a in (x_proj, h0, c0, w)]
+    h_all, c_all, gates = fr.lstm_fwd_plain(*t[:3], t[3])
+    assert fr.lstm_saves_gates(32)
+    got = fr.lstm_bwd_plain(None, h_all, c_all, t[1], t[2], t[3], *map(torch.from_numpy,
+                                                                      (dh_all, dh_t, dc_t)),
+                            gates=gates)
+    want = _lstm_bwd_pallas(*map(jnp.asarray, (x_proj, h_all.numpy(), c_all.numpy(), h0, c0, w,
+                                               dh_all, dh_t, dc_t)), block_b=x_proj.shape[1])
+    for name, a, b in zip(("dx_proj", "dh0", "dc0"), got, want):
+        np.testing.assert_allclose(_f32(a), _f32(b), rtol=F32_GRAD, atol=F32_GRAD, err_msg=name)
+
+
+def test_fused_scan_matches_jax_fused_scan_at_h32():
+    """``FusedLSTMScan`` at H=32 on a ragged batch against the JAX
+    ``fused_lstm_scan``: h_all and the final state, and the gradients of
+    x_proj, W_hh^T, h0 and c0."""
+    import jax
+    import jax.numpy as jnp
+
+    from pytorch_distributed_rnn_tpu.ops.pallas_rnn import fused_lstm_scan
+
+    x_proj, w, h0, c0, (dh_all, dh_t, dc_t) = _h32_case()
+    batch = x_proj.shape[1]
+    tx, tw, th, tc = (torch.tensor(a, requires_grad=True) for a in (x_proj, w, h0, c0))
+    h_all, h_t, c_t = fr.FusedLSTMScan.apply(tx, tw, th, tc, True)
+    cot = [torch.from_numpy(a) for a in (dh_all, dh_t, dc_t)]
+    ((h_all * cot[0]).sum() + (h_t * cot[1]).sum() + (c_t * cot[2]).sum()).backward()
+
+    def loss(xp, ww, hh, cc):
+        out, (hT, cT) = fused_lstm_scan(xp, ww, hh, cc, batch)
+        return jnp.sum(out * dh_all) + jnp.sum(hT * dh_t) + jnp.sum(cT * dc_t), (out, hT, cT)
+
+    (_, outs), grads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3), has_aux=True)(
+        *map(jnp.asarray, (x_proj, w, h0, c0)))
+    for a, b in zip((h_all, h_t, c_t), outs):
+        np.testing.assert_allclose(_f32(a), _f32(b), rtol=F32_FWD, atol=F32_FWD)
+    for name, a, b in zip(("x_proj", "w_hh_t", "h0", "c0"), (tx, tw, th, tc), grads):
+        np.testing.assert_allclose(_f32(a.grad), _f32(b), rtol=F32_GRAD, atol=F32_GRAD,
+                                   err_msg=name)
+
+
 def test_fused_layer_default_state_matches_scan_layer():
     params, x, _, _ = _case(7, seed=3)
     tp = {k: torch.from_numpy(v) for k, v in params.items()}
@@ -171,15 +233,16 @@ def test_kernel_supports(hidden, ok):
 
 # the forward's rows a block: 4 up to H=32 (W_hh^T in registers), then as
 # many as 512 threads take (W_hh^T in shared memory), at most 16, up to
-# H=110; a cluster on 8 rows above, on 4 where the f32 slice's last rows
-# sit in registers (above H=448; bf16 slices fit)
+# H=110; a cluster on 8 rows above where the slice fits in shared memory
+# (bf16 always); the f32 tensor-core cluster kernel (H=449..512) on the
+# rows its C side takes at a batch, without one on the most it takes (40)
 @pytest.mark.parametrize(
     "hidden,dtype,tile",
     [(1, torch.float32, (4, "smem")), (32, torch.float32, (4, "smem")),
      (33, torch.float32, (12, "smem")), (64, torch.float32, (8, "smem")),
      (110, torch.bfloat16, (4, "smem")), (110, torch.float32, (4, "smem")),
      (111, torch.float32, (8, "cluster")), (448, torch.float32, (8, "cluster")),
-     (449, torch.float32, (4, "cluster")), (512, torch.float32, (4, "cluster")),
+     (449, torch.float32, (40, "cluster")), (512, torch.float32, (40, "cluster")),
      (512, torch.bfloat16, (8, "cluster"))],
 )
 def test_lstm_fwd_tile(hidden, dtype, tile):
@@ -188,19 +251,21 @@ def test_lstm_fwd_tile(hidden, dtype, tile):
     assert rows % 4 == 0 and (variant == "cluster" or rows * hidden <= 512)
 
 
-# the backward: one block of 16 rows up to H=110, a cluster on 4 rows above
+# the backward: one block on 4 rows up to H=32 (W_hh^T in registers), of 16
+# rows up to H=110, a cluster on 4 rows above
 @pytest.mark.parametrize(
     "hidden,tile",
-    [(1, (16, "smem")), (32, (16, "smem")), (110, (16, "smem")), (111, (4, "cluster")),
-     (451, (4, "cluster")), (512, (4, "cluster"))],
+    [(1, (4, "smem")), (32, (4, "smem")), (33, (16, "smem")), (110, (16, "smem")),
+     (111, (4, "cluster")), (451, (4, "cluster")), (512, (4, "cluster"))],
 )
 def test_lstm_bwd_tile(hidden, tile):
     assert fr.lstm_bwd_tile(hidden) == tile
 
 
-# the forward saves its activated gates where both kernels run the cluster
-# variant, and the backward then needs them (and takes none elsewhere)
-@pytest.mark.parametrize("hidden,saves", [(32, False), (110, False), (111, True), (512, True)])
+# the forward saves its activated gates up to H=32 and where both kernels
+# run the cluster variant, and the backward then needs them (and takes none
+# elsewhere)
+@pytest.mark.parametrize("hidden,saves", [(32, True), (110, False), (111, True), (512, True)])
 def test_lstm_saves_gates(hidden, saves):
     assert fr.lstm_saves_gates(hidden) is saves
     t, b = 3, 2
@@ -215,6 +280,40 @@ def test_lstm_saves_gates(hidden, saves):
         fr.lstm_bwd(x_proj, h_all, c_all, h0, c0, w, *cot, wrong)
     want = fr.lstm_bwd(x_proj, h_all, c_all, h0, c0, w, *cot, gates)
     torch.testing.assert_close(want[0], fr.lstm_bwd_plain(x_proj, h_all, c_all, h0, c0, w, *cot)[0])
+
+
+# where autograd runs no backward (evaluation, generate), the forward saves
+# no gates, and h_all is the same; with grad it saves them where
+# lstm_saves_gates says
+@pytest.mark.parametrize("hidden", [32, 64, 111])
+def test_no_grad_forward_saves_no_gates(hidden, monkeypatch):
+    gen = torch.Generator().manual_seed(hidden)
+    x_proj = torch.randn(4, 3, 4 * hidden, generator=gen)
+    h0, c0 = torch.randn(3, hidden, generator=gen), torch.randn(3, hidden, generator=gen)
+    w = (0.1 * torch.randn(hidden, 4 * hidden, generator=gen)).requires_grad_(True)
+    h_ng, c_ng, g_ng = fr.lstm_fwd(x_proj, h0, c0, w.detach(), save_gates=False)
+    h_all, c_all, gates = fr.lstm_fwd(x_proj, h0, c0, w.detach())
+    assert g_ng is None and (gates is not None) is fr.lstm_saves_gates(hidden)
+    assert torch.equal(h_ng, h_all) and torch.equal(c_ng, c_all)
+    seen = []
+    real = fr.lstm_fwd
+
+    def spy(*args):
+        out = real(*args)
+        seen.append(out[2] is not None)
+        return out
+
+    monkeypatch.setattr(fr, "lstm_fwd", spy)
+    with torch.no_grad():
+        out = fr.FusedLSTMScan.apply(x_proj, w, h0, c0, False)[0]
+    layer = {"w_ih": torch.zeros(4 * hidden, 2), "w_hh": w.detach().T.requires_grad_(True),
+             "b_ih": torch.zeros(4 * hidden), "b_hh": torch.zeros(4 * hidden)}
+    grad_out = fr.lstm_layer_fused(layer, torch.zeros(3, 4, 2))[0]
+    with torch.no_grad():
+        fr.lstm_layer_fused(layer, torch.zeros(3, 4, 2))
+    assert torch.equal(out, h_all)
+    assert grad_out.requires_grad
+    assert seen == [False, fr.lstm_saves_gates(hidden), False]
 
 
 @pytest.mark.parametrize(
@@ -247,26 +346,28 @@ def test_wrappers_reject_devices_other_than_cpu_and_cuda(kernel):
     state = torch.zeros(b, h, device="meta")
     seq = torch.zeros(t, b, h, device="meta")
     w = torch.zeros(h, 4 * h, device="meta")
+    # up to H=32 the backward reads the forward's saved gates (x_proj's shape)
     args = ((x_proj, state, state, w) if kernel == "lstm_fwd"
-            else (x_proj, seq, seq, state, state, w, seq, state, state))
+            else (x_proj, seq, seq, state, state, w, seq, state, state, x_proj))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         getattr(fr, kernel)(*args)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-# the motion shape and its evaluation batch; ragged last tiles (37 rows);
-# the widest W in registers (32), the narrowest (1) and the widest (110)
-# with W in shared memory, with a ragged warp (110 x 4 = 440 threads); the
-# cluster kernels: the char LM's train and evaluation batches at 512, the
-# narrowest width (111), widths that split unevenly over the 16 CTAs, both
-# sides of the f32 slice's fit in shared memory (forward 448 / 449,
-# backward 464 / 465), ragged last tiles of 8 and 4 rows at 512
+# the motion shape, its last train batch and its evaluation batch; ragged
+# last tiles (37 rows); the widest W in registers (32), the narrowest (1)
+# and the widest (110) with W in shared memory, with a ragged warp (110 x 4
+# = 440 threads); the cluster kernels: the char LM's train and evaluation
+# batches and generate's 8 prompts at 512, the narrowest width (111),
+# widths that split unevenly over the 16 CTAs, both sides of the f32
+# slice's fit in shared memory (forward 448 / 449, where the tensor-core
+# kernel starts; backward 464 / 465), ragged last tiles at 512
 @pytest.mark.parametrize(
     "hidden,batch",
-    [(32, 1440), (32, 735), (32, 37), (1, 5), (33, 37), (110, 64), (110, 37),
-     (512, 256), (512, 104), (512, 204), (111, 37), (200, 64), (300, 37), (448, 37),
-     (449, 37), (464, 37), (465, 37), (512, 250), (512, 37)],
+    [(32, 1440), (32, 768), (32, 735), (32, 37), (1, 5), (33, 37), (110, 64), (110, 37),
+     (512, 256), (512, 104), (512, 204), (512, 8), (111, 37), (200, 64), (300, 37),
+     (448, 37), (449, 37), (464, 37), (465, 37), (512, 250), (512, 37)],
 )
 def test_cuda_kernels_match_plain_versions(hidden, batch, dtype):
     if not torch.cuda.is_available():
@@ -295,6 +396,14 @@ def test_cuda_kernels_match_plain_versions(hidden, batch, dtype):
     assert (g_k is not None) is fr.lstm_saves_gates(h)
     if g_k is not None:
         assert_kernel_close(g_k, g_p, tol_f)
+    rows, variant = fr.lstm_fwd_tile(h, dtype, batch)
+    if variant == "cluster" and rows != fr.LSTM_FWD_CLUSTER_ROWS:
+        # the tensor-core kernel: the fewest whole 8-row tiles that run the
+        # batch in one wave of the resident clusters, at most 40
+        shape = fr.cluster_shape("lstm_fwd", h, batch, dtype)
+        assert rows % 8 == 0 and rows <= fr.LSTM_FWD_TC_MAX_ROWS
+        assert shape["waves"] == 1 or rows == fr.LSTM_FWD_TC_MAX_ROWS
+        assert rows == 8 or -(-batch // (rows - 8)) > shape["active_clusters"]
     # O(1) cotangents, so the gradients are not small beside the tolerance
     dh_all, dh_t, dc_t = (torch.randn(s, generator=gen, device="cuda").to(dtype)
                           for s in ((t, batch, h), (batch, h), (batch, h)))

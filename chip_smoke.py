@@ -9,9 +9,10 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. build: compiles every kernel source of ``pytorch_distributed_rnn_tpu_torch/
    csrc/`` with nvcc, one process per source, all at once; prints each
    kernel's registers and spills (``-Xptxas -v``), checks that the GRU
-   forward's cluster kernel, the LSTM forward kernel, both LSTM cluster
-   kernels, the LSTM forward's tensor-core cluster kernel
-   (``lstm_fwd_tc_kernel``), the LSTM backward up to H=32
+   forward's cluster kernel, both GRU kernels up to H=32
+   (``gru_fwd_reg_kernel``, ``gru_bwd_reg_kernel``), the LSTM forward
+   kernel, both LSTM cluster kernels, the LSTM forward's tensor-core
+   cluster kernel (``lstm_fwd_tc_kernel``), the LSTM backward up to H=32
    (``lstm_bwd_reg_kernel``) and the fused f32 flash backward
    (``flash_dqkv_tc_kernel``) have no stack frame and no spills in any
    instance, and checks in the SASS (``cuobjdump``) that the bf16
@@ -26,8 +27,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    LSTM one-block kernels' edges (B=37, H=110), the LSTM cluster kernels'
    edges (H=111, 200, 300, both sides of the f32 slice's fit in shared
    memory: 448/449 forward, where the tensor-core kernel starts, 464/465
-   backward, B=250, 37 and generate's 8 prompts at 512), the
-   GRU cluster kernels' edges (H=127, 200, 300, B=250 and 37 at 512); the
+   backward, B=250, 37 and generate's 8 prompts at 512), the GRU
+   register kernels' edges (a ragged last quad at H=32, H=1, and H=13 and
+   30, where no 4 divides H), the GRU cluster kernels' edges (H=127, 200,
+   300, B=250 and 37 at 512), and the gates the forwards save (the LSTM
+   up to H=32 and over a cluster, the GRU up to H=32); the
    flash kernels at the
    attention CLI's (B*H, T, D) shapes (train batches, and the evaluation
    batches forward only), the long-context shape (64, 1024, 128) in bf16
@@ -75,7 +79,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    (the RNN kernels at (1440, 32) and (256, 512); ``flash_dqkv`` beside
    the split route it replaced, on the same inputs), beside each kernel's
    bound; each kernel at one block (or one cluster), its serial floor; the
-   LSTM forward at 4, 8, 12 and 16 rows a block; the LSTM cluster kernels
+   LSTM and GRU forwards at 4, 8, 12 and 16 rows a block and storing no
+   gates; the backwards that read saved gates beside the bound of that
+   form; the LSTM cluster kernels
    on both sides of their f32 slices' fit and in bf16; and the cluster
    kernels' shapes at H=512 (CTAs and rows a cluster, clusters resident at once,
    waves, the LSTM slices' rows in shared memory); the LSTM forward's
@@ -123,6 +129,10 @@ GENERATE_PROMPTS, GENERATE_PROMPT_LEN, GENERATE_TOKENS = 8, 64, 32
 # cluster, widths that split unevenly over the 16 CTAs, and ragged last
 # tiles of the forward's 8 rows and the backward's 4
 GRU_CLUSTER_EDGES = ((127, 37), (200, 64), (300, 37), (CHAR_HIDDEN, 250), (CHAR_HIDDEN, 37))
+# (H, B) of the GRU register kernels' edges (H <= 32): a ragged last
+# 4-row quad, the narrowest width, and widths that no 4 divides, where the
+# backward's 3 x 32 padded contraction columns hold zero runs
+GRU_EDGES = ((HIDDEN, 37), (1, 5), (13, 37), (30, 37))
 # (H, B) of the LSTM kernels' edges beside the motion shapes: a ragged
 # last 4-row tile, and the widest width of the one-block kernels (W_hh^T in
 # shared memory, a ragged warp), also with a ragged tile
@@ -135,14 +145,14 @@ LSTM_EDGES = ((HIDDEN, 37), (110, 64), (110, 37))
 LSTM_CLUSTER_EDGES = ((111, 37), (200, 64), (300, 37), (448, 37), (449, 37), (464, 37),
                       (465, 37), (CHAR_HIDDEN, 250), (CHAR_HIDDEN, 37),
                       (CHAR_HIDDEN, GENERATE_PROMPTS))
-# the LSTM forward's rows a block, timed at the motion shape to choose
-# LSTM_FWD_BLOCK_B
-LSTM_FWD_TILES = (4, 8, 12, 16)
+# the LSTM and GRU forwards' rows a block, timed at the motion shape to
+# choose LSTM_FWD_BLOCK_B and GRU_FWD_BLOCK_B
+FWD_TILES = (4, 8, 12, 16)
 # the kernels whose ptxas report must show no stack frame and no spills,
 # every instance (dtype, variant)
-NO_STACK_KERNELS = ("gru_fwd_cluster_kernel", "lstm_fwd_kernel", "lstm_fwd_cluster_kernel",
-                    "lstm_fwd_tc_kernel", "lstm_bwd_reg_kernel", "lstm_bwd_cluster_kernel",
-                    "flash_dqkv_tc_kernel")
+NO_STACK_KERNELS = ("gru_fwd_cluster_kernel", "gru_fwd_reg_kernel", "gru_bwd_reg_kernel",
+                    "lstm_fwd_kernel", "lstm_fwd_cluster_kernel", "lstm_fwd_tc_kernel",
+                    "lstm_bwd_reg_kernel", "lstm_bwd_cluster_kernel", "flash_dqkv_tc_kernel")
 # the scan path's train steps profiled once beside path f (the char LSTM)
 SCAN_PROFILE_EPOCHS = 1
 LOGIT_TOL = 1e-4  # trained fused logits against the scan path, f32
@@ -340,7 +350,8 @@ def _rnn_cases(cell: str) -> list:
     """(H, input widths, forward batches, backward batches, main batch) of
     a cell's kernels: the motion shapes, the char LM's (the main batch
     recorded for phase 6) and the edges."""
-    edges = (*LSTM_EDGES, *LSTM_CLUSTER_EDGES) if cell == "lstm" else GRU_CLUSTER_EDGES
+    edges = (*LSTM_EDGES, *LSTM_CLUSTER_EDGES) if cell == "lstm" else (*GRU_EDGES,
+                                                                      *GRU_CLUSTER_EDGES)
     return [
         (HIDDEN, (9, 32), FWD_BATCHES, BWD_BATCHES, MAIN_BATCH),
         (CHAR_HIDDEN, (CHAR_HIDDEN,), CHAR_FWD_BATCHES, CHAR_BWD_BATCHES, CHAR_BATCH),
@@ -360,11 +371,11 @@ def _check_layer(cell, hidden, in_width, batch, dtype, backward, failures) -> tu
                                    hidden=hidden)
     want = getattr(fr, f"{cell}_fwd_plain")(*fwd_args)
     got = getattr(fr, f"{cell}_fwd")(*fwd_args)
-    want, got = (want, got) if cell == "lstm" else ((want,), (got,))
-    saves_gates = cell == "lstm" and fr.lstm_saves_gates(hidden)
-    if cell == "lstm" and (got[2] is not None) != saves_gates:
-        failures.append(f"lstm_fwd {dtype} {label}: saved gates {got[2] is not None}")
-    n_out = 3 if saves_gates else 1 if cell == "gru" else 2  # the activated gates where saved
+    saves_gates = getattr(fr, f"{cell}_saves_gates")(hidden)
+    if (got[-1] is not None) != saves_gates:
+        failures.append(f"{cell}_fwd {dtype} {label}: saved gates {got[-1] is not None}")
+    # h_all (and the LSTM's c_all), and the gates where saved
+    n_out = (2 if cell == "lstm" else 1) + saves_gates
     err = _report(f"{cell}_fwd", dtype, label, got[:n_out], want[:n_out], tol_f, failures)
     if not backward:
         return err, None
@@ -377,7 +388,7 @@ def _check_layer(cell, hidden, in_width, batch, dtype, backward, failures) -> tu
                 want[2] if saves_gates else None)
     else:
         x_proj, h0, w, b = fwd_args
-        args = (x_proj, want[0], h0, w, b, dh_all, dh_t)
+        args = (x_proj, want[0], h0, w, b, dh_all, dh_t, want[1] if saves_gates else None)
     errb = _report(f"{cell}_bwd", dtype, label, getattr(fr, f"{cell}_bwd")(*args),
                    getattr(fr, f"{cell}_bwd_plain")(*args), tol_b, failures)
     return err, errb
@@ -909,9 +920,10 @@ def _timing_args(cell: str, batch: int, hidden: int):
         return (x_proj, h0, c0, w), bwd, dh_all, gen
     x_proj, h0, w, b, gen = _layer_inputs(batch, hidden, torch.float32, seed=7, cell="gru",
                                           hidden=hidden)
-    h_all = fr.gru_fwd_plain(x_proj, h0, w, b)
+    h_all, gates = fr.gru_fwd_plain(x_proj, h0, w, b)
     dh_all = 0.1 * torch.randn(h_all.shape, generator=gen, device="cuda")
-    bwd = (x_proj, h_all, h0, w, b, dh_all, torch.zeros_like(h0))
+    bwd = (x_proj, h_all, h0, w, b, dh_all, torch.zeros_like(h0),
+           gates if fr.gru_saves_gates(hidden) else None)
     return (x_proj, h0, w, b), bwd, dh_all, gen
 
 
@@ -928,40 +940,49 @@ def _kernel_bounds(cell: str, batch: int, hidden: int) -> tuple:
     """Each kernel's least time at f32: every input read once, every
     output written once, and its recurrent products at the rate of the
     pipe they run on (f32 FMAs on the CUDA cores; the LSTM forward's
-    tensor-core kernel three TF32 products each): the backward recomputes
-    the forward's and adds the contraction, except where the LSTM reads
-    the gates its forward saved (up to H=32 and over a cluster).  The
-    forward's bound is that of the function it replaces, which writes
-    h_all and c_all only: the gates it saves for the backward are a cost
-    of the design (``ms_saving_no_gates`` beside its time)."""
+    tensor-core kernel three TF32 products each).  Each is the bound of
+    the function it replaces: the forward writes h_all (and the LSTM's
+    c_all) only, the backward recomputes the forward's products from
+    x_proj and adds the contraction.  Where the backward reads the gates
+    its forward saved (the LSTM up to H=32 and over a cluster, the GRU up
+    to H=32), its bound is the lesser of that and the saved-gate form's.
+    The gate store and, where it reads more, the gate read are costs of
+    the design (``ms_saving_no_gates`` beside the forward's time).
+    Returns (fwd, bwd, bwd reading the saved gates or None)."""
     from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
-    gates = (4 if cell == "lstm" else 3) * hidden
     item = 4
     seq = SEQ_LEN * batch * hidden * item
     state = batch * hidden * item
-    gate_seq = SEQ_LEN * batch * gates * item
-    weight = hidden * gates * item
-    flops = 2 * SEQ_LEN * batch * hidden * gates
     if cell == "lstm":
+        gate_seq = 4 * seq
+        weight = hidden * 4 * hidden * item
+        flops = 2 * SEQ_LEN * batch * hidden * 4 * hidden
         # x_proj, h0, c0, w in; h_all, c_all out; the tensor-core kernel's
         # products as 3 TF32 products each
         by_pipe = ((3 * flops, TF32_FLOPS_PER_S) if _lstm_fwd_on_tensor_cores(hidden)
                    else (flops, F32_FLOPS_PER_S))
         fwd = _bound_ms(gate_seq + 2 * state + weight + 2 * seq, *by_pipe)
-    if cell == "lstm" and fr.lstm_saves_gates(hidden):
-        # the gates, c_all, dh_all, c0, dh_T, dc_T, w in; dx_proj, dh0, dc0 out
-        bwd = _bound_ms(2 * gate_seq + 2 * seq + 5 * state + weight, flops)
-    elif cell == "lstm":
         # x_proj, h_all, c_all, dh_all, h0, c0, dh_T, dc_T, w in; dx_proj, dh0, dc0 out
         bwd = _bound_ms(2 * gate_seq + 3 * seq + 6 * state + weight, 2 * flops)
+        # the gates, c_all, dh_all, c0, dh_T, dc_T, w in; dx_proj, dh0, dc0
+        # out; the contraction alone
+        saved = (_bound_ms(2 * gate_seq + 2 * seq + 5 * state + weight, flops)
+                 if fr.lstm_saves_gates(hidden) else None)
     else:
-        bias = gates * item
+        gate_seq = 3 * seq
+        weight = hidden * 3 * hidden * item
+        bias = 3 * hidden * item
+        flops = 2 * SEQ_LEN * batch * hidden * 3 * hidden
         # x_proj, h0, w, b in; h_all out
         fwd = _bound_ms(gate_seq + state + weight + bias + seq, flops)
         # x_proj, h_all, dh_all, h0, dh_T, w, b in; dx_proj, dhgates, dh0 out
         bwd = _bound_ms(3 * gate_seq + 2 * seq + 3 * state + weight + bias, 2 * flops)
-    return fwd, bwd
+        # r, z, n, h_n (4H), h_all, dh_all, h0, dh_T, w in; dx_proj,
+        # dhgates, dh0 out; the contraction alone
+        saved = (_bound_ms(4 * seq + 2 * seq + 2 * gate_seq + 3 * state + weight, flops)
+                 if fr.gru_saves_gates(hidden) else None)
+    return fwd, min(bwd, saved or bwd), saved
 
 
 def _library_calls(cell: str, batch: int, hidden: int, dh_all, gen):
@@ -986,26 +1007,27 @@ def _library_calls(cell: str, batch: int, hidden: int, dh_all, gen):
     return fwd, bwd
 
 
-def _lstm_fwd_at_rows(args, all_rows, variant: str, gates: bool) -> dict:
-    """``lstm_fwd`` on ``args`` at each of ``all_rows`` rows a block (or a
-    cluster), through its C entry (uncounted: not a main-path launch)."""
+def _fwd_at_rows(cell: str, args, all_rows, variant: str, gates: bool) -> dict:
+    """``lstm_fwd`` or ``gru_fwd`` on ``args`` (the f32 forward's) at each
+    of ``all_rows`` rows a block (or a cluster), through its C entry
+    (uncounted: not a main-path launch)."""
     from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
 
-    x_proj, h0, c0, w = args
+    x_proj = args[0]
     seq_len, batch, gate_dim = x_proj.shape
-    h_all = torch.empty((seq_len, batch, gate_dim // 4), device="cuda")
-    c_all = torch.empty_like(h_all)
-    saved = torch.empty_like(x_proj) if gates else None
-    fn = fr._library("lstm_fwd")
+    hidden = gate_dim // (4 if cell == "lstm" else 3)
+    h_all = torch.empty((seq_len, batch, hidden), device="cuda")
+    outs = (h_all, torch.empty_like(h_all)) if cell == "lstm" else (h_all,)  # + c_all
+    saved = torch.empty((seq_len, batch, 4 * hidden), device="cuda") if gates else None
+    fn = fr._library(f"{cell}_fwd")
     stream = torch.cuda.current_stream().cuda_stream
 
     def call(rows):
-        err = fn(x_proj.data_ptr(), h0.data_ptr(), c0.data_ptr(), w.data_ptr(), h_all.data_ptr(),
-                 c_all.data_ptr(), None if saved is None else saved.data_ptr(), seq_len, batch,
-                 gate_dim // 4, rows, fr._VARIANTS[variant], fr._DTYPE_CODES[torch.float32],
-                 stream)
+        err = fn(*(t.data_ptr() for t in (*args, *outs)),
+                 None if saved is None else saved.data_ptr(), seq_len, batch, hidden, rows,
+                 fr._VARIANTS[variant], fr._DTYPE_CODES[torch.float32], stream)
         if err != 0:
-            raise RuntimeError(f"lstm_fwd at {rows} rows: CUDA error {err}")
+            raise RuntimeError(f"{cell}_fwd at {rows} rows: CUDA error {err}")
 
     return {rows: _time_ms(lambda r=rows: call(r), 20) for rows in all_rows}
 
@@ -1018,7 +1040,7 @@ def _lstm_fwd_tc_serial(hidden: int) -> dict:
     times = {}
     for rows in range(8, fr.LSTM_FWD_TC_MAX_ROWS + 1, 8):
         args = _layer_inputs(rows, hidden, torch.float32, seed=5, hidden=hidden)[:4]
-        times[rows] = _lstm_fwd_at_rows(args, (rows,), "cluster", True)[rows]
+        times[rows] = _fwd_at_rows("lstm", args, (rows,), "cluster", True)[rows]
     print("  lstm_fwd tensor-core kernel at one cluster of R rows (ms): "
           + ", ".join(f"R={r}: {ms:.4f}" for r, ms in times.items()))
     return times
@@ -1099,7 +1121,7 @@ def phase_timing(runs: dict, errs: dict) -> list:
         ):
             # at B = R the wrapper would split the tensor-core kernel's rows
             # over several clusters: one cluster through the C entry
-            serial = (_lstm_fwd_at_rows(tile_args, (tile,), "cluster", True)[tile]
+            serial = (_fwd_at_rows("lstm", tile_args, (tile,), "cluster", True)[tile]
                       if tc and name == "lstm_fwd" else _time_ms(lambda: kernel(*tile_args), 20))
             rows.append({
                 "name": name,
@@ -1121,19 +1143,23 @@ def phase_timing(runs: dict, errs: dict) -> list:
         print(f"timing {cell} at {shape}; serial_ms at B={tile} / {bwd_tile} (one block, or one "
               f"cluster); library_ms is torch.nn.{cell.upper()} (cuDNN) forward / backward incl. "
               "its input projection")
-        if cell == "lstm" and hidden == HIDDEN:
-            tiles = _lstm_fwd_at_rows(fwd_args, LSTM_FWD_TILES, "smem", False)
-            print("  lstm_fwd by rows a block (ms): "
+        if hidden == HIDDEN:
+            tiles = _fwd_at_rows(cell, fwd_args, FWD_TILES, fwd_tile(hidden)[1], False)
+            print(f"  {cell}_fwd by rows a block, storing no gates (ms): "
                   + ", ".join(f"{r}: {ms:.4f}" for r, ms in tiles.items())
-                  + f"; the wrapper takes {fr.lstm_fwd_tile(hidden)[0]}")
+                  + f"; the wrapper takes {fwd_tile(hidden)[0]}")
             rows[-2]["ms_by_rows_a_block"] = tiles
-        if cell == "lstm" and fr.lstm_saves_gates(hidden):
+        if getattr(fr, f"{cell}_saves_gates")(hidden):
             # the forward storing no gates, on the same inputs: the gate
             # store's cost, which its bound leaves out
             rows[-2]["ms_saving_no_gates"] = _time_ms(
-                lambda: fr.lstm_fwd(*fwd_args, save_gates=False), 20)
-            print(f"  lstm_fwd storing no gates {rows[-2]['ms_saving_no_gates']:.4f} ms "
+                lambda: getattr(fr, f"{cell}_fwd")(*fwd_args, save_gates=False), 20)
+            print(f"  {cell}_fwd storing no gates {rows[-2]['ms_saving_no_gates']:.4f} ms "
                   f"(storing them {rows[-2]['ms']:.4f} ms)")
+            # the backward's bound in the form that reads the saved gates
+            rows[-1]["bound_reading_saved_gates_ms"] = bounds[2][0]
+            print(f"  {cell}_bwd bound {bounds[1][0]:.4f} ms; reading the saved gates "
+                  f"{bounds[2][0]:.4f} ms")
         if tc:
             rows[-2]["ms_by_rows_a_cluster"] = _lstm_fwd_tc_serial(hidden)
             rows[-2]["bound_pipe"] = "TF32 tensor cores, 3 products each"

@@ -3,8 +3,9 @@
 // Replaces the TPU kernel pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:
 // _gru_bwd_kernel (launched by _gru_bwd_pallas).  Per step t, from T-1
 // down to 0, with dh carried in float32 (dh_T at the start):
-//   recompute r, z, n and h_n = (h_{t-1} @ w_hh_t + b_hh)_n from the STORED
-//   h_{t-1} (h0 at t = 0);  dh += dh_all[t]
+//   r, z, n and h_n = (h_{t-1} @ w_hh_t + b_hh)_n: read from the forward's
+//   where it saved them (H <= 32), else recomputed from the STORED h_{t-1}
+//   (h0 at t = 0);  dh += dh_all[t]
 //   dz = dh (h_{t-1} - n);  dn = dh (1 - z) (1 - n^2);  dr = dn h_n r (1 - r)
 //   dz *= z (1 - z);  dx_proj[t] = [dr, dz, dn];  dhgates[t] = [dr, dz, dn r]
 //   dh = dh z + dhgates[t] @ W_hh
@@ -13,18 +14,36 @@
 // the JAX package leaves them to XLA (_gru_bwd).
 //
 // What bounds it.  At the motion shape (T=128, B=1440, H=32, f32): bytes.
-// It reads x_proj (71 MB), h_all and dh_all (47 MB) and writes dx_proj and
-// dhgates (142 MB), about 78 us at 3.35 TB/s, against 2.3 GFLOP (34 us).
+// It reads the forward's saved gates (94 MB), h_all and dh_all (47 MB) and
+// writes dx_proj and dhgates (142 MB), about 85 us at 3.35 TB/s, against
+// the contraction's 1.1 GFLOP (17 us).
 // At the char-LM shape (T=128, B=256, H=512, f32): operations, 103 GFLOP
 // (1.54 ms at 67 TFLOP/s) against 0.74 GB (0.22 ms).  But the sweep is a
 // chain of T dependent steps per batch row, so what a design can reach is
 // set by how much of the card one step's work spreads over.
 //
-// Two variants; the caller (ops/fused_rnn.py:gru_bwd_tile) picks one by
+// Three variants; the caller (ops/fused_rnn.py:gru_bwd_tile) picks one by
 // width, and a variant that does not launch is an error, never a reason to
-// run the other.
+// run another.
 //
-// Shared memory (gru_bwd_kernel, up to H = 126): as csrc/lstm_bwd.cu, one
+// Registers (gru_bwd_reg_kernel, H <= kRegHidden = 32): the layout of
+// csrc/lstm_bwd.cu:lstm_bwd_reg_kernel.  A block of 4H threads owns one
+// quad of 4 batch rows for the whole reverse sweep (1440 rows -> 360
+// blocks, several to an SM).  Lane p of the 4-lane group of unit j owns
+// (row p, unit j): its dh lives in its register.  A step reads the saved
+// r, z, n, h_n of (row p, unit j) (the forward saves them up to H = 32, so
+// no product recomputes them), h_{t-1} (for dz) and dh_all[t], forms dr,
+// dz, dn, stores dx_proj[t] and dhgates[t], and puts d_hgates into a
+// double-buffered shared tile; one barrier.  Then the group splits
+// dh_{t-1}[., j] = sum_n d_hgates[., n] W_hh^T[j, n] over its lanes: the
+// 3H columns, padded to 3 x 32, are cut into 4 runs of kRegCols = 24, and
+// lane p keeps its run's 24 weights of row j in registers, sums its run for
+// all four rows (16-byte broadcast reads), and the shuffle exchange
+// (reduce_scatter) leaves lane p with row p's sum; it adds dh z and carries
+// it.  The next step's inputs are loaded while the contraction runs, and
+// dh0 is stored after step 0.  One barrier a step.
+//
+// Shared memory (gru_bwd_kernel, H = 33..126): as csrc/lstm_bwd.cu, one
 // block owns one tile of block_b rows for the whole reverse sweep, with two
 // barriers a step.  Each step stages h_{t-1} in shared memory, recomputes
 // the gates of the thread's units, publishes d_hgates to shared memory,
@@ -191,6 +210,129 @@ __global__ void __launch_bounds__(kMaxThreads) gru_bwd_kernel(
       if (b < batch) dh0[(size_t)b * hidden + m] = from_f32<T>(dh_s[(r0 + r) * hidden + m]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// the register variant (H <= kRegHidden)
+// ---------------------------------------------------------------------------
+
+constexpr int kLanes = 4;       // lanes of a unit's group: the quad's rows
+constexpr int kRegHidden = 32;  // up to this width W_hh^T sits in registers
+constexpr int kRegCols = 3 * kRegHidden / kLanes;  // d_hgates columns a lane contracts
+// the d_hgates tile: row r, gate k, unit u at r kDgRow + k kRegHidden + u
+// (zeros past H); rows 8 banks apart, so that a warp's stores of 4 rows x 8
+// units fall in distinct banks, and the four lanes' 16-byte reads of their
+// runs (24 floats apart) in distinct bank quads
+constexpr int kDgRow = 3 * kRegHidden + 8;
+static_assert(kLanes == kRowsPerThread, "lane p of a group owns row p of its quad");
+static_assert(kRegCols % 4 == 0, "a lane's run moves in 16-byte reads");
+
+template <typename T>
+__global__ void __launch_bounds__(kLanes * kRegHidden, 3) gru_bwd_reg_kernel(
+    const T* __restrict__ gates, const T* __restrict__ h_all, const T* __restrict__ h0,
+    const T* __restrict__ w_hh_t, const T* __restrict__ dh_all, const T* __restrict__ dh_T,
+    T* __restrict__ dx_proj, T* __restrict__ dhgates, T* __restrict__ dh0, int seq_len,
+    int batch, int hidden) {
+  __shared__ __align__(16) float dg_s[2][kLanes * kDgRow];
+  const int gate_dim = 3 * hidden;
+  const size_t step = (size_t)batch * hidden;
+  const int tid = threadIdx.x;
+  // thread (unit j, lane p); the block is rounded up to a whole warp, and
+  // the threads past 4H shuffle along but write nothing
+  const bool valid = tid < kLanes * hidden;
+  const int p = tid % kLanes;
+  const int j = valid ? tid / kLanes : 0;
+  const int b = blockIdx.x * kLanes + p;
+  const bool live = valid && b < batch;
+  const size_t o = (size_t)b * hidden + j;
+
+  // the columns and rows past H read as zero
+  for (int i = tid; i < 2 * kLanes * kDgRow; i += blockDim.x) (&dg_s[0][0])[i] = 0.0f;
+  // the contraction's weights: W_hh^T[j][k H + u] for the padded columns
+  // c = kRegCols p + i = k kRegHidden + u of the lane's run, 0 past H
+  float wc[kRegCols];
+#pragma unroll
+  for (int i = 0; i < kRegCols; ++i) {
+    const int c = kRegCols * p + i;
+    const int k = c / kRegHidden;
+    const int u = c - k * kRegHidden;
+    wc[i] = valid && u < hidden ? to_f32(w_hh_t[(size_t)j * gate_dim + k * hidden + u]) : 0.0f;
+  }
+
+  float dh = live ? to_f32(dh_T[o]) : 0.0f;
+  // step t's inputs: r, z, n, h_n, h_{t-1} (h0 at t = 0) and dh_all[t]
+  float ga[4], h_prev, dh_in;
+  auto load = [&](int t) {
+    const size_t g = ((size_t)t * batch + b) * 4 * hidden + j;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ga[k] = live ? to_f32(gates[g + k * hidden]) : 0.0f;
+    h_prev = live ? to_f32(t > 0 ? h_all[(t - 1) * step + o] : h0[o]) : 0.0f;
+    dh_in = live ? to_f32(dh_all[t * step + o]) : 0.0f;
+  };
+  load(seq_len - 1);
+  __syncthreads();  // the d_hgates tiles zeroed
+
+  for (int t = seq_len - 1; t >= 0; --t) {
+    const float rg = ga[0], zg = ga[1], ng = ga[2], hn = ga[3];
+    const float dhv = dh + dh_in;
+    const float dn = dhv * (1.0f - zg) * (1.0f - ng * ng);
+    const float dz = dhv * (h_prev - ng) * zg * (1.0f - zg);
+    const float dr = dn * hn * rg * (1.0f - rg);
+    const float dnr = dn * rg;
+    const float dh_z = dhv * zg;
+    if (valid) {
+      float* dgw = dg_s[t & 1] + p * kDgRow + j;
+      dgw[0] = dr;
+      dgw[kRegHidden] = dz;
+      dgw[2 * kRegHidden] = dnr;
+    }
+    if (live) {
+      const size_t g = ((size_t)t * batch + b) * gate_dim + j;
+      dx_proj[g] = from_f32<T>(dr);
+      dx_proj[g + hidden] = from_f32<T>(dz);
+      dx_proj[g + 2 * hidden] = from_f32<T>(dn);
+      dhgates[g] = from_f32<T>(dr);
+      dhgates[g + hidden] = from_f32<T>(dz);
+      dhgates[g + 2 * hidden] = from_f32<T>(dnr);
+    }
+    if (t > 0) load(t - 1);  // lands while the contraction runs
+    __syncthreads();  // d_hgates whole
+
+    // dh_{t-1}[row r, j] over the lane's run of columns, then summed over
+    // the group
+    float part[kLanes] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float* dgr = dg_s[t & 1] + kRegCols * p;
+#pragma unroll
+    for (int i4 = 0; i4 < kRegCols / 4; ++i4) {
+#pragma unroll
+      for (int r = 0; r < kLanes; ++r) {
+        const float4 dv = reinterpret_cast<const float4*>(dgr + r * kDgRow)[i4];
+        part[r] = fmaf(dv.x, wc[4 * i4], part[r]);
+        part[r] = fmaf(dv.y, wc[4 * i4 + 1], part[r]);
+        part[r] = fmaf(dv.z, wc[4 * i4 + 2], part[r]);
+        part[r] = fmaf(dv.w, wc[4 * i4 + 3], part[r]);
+      }
+    }
+    reduce_scatter<kLanes, kLanes>(part, p);  // part[0]: row p
+    dh = dh_z + part[0];
+    // no second barrier: the next step writes the other d_hgates buffer,
+    // which every thread finished reading before this barrier
+  }
+  if (live) dh0[o] = from_f32<T>(dh);
+}
+
+template <typename T>
+int launch_reg(const void* gates, const void* h_all, const void* h0, const void* w_hh_t,
+               const void* dh_all, const void* dh_T, void* dx_proj, void* dhgates, void* dh0,
+               int seq_len, int batch, int hidden, cudaStream_t stream) {
+  const dim3 grid((batch + kLanes - 1) / kLanes);
+  const int threads = (kLanes * hidden + 31) / 32 * 32;
+  gru_bwd_reg_kernel<T><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(gates), static_cast<const T*>(h_all), static_cast<const T*>(h0),
+      static_cast<const T*>(w_hh_t), static_cast<const T*>(dh_all), static_cast<const T*>(dh_T),
+      static_cast<T*>(dx_proj), static_cast<T*>(dhgates), static_cast<T*>(dh0), seq_len, batch,
+      hidden);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -522,16 +664,25 @@ int launch_smem(const void* x_proj, const void* h_all, const void* h0,
   return (int)cudaGetLastError();
 }
 
-// variant codes passed from Python (ops/fused_rnn.py:_GRU_BWD_VARIANTS)
+// variant codes passed from Python (ops/fused_rnn.py:_VARIANTS)
 constexpr int kVariantSmem = 0;
 constexpr int kVariantCluster = 1;
+constexpr int kVariantReg = 2;
 
 template <typename T>
 int launch_dtype(const void* x_proj, const void* h_all, const void* h0,
                  const void* w_hh_t, const void* b_hh, const void* dh_all,
-                 const void* dh_T, void* dx_proj, void* dhgates, void* dh0,
+                 const void* dh_T, const void* gates, void* dx_proj, void* dhgates, void* dh0,
                  int seq_len, int batch, int hidden, int block_b, int variant,
                  cudaStream_t stream) {
+  if (variant == kVariantReg) {
+    if (hidden > kRegHidden || block_b != kLanes || gates == nullptr) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return launch_reg<T>(gates, h_all, h0, w_hh_t, dh_all, dh_T, dx_proj, dhgates, dh0, seq_len,
+                         batch, hidden, stream);
+  }
+  if (gates != nullptr) return (int)cudaErrorInvalidValue;  // only the register variant reads them
   if (variant == kVariantSmem) {
     return launch_smem<T>(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T, dx_proj, dhgates,
                           dh0, seq_len, batch, hidden, block_b, stream);
@@ -549,19 +700,21 @@ int launch_dtype(const void* x_proj, const void* h_all, const void* h0,
 // that kept the variant from launching.  Shapes, dtypes, block_b and the
 // variant are checked and chosen by the Python wrapper (ops/fused_rnn.py:
 // gru_bwd): variant 0 runs the shared-memory kernel on block_b-row tiles,
-// variant 1 the cluster kernel (block_b = kClusterRows).
+// variant 1 the cluster kernel (block_b = kClusterRows), both recomputing
+// the gates from x_proj (gates null); variant 2 the register kernel (H <=
+// kRegHidden, block_b = 4) on the forward's saved gates.
 extern "C" int gru_bwd(const void* x_proj, const void* h_all, const void* h0,
                        const void* w_hh_t, const void* b_hh, const void* dh_all,
-                       const void* dh_T, void* dx_proj, void* dhgates, void* dh0,
-                       int seq_len, int batch, int hidden, int block_b,
+                       const void* dh_T, const void* gates, void* dx_proj, void* dhgates,
+                       void* dh0, int seq_len, int batch, int hidden, int block_b,
                        int variant, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) {
-    return launch_dtype<float>(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T, dx_proj,
+    return launch_dtype<float>(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T, gates, dx_proj,
                                dhgates, dh0, seq_len, batch, hidden, block_b, variant, s);
   }
   if (dtype == kBFloat16) {
-    return launch_dtype<__nv_bfloat16>(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T,
+    return launch_dtype<__nv_bfloat16>(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T, gates,
                                        dx_proj, dhgates, dh0, seq_len, batch, hidden,
                                        block_b, variant, s);
   }

@@ -7,8 +7,8 @@
 // contiguous and of one dtype (float32 or bfloat16); the recurrence itself
 // always runs in float32.
 //
-// Thread mapping of the two kernels' shared-memory variants (up to
-// H = 126; the cluster variants have their own, in gru_fwd.cu and
+// Thread mapping of the two kernels' shared-memory variants (H = 33..126;
+// the register and cluster variants have their own, in gru_fwd.cu and
 // gru_bwd.cu): a block owns block_b batch rows for the whole sequence.  Its threads form
 // block_b / kRowsPerThread row groups of unit_threads threads each; a
 // thread computes all three gates of units j0, j0 + unit_threads, ... for

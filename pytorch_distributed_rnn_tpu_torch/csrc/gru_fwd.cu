@@ -8,19 +8,44 @@
 //
 // What bounds it.  At the motion shape (T=128, B=1440, H=32, f32): bytes.
 // It reads x_proj (71 MB) and writes h_all (24 MB), about 28 us at
-// 3.35 TB/s, against 1.1 GFLOP of f32 FMAs (17 us at 67 TFLOP/s).  At the
+// 3.35 TB/s, against 1.1 GFLOP of f32 FMAs (17 us at 67 TFLOP/s); the
+// gates it saves for the backward there add 94 MB of writes.  At the
 // char-LM shape (T=128, B=256, H=512, f32): operations.  51.5 GFLOP of
 // f32 FMAs (0.77 ms at 67 TFLOP/s, no tensor cores) against 0.27 GB of
 // bytes (80 us).  Both are a chain of T dependent steps.
 //
-// Two variants; the caller (ops/fused_rnn.py:gru_tile) picks one by width,
-// and a variant that does not launch is an error, never a reason to run
-// the other.
+// Three variants; the caller (ops/fused_rnn.py:gru_tile) picks one by
+// width, and a variant that does not launch is an error, never a reason to
+// run another.
 //
-// Shared memory (gru_fwd_kernel, up to H = 126): as csrc/lstm_fwd.cu did
+// Registers (gru_fwd_reg_kernel, H <= kRegHidden = 32): the layout of
+// csrc/lstm_fwd.cu:lstm_fwd_kernel with W_hh^T in registers, with three
+// gates in place of four.  T is a loop inside the block, and one block owns
+// block_b batch rows (a multiple of 4; 4 by default, so 1440 rows make 360
+// blocks of 128 threads, several to an SM) for the whole sequence.  For
+// each quad of rows and each unit j, a group of kLanes = 4 neighbouring
+// lanes splits the contraction over H: lane p holds rows [8p, 8p + 8) of
+// W_hh^T of unit j's r, z and n columns in its registers (24 floats for the
+// whole sequence), forms the 3 gates x 4 rows = 12 partial sums of its
+// chunk from 16-byte broadcast reads of the shared h tile, and the group's
+// halving shuffle exchange (reduce_scatter, 12 values over 4 lanes) leaves
+// lane p with the three gate sums of row p.  So lane p owns (row p, unit
+// j): it adds b_hh (b_hn inside r * (...)), carries h in its register,
+// writes h_all (and, where asked, the gates) and puts h into the
+// double-buffered shared h tile: one barrier a step.  x_proj[t + 1] is
+// loaded while step t computes.  A step's chain is 96 FMAs, two shuffle
+// rounds and the gate update, where the shared-memory kernel chains 384
+// FMAs in one thread.
+//
+// Where the caller passes a gates buffer, the register variant also stores
+// r, z, n and the hidden-side pre-activation h_n (T, B, 4H), which the
+// backward reads in place of recomputing them (csrc/gru_bwd.cu); with none
+// it stores nothing more.  The other variants store none.
+//
+// Shared memory (gru_fwd_kernel, H = 33..126): as csrc/lstm_fwd.cu did
 // before its redesign, T is a loop inside the block and one block owns one
 // tile of block_b batch rows for the whole sequence, with W_hh^T staged
-// once into shared memory (12 KiB at H=32), h in a double-buffered shared
+// once into shared memory (187 KiB at H=126), h in a double-buffered shared
 // tile (one barrier per step) and the ragged last tile masked, not padded.
 //
 // Cluster (gru_fwd_cluster_kernel, H = 127..512): at H = 512 W_hh^T is 3
@@ -129,6 +154,139 @@ __global__ void __launch_bounds__(kMaxThreads) gru_fwd_kernel(const T* __restric
     }
     __syncthreads();
   }
+}
+
+// ---------------------------------------------------------------------------
+// the register variant (H <= kRegHidden)
+// ---------------------------------------------------------------------------
+
+constexpr int kLanes = 4;       // lanes splitting one (row quad, unit)'s contraction
+constexpr int kRegHidden = 32;  // up to this width W_hh^T sits in registers
+constexpr int kRegChunk = kRegHidden / kLanes;  // rows m of W a lane holds
+constexpr int kRegSums = 3 * kLanes;            // a lane's sums: 3 gates x 4 rows
+// the h tile's row stride in floats: 8 banks apart, so that a warp's
+// stores of 4 rows x 8 units fall in distinct banks; 16-byte aligned
+constexpr int kHStride = kRegHidden + 8;
+static_assert(kLanes == kRowsPerThread, "lane p of a group owns row p of its quad");
+static_assert(kRegSums % kLanes == 0 && kRegSums / kLanes == 3, "a lane keeps row p's 3 sums");
+
+size_t fwd_reg_smem_bytes(int block_b) { return sizeof(float) * 2 * (size_t)block_b * kHStride; }
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads) gru_fwd_reg_kernel(
+    const T* __restrict__ x_proj, const T* __restrict__ h0, const T* __restrict__ w_hh_t,
+    const T* __restrict__ b_hh, T* __restrict__ h_all, T* __restrict__ gates, int seq_len,
+    int batch, int hidden, int block_b) {
+  extern __shared__ __align__(16) float h_buf[];  // (2, block_b, kHStride), zeros past H
+  const int gate_dim = 3 * hidden;
+  const int tile = block_b * kHStride;
+  const int row0 = blockIdx.x * block_b;
+  const int tid = threadIdx.x;
+
+  // thread (row quad q, unit j, lane p); the block is rounded up to whole
+  // warps, and the threads past the tile shuffle along but write nothing
+  const bool valid = tid < block_b * hidden;
+  const int p = tid % kLanes;
+  const int j = (tid / kLanes) % hidden;
+  const int q = valid ? tid / (kLanes * hidden) : 0;
+  const int row = q * kLanes + p;  // the row this lane owns
+  const int b = row0 + row;
+  const bool live = valid && b < batch;
+  const int m0 = p * kRegChunk;
+
+  for (int i = tid; i < 2 * tile; i += blockDim.x) {
+    const int r = i / kHStride;
+    const int m = i - r * kHStride;
+    const int bb = row0 + r;
+    h_buf[i] = i < tile && m < hidden && bb < batch ? to_f32(h0[(size_t)bb * hidden + m]) : 0.0f;
+  }
+  // W_hh^T[m][k H + j] for the lane's rows m of the chunk, 0 past H
+  float w[3][kRegChunk];
+#pragma unroll
+  for (int i = 0; i < kRegChunk; ++i) {
+    const int m = m0 + i;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      w[k][i] = m < hidden ? to_f32(w_hh_t[(size_t)m * gate_dim + k * hidden + j]) : 0.0f;
+    }
+  }
+  float bias[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) bias[k] = to_f32(b_hh[k * hidden + j]);
+  float h = live ? to_f32(h0[(size_t)b * hidden + j]) : 0.0f;
+  float xg[3];
+  auto load_x = [&](int t) {
+    const T* xp = x_proj + ((size_t)t * batch + b) * gate_dim + j;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) xg[k] = live ? to_f32(xp[k * hidden]) : 0.0f;
+  };
+  load_x(0);
+  __syncthreads();
+
+  for (int t = 0; t < seq_len; ++t) {
+    const float* h_prev = h_buf + (t & 1) * tile + q * kLanes * kHStride + m0;
+    float* h_next = h_buf + ((t + 1) & 1) * tile;
+    float x_now[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) x_now[k] = xg[k];
+    if (t + 1 < seq_len) load_x(t + 1);  // lands while this step computes
+
+    // acc[r * 3 + k]: gate k of row r of the quad, over this lane's chunk
+    float acc[kRegSums];
+#pragma unroll
+    for (int i = 0; i < kRegSums; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int i4 = 0; i4 < kRegChunk / 4; ++i4) {
+#pragma unroll
+      for (int r = 0; r < kLanes; ++r) {
+        const float4 hv = reinterpret_cast<const float4*>(h_prev + r * kHStride)[i4];
+        const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            acc[r * 3 + k] = fmaf(hr[e], w[k][4 * i4 + e], acc[r * 3 + k]);
+          }
+        }
+      }
+    }
+    reduce_scatter<kRegSums, kLanes>(acc, p);  // acc[0..2]: row p's three gates
+
+    const float rg = sigmoid(x_now[0] + bias[0] + acc[0]);
+    const float zg = sigmoid(x_now[1] + bias[1] + acc[1]);
+    const float hn = bias[2] + acc[2];
+    const float ng = tanhf(x_now[2] + rg * hn);
+    h = (1.0f - zg) * ng + zg * h;
+    if (valid) h_next[row * kHStride + j] = h;
+    if (live) {
+      h_all[((size_t)t * batch + b) * hidden + j] = from_f32<T>(h);
+      if (gates != nullptr) {  // r, z, n and h_n, saved for the backward
+        T* go = gates + ((size_t)t * batch + b) * 4 * hidden + j;
+        go[0] = from_f32<T>(rg);
+        go[hidden] = from_f32<T>(zg);
+        go[2 * hidden] = from_f32<T>(ng);
+        go[3 * hidden] = from_f32<T>(hn);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch_reg(const void* x_proj, const void* h0, const void* w_hh_t, const void* b_hh,
+               void* h_all, void* gates, int seq_len, int batch, int hidden, int block_b,
+               cudaStream_t stream) {
+  const int threads = (block_b * hidden + 31) / 32 * 32;
+  if (hidden > kRegHidden || block_b < kLanes || block_b % kLanes != 0 ||
+      threads > kMaxThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((batch + block_b - 1) / block_b);
+  gru_fwd_reg_kernel<T><<<grid, threads, fwd_reg_smem_bytes(block_b), stream>>>(
+      static_cast<const T*>(x_proj), static_cast<const T*>(h0), static_cast<const T*>(w_hh_t),
+      static_cast<const T*>(b_hh), static_cast<T*>(h_all), static_cast<T*>(gates), seq_len,
+      batch, hidden, block_b);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -383,14 +541,20 @@ int launch_smem(const void* x_proj, const void* h0, const void* w_hh_t,
   return (int)cudaGetLastError();
 }
 
-// variant codes passed from Python (ops/fused_rnn.py:_GRU_VARIANTS)
+// variant codes passed from Python (ops/fused_rnn.py:_VARIANTS)
 constexpr int kVariantSmem = 0;
 constexpr int kVariantCluster = 1;
+constexpr int kVariantReg = 2;
 
 template <typename T>
 int launch_dtype(const void* x_proj, const void* h0, const void* w_hh_t,
-                 const void* b_hh, void* h_all, int seq_len, int batch,
+                 const void* b_hh, void* h_all, void* gates, int seq_len, int batch,
                  int hidden, int block_b, int variant, cudaStream_t stream) {
+  if (variant == kVariantReg) {
+    return launch_reg<T>(x_proj, h0, w_hh_t, b_hh, h_all, gates, seq_len, batch, hidden, block_b,
+                         stream);
+  }
+  if (gates != nullptr) return (int)cudaErrorInvalidValue;  // only the register variant saves
   if (variant == kVariantSmem) {
     return launch_smem<T>(x_proj, h0, w_hh_t, b_hh, h_all, seq_len, batch, hidden, block_b,
                           stream);
@@ -407,18 +571,20 @@ int launch_dtype(const void* x_proj, const void* h0, const void* w_hh_t,
 // that kept the variant from launching.  Shapes, dtypes, block_b and the
 // variant are checked and chosen by the Python wrapper (ops/fused_rnn.py:
 // gru_fwd): variant 0 runs the shared-memory kernel on block_b-row tiles,
-// variant 1 the cluster kernel (block_b = kFwdClusterRows).
+// variant 1 the cluster kernel (block_b = kFwdClusterRows), variant 2 the
+// register kernel (H <= kRegHidden, block_b a multiple of 4), which alone
+// takes a gates buffer (null: store none).
 extern "C" int gru_fwd(const void* x_proj, const void* h0, const void* w_hh_t,
-                       const void* b_hh, void* h_all, int seq_len, int batch,
+                       const void* b_hh, void* h_all, void* gates, int seq_len, int batch,
                        int hidden, int block_b, int variant, int dtype,
                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) {
-    return launch_dtype<float>(x_proj, h0, w_hh_t, b_hh, h_all, seq_len,
+    return launch_dtype<float>(x_proj, h0, w_hh_t, b_hh, h_all, gates, seq_len,
                                batch, hidden, block_b, variant, s);
   }
   if (dtype == kBFloat16) {
-    return launch_dtype<__nv_bfloat16>(x_proj, h0, w_hh_t, b_hh, h_all,
+    return launch_dtype<__nv_bfloat16>(x_proj, h0, w_hh_t, b_hh, h_all, gates,
                                        seq_len, batch, hidden, block_b,
                                        variant, s);
   }

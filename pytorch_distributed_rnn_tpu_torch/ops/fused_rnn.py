@@ -17,9 +17,9 @@ kernels carry the serial part of every LSTM and GRU layer on the card:
   _gru_bwd_kernel``: the reverse sweep that emits ``dx_proj``, the
   hidden-side gate cotangents ``dhgates`` and ``dh0``.
 
-Every kernel takes 1 <= H <= 512, in two variants chosen by width.  Up
+Every kernel takes 1 <= H <= 512, in variants chosen by width.  Up
 to H=110 (LSTM) or H=126 (GRU), one block holds all of W_hh^T and owns a
-tile of batch rows for the whole sequence (both LSTM kernels hold each
+tile of batch rows for the whole sequence (all four kernels hold each
 thread's share of W_hh^T in registers up to H=32, on quads of rows).
 Above, W_hh^T is split over a cluster of ``GRU_CLUSTER_CTAS`` blocks
 (``csrc/cluster_common.cuh``), each holding the columns of its own units'
@@ -35,7 +35,9 @@ stay plain matrix products and sums (``torch.matmul``), as the JAX
 package leaves them to XLA.  Up to H=32 and over a cluster, the LSTM
 forward also saves the activated gates, which the backward reads in place
 of recomputing them (``lstm_saves_gates``; ``FusedLSTMScan`` keeps them in
-place of ``x_proj``); it saves none where autograd needs no backward.
+place of ``x_proj``); the GRU forward does so up to H=32 (r, z, n and the
+hidden-side pre-activation h_n: ``gru_saves_gates``, ``FusedGRUScan``).
+Neither saves any where autograd needs no backward.
 
 Each wrapper takes the kernel's plain PyTorch version (``*_plain``) only
 for CPU tensors; on CUDA tensors it launches the kernel or raises.
@@ -63,6 +65,11 @@ BLOCK_B = 16  # batch rows per block: 1440 rows -> 90 blocks on the card's 132 S
 LSTM_FWD_BLOCK_B = 4
 LSTM_BWD_BLOCK_B = 4  # kLanes in csrc/lstm_bwd.cu
 LSTM_FWD_REG_HIDDEN = 32  # kRegHidden in csrc/lstm_{fwd,bwd}.cu
+# both GRU kernels' batch rows a block up to H=32, where W_hh^T sits in
+# registers (the "reg" variant): 1440 rows -> 360 blocks of 128 threads
+GRU_FWD_BLOCK_B = 4
+GRU_BWD_BLOCK_B = 4  # kLanes in csrc/gru_bwd.cu
+GRU_REG_HIDDEN = 32  # kRegHidden in csrc/gru_{fwd,bwd}.cu
 _LSTM_FWD_MAX_THREADS = 512  # kFwdMaxThreads in csrc/lstm_fwd.cu
 MAX_HIDDEN = 512  # kClusterMaxHidden in csrc/cluster_common.cuh
 # the cluster variants: CTAs a cluster (kClusterCtas in
@@ -78,12 +85,12 @@ LSTM_FWD_CLUSTER_ROWS = 8
 # csrc/lstm_fwd.cu)
 LSTM_FWD_TC_MAX_ROWS = 40
 LSTM_BWD_CLUSTER_ROWS = 4
-_VARIANTS = {"smem": 0, "cluster": 1}  # the variant codes of the C entries
+_VARIANTS = {"smem": 0, "cluster": 1, "reg": 2}  # the variant codes of the C entries
 _ROWS_PER_THREAD = 4  # kRowsPerThread in csrc/lstm_common.cuh
 _MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may use
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (pointer arguments, int arguments) of each kernel's C entry point
-_SIGNATURES = {"lstm_fwd": (7, 6), "lstm_bwd": (13, 6), "gru_fwd": (5, 6), "gru_bwd": (10, 6)}
+_SIGNATURES = {"lstm_fwd": (7, 6), "lstm_bwd": (13, 6), "gru_fwd": (6, 6), "gru_bwd": (11, 6)}
 
 
 def reset_launch_counts():
@@ -175,10 +182,11 @@ def lstm_saves_gates(hidden: int) -> bool:
 
 def gru_kernel_supports(hidden: int) -> bool:
     """Whether both GRU kernels take this hidden size: 1 <= H <= 512, in
-    float32 and bfloat16.  Up to H=126 W_hh^T is staged in one block's
-    shared memory.  Above it both kernels spread W_hh^T over a 16-CTA
-    cluster, each CTA holding an (H, 3 ceil(H/16)) float32 slice: 200 KiB
-    at H=512, which is where the range ends."""
+    float32 and bfloat16.  Up to H=32 each thread's share of W_hh^T sits in
+    its registers, up to H=126 W_hh^T is staged in one block's shared
+    memory.  Above it both kernels spread W_hh^T over a 16-CTA cluster,
+    each CTA holding an (H, 3 ceil(H/16)) float32 slice: 200 KiB at H=512,
+    which is where the range ends."""
     return 1 <= hidden <= MAX_HIDDEN
 
 
@@ -190,9 +198,12 @@ def _gru_w_in_smem(hidden: int) -> bool:
 
 def gru_tile(hidden: int) -> tuple[int, str]:
     """The GRU forward's ``(batch rows a tile, variant)`` at this width:
-    ``"smem"`` (one block, W_hh^T in its shared memory) up to H=126, else
-    ``"cluster"`` (a cluster of ``GRU_CLUSTER_CTAS`` blocks on
-    ``GRU_FWD_CLUSTER_ROWS`` rows)."""
+    ``"reg"`` up to H=32 (one block of ``GRU_FWD_BLOCK_B`` rows, each
+    thread's share of W_hh^T in its registers), ``"smem"`` (one block,
+    W_hh^T in its shared memory) up to H=126, else ``"cluster"`` (a cluster
+    of ``GRU_CLUSTER_CTAS`` blocks on ``GRU_FWD_CLUSTER_ROWS`` rows)."""
+    if hidden <= GRU_REG_HIDDEN:
+        return GRU_FWD_BLOCK_B, "reg"
     if _gru_w_in_smem(hidden):
         return BLOCK_B, "smem"
     return GRU_FWD_CLUSTER_ROWS, "cluster"
@@ -200,12 +211,22 @@ def gru_tile(hidden: int) -> tuple[int, str]:
 
 def gru_bwd_tile(hidden: int) -> tuple[int, str]:
     """The GRU backward's ``(batch rows a tile, variant)`` at this width:
-    ``"smem"`` (one block, W_hh^T in its shared memory) up to H=126, else
-    ``"cluster"`` (a cluster of ``GRU_CLUSTER_CTAS`` blocks on
-    ``GRU_CLUSTER_ROWS`` rows)."""
+    ``"reg"`` up to H=32 (one block of ``GRU_BWD_BLOCK_B`` rows, W_hh^T in
+    registers, the gates read from the forward's), ``"smem"`` (one block,
+    W_hh^T in its shared memory) up to H=126, else ``"cluster"`` (a
+    cluster of ``GRU_CLUSTER_CTAS`` blocks on ``GRU_CLUSTER_ROWS`` rows)."""
+    if hidden <= GRU_REG_HIDDEN:
+        return GRU_BWD_BLOCK_B, "reg"
     if _gru_w_in_smem(hidden):
         return BLOCK_B, "smem"
     return GRU_CLUSTER_ROWS, "cluster"
+
+
+def gru_saves_gates(hidden: int) -> bool:
+    """Whether the GRU forward saves r, z, n and h_n for the backward at
+    this width, which then reads them in place of recomputing the gates
+    from h: up to H=32, where both run the ``"reg"`` variant."""
+    return hidden <= GRU_REG_HIDDEN
 
 
 # ---------------------------------------------------------------------------
@@ -280,30 +301,38 @@ def _gru_gates(x_proj_t, h_prev, w, b):
 
 def gru_fwd_plain(x_proj, h0, w_hh_t, b_hh):
     """``x_proj`` (T, B, 3H) with ``b_ih`` folded in, ``h0`` (B, H),
-    ``w_hh_t`` (H, 3H), ``b_hh`` (3H,) -> ``h_all`` (T, B, H) in
-    ``x_proj``'s dtype."""
+    ``w_hh_t`` (H, 3H), ``b_hh`` (3H,) -> ``h_all`` (T, B, H) and the
+    activated gates r, z, n with the hidden-side n pre-activation h_n (T,
+    B, 4H), both in ``x_proj``'s dtype."""
     dtype = x_proj.dtype
     w, b = w_hh_t.float(), b_hh.float()
     h = h0.float()
-    h_all = []
+    h_all, gates = [], []
     for t in range(x_proj.shape[0]):
-        _, z, n, _ = _gru_gates(x_proj[t], h, w, b)
+        r, z, n, hn = _gru_gates(x_proj[t], h, w, b)
         h = (1.0 - z) * n + z * h
         h_all.append(h.to(dtype))
-    return torch.stack(h_all)
+        gates.append(torch.cat([r, z, n, hn], dim=-1).to(dtype))
+    return torch.stack(h_all), torch.stack(gates)
 
 
-def gru_bwd_plain(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T):
-    """Reverse sweep, recomputing each step's gates from the stored
-    h_{t-1}: returns ``dx_proj`` and ``dhgates`` = [dr, dz, dn * r]
-    (T, B, 3H) and ``dh0`` (B, H), all in ``x_proj``'s dtype."""
-    dtype = x_proj.dtype
+def gru_bwd_plain(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T, gates=None):
+    """Reverse sweep: returns ``dx_proj`` and ``dhgates`` = [dr, dz, dn * r]
+    (T, B, 3H) and ``dh0`` (B, H), all in ``dh_all``'s dtype.  Each step's
+    r, z, n and h_n are recomputed from ``x_proj`` and the stored h_{t-1},
+    or read from ``gates`` (the forward's, (T, B, 4H)) where it is given,
+    and then neither ``x_proj`` nor the product h_{t-1} W_hh^T is formed;
+    h_{t-1} is still read for dz."""
+    dtype = dh_all.dtype
     w, b = w_hh_t.float(), b_hh.float()
     dh = dh_T.float()
-    dx, dhg = [None] * x_proj.shape[0], [None] * x_proj.shape[0]
-    for t in reversed(range(x_proj.shape[0])):
+    dx, dhg = [None] * dh_all.shape[0], [None] * dh_all.shape[0]
+    for t in reversed(range(dh_all.shape[0])):
         h_prev = (h_all[t - 1] if t > 0 else h0).float()
-        r, z, n, hn = _gru_gates(x_proj[t], h_prev, w, b)
+        if gates is None:
+            r, z, n, hn = _gru_gates(x_proj[t], h_prev, w, b)
+        else:
+            r, z, n, hn = gates[t].float().chunk(4, dim=-1)
         dh = dh + dh_all[t].float()
         dn = dh * (1.0 - z) * (1.0 - n * n)
         dz = dh * (h_prev - n) * z * (1.0 - z)
@@ -334,9 +363,9 @@ def _library(name: str):
     return fn
 
 
-def _check(name, tensors, shapes):
-    """Device, dtype, shape and contiguity checks before a launch; the
-    last shape is the gate tensor's (T, B, G*H)."""
+def _check(name, hidden, tensors, shapes):
+    """Device, dtype, shape and contiguity checks before a launch at
+    width ``hidden``; the last shape is the gate tensor's (T, B, .)."""
     first = tensors[0]
     if first.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {first.dtype} not supported (float32, bfloat16)")
@@ -351,7 +380,7 @@ def _check(name, tensors, shapes):
             raise ValueError(f"{name}: tensors must be contiguous")
     lstm = name.startswith("lstm")
     supports = kernel_supports if lstm else gru_kernel_supports
-    seq_len, batch, hidden = shapes[-1][0], shapes[-1][1], shapes[-1][2] // (4 if lstm else 3)
+    seq_len, batch = shapes[-1][0], shapes[-1][1]
     if seq_len < 1 or batch < 1 or not supports(hidden):
         raise ValueError(
             f"{name}: no kernel for T={seq_len} B={batch} H={hidden} (see {supports.__name__})"
@@ -381,7 +410,7 @@ def lstm_fwd(x_proj, h0, c0, w_hh_t, save_gates: bool = True):
         raise ValueError(f"lstm_fwd: runs on CPU or CUDA tensors, got {x_proj.device}")
     seq_len, batch, gate_dim = x_proj.shape
     _check(
-        "lstm_fwd", [h0, c0, w_hh_t, x_proj],
+        "lstm_fwd", hidden, [h0, c0, w_hh_t, x_proj],
         [(batch, hidden), (batch, hidden), (hidden, gate_dim),
          (seq_len, batch, 4 * hidden)],
     )
@@ -420,7 +449,7 @@ def lstm_bwd(x_proj, h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T, gates=Non
     seq = (seq_len, batch, hidden)
     state = (batch, hidden)
     _check(
-        "lstm_bwd",
+        "lstm_bwd", hidden,
         [h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T, gate_src],
         [seq, seq, state, state, (hidden, gate_dim), seq, state, state,
          (seq_len, batch, gate_dim)],
@@ -443,62 +472,75 @@ def lstm_bwd(x_proj, h_all, c_all, h0, c0, w_hh_t, dh_all, dh_T, dc_T, gates=Non
     return dx_proj, dh0, dc0
 
 
-def gru_fwd(x_proj, h0, w_hh_t, b_hh):
-    """GRU forward time loop: ``h_all`` (T, B, H).  CPU tensors take
+def gru_fwd(x_proj, h0, w_hh_t, b_hh, save_gates: bool = True):
+    """GRU forward time loop: ``h_all`` (T, B, H) and, where ``save_gates``
+    and :func:`gru_saves_gates`, r, z, n and h_n (T, B, 4H) for the
+    backward, else None (the kernels then store none).  CPU tensors take
     :func:`gru_fwd_plain`; CUDA tensors launch ``csrc/gru_fwd.cu`` in the
     variant :func:`gru_tile` names, or raise."""
+    hidden = x_proj.shape[-1] // 3
+    saves = save_gates and gru_saves_gates(hidden)
     if x_proj.device.type == "cpu":
-        return gru_fwd_plain(x_proj, h0, w_hh_t, b_hh)
+        h_all, gates = gru_fwd_plain(x_proj, h0, w_hh_t, b_hh)
+        return h_all, gates if saves else None
     if x_proj.device.type != "cuda":
         raise ValueError(f"gru_fwd: runs on CPU or CUDA tensors, got {x_proj.device}")
     seq_len, batch, gate_dim = x_proj.shape
-    hidden = gate_dim // 3
     _check(
-        "gru_fwd", [h0, w_hh_t, b_hh, x_proj],
+        "gru_fwd", hidden, [h0, w_hh_t, b_hh, x_proj],
         [(batch, hidden), (hidden, gate_dim), (gate_dim,), (seq_len, batch, 3 * hidden)],
     )
     block_b, variant = gru_tile(hidden)
     h_all = torch.empty((seq_len, batch, hidden), dtype=x_proj.dtype, device=x_proj.device)
+    gates = (torch.empty((seq_len, batch, 4 * hidden), dtype=x_proj.dtype, device=x_proj.device)
+             if saves else None)
     with torch.cuda.device(x_proj.device):
         _launch(
             "gru_fwd", _library("gru_fwd"),
             x_proj.data_ptr(), h0.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
-            h_all.data_ptr(),
+            h_all.data_ptr(), None if gates is None else gates.data_ptr(),
             seq_len, batch, hidden, block_b, _VARIANTS[variant], _DTYPE_CODES[x_proj.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
-    return h_all
+    return h_all, gates
 
 
-def gru_bwd(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T):
+def gru_bwd(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T, gates=None):
     """Reverse sweep: ``dx_proj``, ``dhgates`` (T, B, 3H) and ``dh0``
-    (B, H).  CPU tensors take :func:`gru_bwd_plain`; CUDA tensors launch
-    ``csrc/gru_bwd.cu`` in the variant :func:`gru_bwd_tile` names, or
-    raise."""
-    if x_proj.device.type == "cpu":
-        return gru_bwd_plain(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T)
-    if x_proj.device.type != "cuda":
-        raise ValueError(f"gru_bwd: runs on CPU or CUDA tensors, got {x_proj.device}")
-    seq_len, batch, gate_dim = x_proj.shape
-    hidden = gate_dim // 3
+    (B, H).  Where :func:`gru_saves_gates`, it reads the forward's r, z,
+    n and h_n from ``gates`` (then ``x_proj`` may be None), elsewhere it
+    recomputes them from ``x_proj`` (then ``gates`` is None).  CPU tensors
+    take :func:`gru_bwd_plain`; CUDA tensors launch ``csrc/gru_bwd.cu`` in
+    the variant :func:`gru_bwd_tile` names, or raise."""
+    seq_len, batch, hidden = dh_all.shape
+    if (gates is not None) != gru_saves_gates(hidden):
+        need = "needs" if gru_saves_gates(hidden) else "takes no"
+        raise ValueError(f"gru_bwd: H={hidden} {need} saved gates (gru_saves_gates)")
+    gate_src = x_proj if gates is None else gates
+    if gate_src.device.type == "cpu":
+        return gru_bwd_plain(x_proj, h_all, h0, w_hh_t, b_hh, dh_all, dh_T, gates)
+    if gate_src.device.type != "cuda":
+        raise ValueError(f"gru_bwd: runs on CPU or CUDA tensors, got {gate_src.device}")
     seq = (seq_len, batch, hidden)
     state = (batch, hidden)
     _check(
-        "gru_bwd", [h_all, h0, w_hh_t, b_hh, dh_all, dh_T, x_proj],
-        [seq, state, (hidden, gate_dim), (gate_dim,), seq, state, (seq_len, batch, gate_dim)],
+        "gru_bwd", hidden, [h_all, h0, w_hh_t, b_hh, dh_all, dh_T, gate_src],
+        [seq, state, (hidden, 3 * hidden), (3 * hidden,), seq, state,
+         (seq_len, batch, (3 if gates is None else 4) * hidden)],
     )
     block_b, variant = gru_bwd_tile(hidden)
-    dx_proj = torch.empty_like(x_proj)
-    dhgates = torch.empty_like(x_proj)
+    dx_proj = torch.empty((seq_len, batch, 3 * hidden), dtype=gate_src.dtype,
+                          device=gate_src.device)
+    dhgates = torch.empty_like(dx_proj)
     dh0 = torch.empty_like(h0)
-    with torch.cuda.device(x_proj.device):
+    with torch.cuda.device(gate_src.device):
         _launch(
             "gru_bwd", _library("gru_bwd"),
-            x_proj.data_ptr(), h_all.data_ptr(), h0.data_ptr(), w_hh_t.data_ptr(),
-            b_hh.data_ptr(), dh_all.data_ptr(), dh_T.data_ptr(),
+            None if x_proj is None else x_proj.data_ptr(), h_all.data_ptr(), h0.data_ptr(),
+            w_hh_t.data_ptr(), b_hh.data_ptr(), dh_all.data_ptr(), dh_T.data_ptr(),
+            None if gates is None else gates.data_ptr(),
             dx_proj.data_ptr(), dhgates.data_ptr(), dh0.data_ptr(),
-            seq_len, batch, hidden, block_b, _VARIANTS[variant],
-            _DTYPE_CODES[x_proj.dtype],
+            seq_len, batch, hidden, block_b, _VARIANTS[variant], _DTYPE_CODES[gate_src.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     return dx_proj, dhgates, dh0
@@ -610,22 +652,28 @@ class FusedGRUScan(torch.autograd.Function):
     """Differentiable fused GRU time loop, the semantics of the JAX
     package's ``fused_gru_scan`` custom VJP.
 
-    ``forward(x_proj (T, B, 3H), w_hh_t (H, 3H), b_hh (3H,), h0 (B, H))``
-    returns ``(h_all (T, B, H), h_T)``."""
+    ``forward(x_proj (T, B, 3H), w_hh_t (H, 3H), b_hh (3H,), h0 (B, H),
+    save_gates)`` returns ``(h_all (T, B, H), h_T)``; the forward saves
+    r, z, n and h_n for the backward only with ``save_gates`` (where
+    autograd will call it)."""
 
     @staticmethod
-    def forward(ctx, x_proj, w_hh_t, b_hh, h0):
-        h_all = gru_fwd(x_proj, h0, w_hh_t, b_hh)
-        ctx.save_for_backward(x_proj, h_all, h0, w_hh_t, b_hh)
+    def forward(ctx, x_proj, w_hh_t, b_hh, h0, save_gates):
+        h_all, gates = gru_fwd(x_proj, h0, w_hh_t, b_hh, save_gates)
+        # where the forward saved the gates, the backward reads them in
+        # place of x_proj, which is then not kept
+        ctx.saved_gates = gates is not None
+        ctx.save_for_backward(x_proj if gates is None else gates, h_all, h0, w_hh_t, b_hh)
         return h_all, h_all[-1].clone()
 
     @staticmethod
     def backward(ctx, dh_all, dh_T):
-        x_proj, h_all, h0, w_hh_t, b_hh = ctx.saved_tensors
-        dtype = x_proj.dtype
+        first, h_all, h0, w_hh_t, b_hh = ctx.saved_tensors
+        x_proj, gates = (None, first) if ctx.saved_gates else (first, None)
+        dtype = first.dtype
         dx_proj, dhgates, dh0 = gru_bwd(
             x_proj, h_all, h0, w_hh_t, b_hh,
-            dh_all.to(dtype).contiguous(), dh_T.to(dtype).contiguous(),
+            dh_all.to(dtype).contiguous(), dh_T.to(dtype).contiguous(), gates,
         )
         # dW_hh^T = sum_t h_{t-1}^T dhgates[t] and db_hh = sum dhgates:
         # one product and one reduction over all (t, b)
@@ -633,13 +681,14 @@ class FusedGRUScan(torch.autograd.Function):
         dhg = dhgates.reshape(-1, dhgates.shape[-1]).float()
         dw_hh_t = (h_prev.reshape(-1, h_prev.shape[-1]).float().T @ dhg).to(dtype)
         db_hh = dhg.sum(dim=0).to(dtype)
-        return dx_proj, dw_hh_t, db_hh, dh0
+        return dx_proj, dw_hh_t, db_hh, dh0, None
 
 
 def gru_layer_fused(params, x, h0=None):
     """Drop-in for ``ops.rnn.gru_layer`` running the time loop through the
     fused kernels: ``x`` (B, T, in) -> ``(outputs (B, T, H), h_T)``.  As
-    :func:`lstm_layer_fused`: time-major projection, no padding."""
+    :func:`lstm_layer_fused`: time-major projection, no padding, and the
+    gates saved only where autograd will run the backward."""
     from pytorch_distributed_rnn_tpu_torch.ops.rnn import gru_input_proj
 
     batch = x.shape[0]
@@ -648,8 +697,8 @@ def gru_layer_fused(params, x, h0=None):
     x_proj = gru_input_proj(params, x.transpose(0, 1))  # (T, B, 3H), b_ih only
     if h0 is None:
         h0 = x.new_zeros((batch, hidden), dtype=dtype)
-    h_all, h_t = FusedGRUScan.apply(
-        x_proj, params["w_hh"].T.contiguous(), params["b_hh"].contiguous(),
-        h0.to(dtype).contiguous(),
-    )
+    inputs = (x_proj, params["w_hh"].T.contiguous(), params["b_hh"].contiguous(),
+              h0.to(dtype).contiguous())
+    backward = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+    h_all, h_t = FusedGRUScan.apply(*inputs, backward)
     return h_all.transpose(0, 1), h_t

@@ -38,8 +38,9 @@ synthetic data at the CLI's sizes, then 4 more epochs a step on the host
 clock and one under ``torch.profiler`` (device time a step, and that of
 each of the port's kernels).  ``--path`` (default d): ``a``, the motion
 LSTM with the CLI's defaults (batch 1440, 2 x 32) on HAR windows at the
-UCI sizes; ``d``, ``--model attention --hidden-units 128 --num-heads 4
---stacked-layer 2 --batch-size 256 --dropout 0`` on the same windows;
+UCI sizes; ``b``, the same with ``--cell gru``; ``d``, ``--model
+attention --hidden-units 128 --num-heads 4 --stacked-layer 2
+--batch-size 256 --dropout 0`` on the same windows;
 ``f``, ``--model char --hidden-units 512 --stacked-layer 2 --seq-length
 128 --batch-size 256 --dropout 0`` (the default LSTM cell) on the
 synthetic motif corpus.
@@ -96,6 +97,7 @@ TC_CASES = ((512, 256), (512, 104), (512, 204), (449, 37), (480, 61))  # (H, B)
 # each main path's flags beyond the data and checkpoint paths, and its batch
 PATHS = {
     "a": ([], 1440),
+    "b": (["--cell", "gru"], 1440),
     "d": (["--model", "attention", "--hidden-units", "128", "--num-heads", "4",
            "--stacked-layer", "2", "--batch-size", "256", "--dropout", "0"], 256),
     "f": (["--model", "char", "--hidden-units", "512", "--stacked-layer", "2",
@@ -157,8 +159,8 @@ def _time_rows() -> dict:
         w = torch.randn(hidden, 3 * hidden, generator=gen, device="cuda") / hidden ** 0.5
         b = 0.1 * torch.randn(3 * hidden, generator=gen, device="cuda")
         out[key] = _time_ms(lambda: fr.gru_fwd(x, h0, w, b), 20)  # noqa: B023
-        out[f"{key}_max_abs_err"] = (fr.gru_fwd(x, h0, w, b)
-                                     - fr.gru_fwd_plain(x, h0, w, b)).abs().max().item()
+        out[f"{key}_max_abs_err"] = (fr.gru_fwd(x, h0, w, b)[0]
+                                     - fr.gru_fwd_plain(x, h0, w, b)[0]).abs().max().item()
     out.update(fr.cluster_shape("gru_fwd", hidden, batch))
     return out
 
@@ -301,7 +303,7 @@ def _run(root: Path, what: str, *args: str) -> dict:
 def _parse(argv: list) -> tuple:
     """``(mode, other tree or None, rounds, path)``; raises SystemExit on
     misuse."""
-    usage = "usage: ab rows | ab split | ab tc | ab step --other DIR [--rounds N] [--path a|d|f]"
+    usage = "usage: ab rows | ab split | ab tc | ab step --other DIR [--rounds N] [--path a|b|d|f]"
     if argv in (["rows"], ["split"], ["tc"]):
         return argv[0], None, 1, None
     mode, rest = (argv[0], argv[1:]) if argv else (None, [])

@@ -18,6 +18,7 @@ from pytorch_distributed_rnn_tpu_torch.utils import ab
     (["step", "--path", "f", "--other", "x"], ("step", Path("x").resolve(), 1, "f")),
     (["step", "--other", "x", "--rounds", "3", "--path", "a"],
      ("step", Path("x").resolve(), 3, "a")),
+    (["step", "--other", "x", "--path", "b"], ("step", Path("x").resolve(), 1, "b")),
 ])
 def test_parse(argv, want):
     assert ab._parse(argv) == want
@@ -26,7 +27,7 @@ def test_parse(argv, want):
 @pytest.mark.parametrize("argv", [
     [], ["rows", "x"], ["step"], ["step", "--other"], ["step", "--other", "x", "--rounds"],
     ["step", "--other", "x", "--rounds", "0"], ["step", "--other", "x", "--pairs", "5"],
-    ["kernels"], ["tc", "--rounds", "2"], ["step", "--other", "x", "--path", "b"], ["gates"],
+    ["kernels"], ["tc", "--rounds", "2"], ["step", "--other", "x", "--path", "c"], ["gates"],
     ["rows", "--rounds", "2"], ["step", "--other", "x", "--other", "y"],
 ])
 def test_parse_rejects(argv):

@@ -336,7 +336,7 @@ def test_wrapper_argument_checks(bad, exc):
         h0, c0, w = torch.zeros(b, 513), torch.zeros(b, 513), torch.zeros(513, 4 * 513)
         shapes = [(b, 513), (b, 513), (513, 4 * 513), (t, b, 4 * 513)]
     with pytest.raises(exc):
-        fr._check("lstm_fwd", [h0, c0, w, x_proj], shapes)
+        fr._check("lstm_fwd", shapes[0][1], [h0, c0, w, x_proj], shapes)
 
 
 @pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm_bwd"])

@@ -150,6 +150,40 @@ def test_layer_forward_matches_jax(cell, dtype_name):
         np.testing.assert_allclose(_np(a), _np(b), rtol=tol, atol=tol)
 
 
+# the motion width (2 x 32) through the fused GRU, whose forward saves r, z,
+# n and h_n there for its backward to read: the stack's outputs and every
+# gradient against the JAX fused stack (Pallas interpret mode), on a batch
+# that is no whole number of 4-row quads
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+def test_stacked_fused_gru_at_h32_matches_jax(dtype_name):
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as tfr
+
+    rng = np.random.RandomState(12)
+    layers = [_layer(rng, "gru", 9, 32), _layer(rng, "gru", 32, 32)]
+    x = rng.randn(7, 10, 9).astype(np.float32)
+    tdt = None if dtype_name == "f32" else torch.bfloat16
+    jdt = None if dtype_name == "f32" else jnp.bfloat16
+    fwd_tol, grad_tol = (F32_FWD, F32_GRAD) if dtype_name == "f32" else (BF16, BF16)
+    assert tfr.gru_saves_gates(32)
+    t_layers = [_torch(l, grad=True) for l in layers]
+    tx = torch.tensor(x, requires_grad=True)
+    t_out, _ = trnn.stacked_rnn(t_layers, tx, "gru", impl="fused", compute_dtype=tdt)
+    (t_out.float() ** 2).sum().backward()
+
+    def loss(ls, xx):
+        out, _ = jrnn.stacked_rnn(ls, xx, "gru", impl="fused", compute_dtype=jdt)
+        return jnp.sum(out.astype(jnp.float32) ** 2), out
+
+    (_, j_out), (j_layers, j_x) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        [_jax(l) for l in layers], jnp.asarray(x))
+    np.testing.assert_allclose(_np(t_out), _np(j_out), rtol=fwd_tol, atol=fwd_tol)
+    for t_l, j_l in zip(t_layers, j_layers):
+        for name in t_l:
+            np.testing.assert_allclose(_np(t_l[name].grad), _np(j_l[name]), rtol=grad_tol,
+                                       atol=grad_tol, err_msg=name)
+    np.testing.assert_allclose(_np(tx.grad), _np(j_x), rtol=grad_tol, atol=grad_tol)
+
+
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_layer_gradients_match_jax(cell):
     p, x, _, _ = _layer_case(cell, "f32", seed=4)
@@ -207,7 +241,7 @@ def test_dtype_of_matches_jax_mapping():
         ("auto", "lstm", 512, "cuda", "fused"),  # over a cluster
         ("auto", "lstm", 513, "cuda", "scan"),  # past the kernels' range
         ("auto", "lstm", 1280, "cuda", "scan"),
-        ("auto", "gru", 32, "cuda", "fused"),  # W_hh^T in shared memory
+        ("auto", "gru", 32, "cuda", "fused"),  # W_hh^T in registers
         ("auto", "gru", 512, "cuda", "fused"),  # over a cluster
         ("auto", "gru", 513, "cuda", "scan"),
         ("auto", "gru", 512, "cpu", "scan"),

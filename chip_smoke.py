@@ -13,12 +13,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    (``gru_fwd_reg_kernel``, ``gru_bwd_reg_kernel``), the LSTM forward
    kernel, both LSTM cluster kernels, the LSTM forward's tensor-core
    cluster kernel (``lstm_fwd_tc_kernel``), the LSTM backward up to H=32
-   (``lstm_bwd_reg_kernel``) and the fused f32 flash backward
-   (``flash_dqkv_tc_kernel``) have no stack frame and no spills in any
+   (``lstm_bwd_reg_kernel``), the fused f32 flash backward
+   (``flash_dqkv_tc_kernel``) and the f32 flash forward
+   (``flash_fwd_f32_tc_kernel``) have no stack frame and no spills in any
    instance, and checks in the SASS (``cuobjdump``) that the bf16
-   ``flash_fwd``/``flash_dq``/``flash_dkv`` kernels, the 3xTF32
-   ``flash_dqkv`` and the 3xTF32 ``lstm_fwd_tc_kernel``, and only they, run
-   on the tensor cores (HMMA).
+   ``flash_fwd``/``flash_dq``/``flash_dkv`` kernels, the 3xTF32 f32
+   ``flash_fwd`` and ``flash_dqkv`` and the 3xTF32 ``lstm_fwd_tc_kernel``,
+   and only they, run on the tensor cores (HMMA).
 3. kernels: holds each kernel against its plain PyTorch version on the
    card, at the shapes the main paths give them (O(1) random cotangents,
    f32 and bf16, the tolerances of ``TOLERANCES``): the LSTM and GRU
@@ -32,15 +33,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    30, where no 4 divides H), the GRU cluster kernels' edges (H=127, 200,
    300, B=250 and 37 at 512), and the gates the forwards save (the LSTM
    up to H=32 and over a cluster, the GRU up to H=32); the
-   flash kernels at the
-   attention CLI's (B*H, T, D) shapes (train batches, and the evaluation
-   batches forward only), the long-context shape (64, 1024, 128) in bf16
-   and f32 (also causal, where the diagonal tiles mask), D=8, D=72,
-   causal with offsets, a ragged T=300, cross lengths 96/160 and a chunk
-   that sees no key (o = 0, lse = -inf); ``flash_dqkv`` at every f32 case
-   in its range (Tq, Tk <= 128, D <= 64: the CLI train batches, D=8,
-   causal offsets, the no-key chunk, a ragged causal 77/100 at D=30 and
-   D=64), and two of its launches bitwise equal.
+   flash kernels, each case on (B*H, T, D) rows and on the model's
+   (B, T, H, D) layout (q, k, v views of (B, T, H*D) projections, dO of
+   (B, H, T, D) storage, outputs in their inputs' layout), at the
+   attention CLI's shapes (train batches, and the evaluation batches
+   forward only), the long-context shape (64, 1024, 128) in bf16 and f32
+   (also causal, where the diagonal tiles mask), D=8, D=72, causal with
+   offsets, a ragged T=300, cross lengths 96/160 and a chunk that sees no
+   key (o = 0, lse = -inf); ``flash_dqkv`` at every f32 case in its range
+   (Tq, Tk <= 128, D <= 64: the CLI train batches, D=8, causal offsets,
+   the no-key chunk, a ragged causal 77/100 at D=30 and D=64), and two of
+   its launches bitwise equal; the f32 forward at its edges (T = 1, 63,
+   64, 65, 128, 200, 1024 by D = 1, 8, 31, 32, 64, 100, 128, unmasked,
+   causal with offsets, no visible key).
 4. main paths, each driven with the launch counts set to 0 just before it
    and read just after, on synthetic data at full size:
    a. ``main ... local`` for 2 epochs: the motion LSTM with the default
@@ -68,8 +73,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    Each kernel's launches per train step come from the run's counts.
 5. step profile: more epochs (or steps) of each trained model, timed on
    the host clock, and one under ``torch.profiler`` (device time by
-   kernel); and one epoch of path f's model on its scan path (the Python
-   loop over T), what its kernels replace.
+   kernel, and the device copy kernels a step: the head split and merge
+   copies that path d and e no longer run would show there); and one epoch
+   of path f's model on its scan path (the Python loop over T), what its
+   kernels replace.
 6. timing: CUDA-event times of each kernel, its plain version and the
    library's call (cuDNN's LSTM or GRU, ``torch.nn.LSTM``/``torch.nn.GRU``;
    ``scaled_dot_product_attention`` forward for ``flash_fwd``, and for
@@ -86,7 +93,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    kernels' shapes at H=512 (CTAs and rows a cluster, clusters resident at once,
    waves, the LSTM slices' rows in shared memory); the LSTM forward's
    tensor-core kernel at one cluster of 8 .. 40 rows, and each bound by the
-   pipe its products run on (TF32 tensor cores for the 3xTF32 kernels).
+   pipe its products run on (TF32 tensor cores for the 3xTF32 kernels);
+   the flash kernels on the model's (B, T, H, D) layout, each row naming
+   the kernel its wrapper runs there, and the layout work left around one
+   forward call.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}`` as its last line.
@@ -152,7 +162,8 @@ FWD_TILES = (4, 8, 12, 16)
 # every instance (dtype, variant)
 NO_STACK_KERNELS = ("gru_fwd_cluster_kernel", "gru_fwd_reg_kernel", "gru_bwd_reg_kernel",
                     "lstm_fwd_kernel", "lstm_fwd_cluster_kernel", "lstm_fwd_tc_kernel",
-                    "lstm_bwd_reg_kernel", "lstm_bwd_cluster_kernel", "flash_dqkv_tc_kernel")
+                    "lstm_bwd_reg_kernel", "lstm_bwd_cluster_kernel", "flash_dqkv_tc_kernel",
+                    "flash_fwd_f32_tc_kernel")
 # the scan path's train steps profiled once beside path f (the char LSTM)
 SCAN_PROFILE_EPOCHS = 1
 LOGIT_TOL = 1e-4  # trained fused logits against the scan path, f32
@@ -180,10 +191,11 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 TF32_FLOPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 # the tensor-core kernels: the bf16 flash_fwd_tc_kernel, flash_dq_tc_kernel,
-# flash_dkv_tc_kernel (one instance per padded head dim 16, 32, 64, 128),
-# the float32 3xTF32 flash_dqkv_tc_kernel (16, 32, 64) and
-# lstm_fwd_tc_kernel (8, 16, 24, 32, 40 rows a cluster)
-N_TENSOR_CORE_KERNELS = 20
+# flash_dkv_tc_kernel and the float32 3xTF32 flash_fwd_f32_tc_kernel (one
+# instance per padded head dim 16, 32, 64, 128), the 3xTF32
+# flash_dqkv_tc_kernel (16, 32, 64) and lstm_fwd_tc_kernel (8, 16, 24, 32,
+# 40 rows a cluster)
+N_TENSOR_CORE_KERNELS = 24
 REPLACES = {
     "lstm_fwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:100",
     "lstm_bwd": "pytorch_distributed_rnn_tpu/ops/pallas_rnn.py:166",
@@ -195,6 +207,17 @@ REPLACES = {
     "flash_dqkv": "pytorch_distributed_rnn_tpu/ops/pallas_attention.py:230,266",
 }
 SOURCES = {name: f"pytorch_distributed_rnn_tpu_torch/csrc/{name}.cu" for name in REPLACES}
+# the forward's rows a block (csrc/flash_fwd.cu: 16 kF32FwdWarps in float32,
+# kBlockM in bf16), the serial floor's tile
+FWD_BLOCK_ROWS = {torch.float32: 128, torch.bfloat16: 64}
+# the flash kernel each (wrapper, dtype) of the main paths runs
+FLASH_KERNELS = {
+    ("flash_fwd", torch.float32): "flash_fwd_f32_tc_kernel",
+    ("flash_fwd", torch.bfloat16): "flash_fwd_tc_kernel",
+    ("flash_dq", torch.bfloat16): "flash_dq_tc_kernel",
+    ("flash_dkv", torch.bfloat16): "flash_dkv_tc_kernel",
+    ("flash_dqkv", torch.float32): "flash_dqkv_tc_kernel",
+}
 for _name in ("flash_dq", "flash_dkv", "flash_dqkv"):
     SOURCES[_name] = "pytorch_distributed_rnn_tpu_torch/csrc/flash_bwd.cu"
 
@@ -446,25 +469,37 @@ def _flash_cases(dtype) -> list:
     ]
 
 
-def _flash_inputs(bh, t_q, t_k, d, dtype, seed):
-    """O(1) random q, k, v and dO (B*H, T, D) on the card."""
+def _flash_inputs(bh, t_q, t_k, d, dtype, seed, layout="flat"):
+    """O(1) random q, k, v and dO of BH heads on the card: (B*H, T, D)
+    (``flat``), or in the kernels' (B, T, H, D) layout (``projection``, H =
+    4 where it divides BH, else 1): q, k and v views of (B, T, H*D)
+    projections as the model's ``_split_heads`` leaves them, dO the view of
+    (B, H, T, D) storage (each tensor is read by its own strides)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    heads = 4 if bh % 4 == 0 else 1
 
-    def rand(t):
-        return torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype)
+    def rand(t, by_head=False):
+        if layout == "flat":
+            return torch.randn((bh, t, d), generator=gen, device="cuda").to(dtype)
+        if by_head:
+            x = torch.randn((bh // heads, heads, t, d), generator=gen, device="cuda")
+            return x.to(dtype).transpose(1, 2)
+        x = torch.randn((bh // heads, t, heads * d), generator=gen, device="cuda")
+        return x.to(dtype).view(bh // heads, t, heads, d)
 
-    return rand(t_q), rand(t_k), rand(t_k), rand(t_q)
+    return rand(t_q), rand(t_k), rand(t_k), rand(t_q, by_head=True)
 
 
-def _check_lse(got, want, tol, label, failures):
+def _check_lse(got, want, tol, label, failures, quiet=False):
     """lse is float32 in both dtypes: -inf in the same places, elementwise
     tolerance elsewhere."""
     finite = torch.isfinite(want)
     same = torch.equal(torch.isneginf(got), torch.isneginf(want))
     err = _scaled_err(got[finite], want[finite]) if finite.any() else 0.0
     ok = same and err <= tol and bool(torch.isfinite(got[finite]).all())
-    print(f"flash_fwd lse {label}: scaled_err={err:.3e} -inf rows equal={same} tol={tol:g} "
-          f"{'ok' if ok else 'FAIL'}")
+    if not quiet or not ok:
+        print(f"flash_fwd lse {label}: scaled_err={err:.3e} -inf rows equal={same} tol={tol:g} "
+              f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"flash_fwd lse {label}")
 
@@ -485,9 +520,44 @@ def _check_dqkv(args, kw, tol, label, failures) -> float:
     return err
 
 
+# the f32 forward's edges (forward only): T around the 64-key tile and the
+# 128-row block, D padded to 16, 32, 64, 128 and rows not 16-byte aligned
+# (D = 1, 31, 100), each unmasked, causal with offsets, and a chunk that
+# sees no key
+F32_FWD_EDGE_T = (1, 63, 64, 65, 128, 200, 1024)
+F32_FWD_EDGE_D = (1, 8, 31, 32, 64, 100, 128)
+F32_FWD_EDGE_MASKS = ((False, 0, 0), (True, 37, 5), (True, 0, None))  # None: k_off = T
+
+
+def _f32_fwd_edges(failures):
+    """The f32 forward against its plain version at its edges, on the
+    (B, T, H, D) layout."""
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_attention as fa
+
+    worst = 0.0
+    for t in F32_FWD_EDGE_T:
+        for d in F32_FWD_EDGE_D:
+            for causal, q_off, k_off in F32_FWD_EDGE_MASKS:
+                kw = dict(causal=causal, q_offset=q_off, k_offset=t if k_off is None else k_off)
+                q, k, v, _ = _flash_inputs(8, t, t, d, torch.float32, seed=t + d,
+                                           layout="projection")
+                o, lse = fa.flash_fwd(q, k, v, **kw)
+                o_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+                err = _scaled_err(o, o_p)
+                worst = max(worst, err)
+                label = f"f32 forward edge T={t} D={d} {kw}"
+                if err > TOLERANCES[torch.float32][0] or o.stride() != q.stride():
+                    failures.append(f"flash_fwd {label}: scaled_err={err:.3e}")
+                _check_lse(lse, lse_p, TOLERANCES[torch.float32][0], label, failures, quiet=True)
+    print(f"flash_fwd float32 edges: {len(F32_FWD_EDGE_T) * len(F32_FWD_EDGE_D)} (T, D) x "
+          f"{len(F32_FWD_EDGE_MASKS)} masks on the (B, T, H, D) layout, worst scaled_err="
+          f"{worst:.3e} tol={TOLERANCES[torch.float32][0]:g}")
+
+
 def phase_flash_kernels() -> dict:
-    """The flash kernels against their plain versions; returns the max abs
-    errors at the two main shapes (CLI f32, long context bf16)."""
+    """The flash kernels against their plain versions on (B*H, T, D) rows
+    and on the (B, T, H, D) layout; returns the max abs errors at the two
+    main shapes (CLI f32, long context bf16) on the model's layout."""
     from pytorch_distributed_rnn_tpu_torch.ops import fused_attention as fa
 
     main_errs = {}
@@ -498,11 +568,12 @@ def phase_flash_kernels() -> dict:
         torch.bfloat16: _flash_shape(LONG_BATCH * LONG_HEADS, LONG_T, LONG_DIM // LONG_HEADS,
                                      torch.bfloat16),
     }
-    for dtype, (tol_f, tol_b) in TOLERANCES.items():
+    for (dtype, (tol_f, tol_b)), layout in ((a, b) for a in TOLERANCES.items()
+                                            for b in ("flat", "projection")):
         for label, bh, t_q, t_k, d, causal, q_off, k_off, backward in _flash_cases(dtype):
             kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
-            full = f"{label} BH={bh} Tq={t_q} Tk={t_k} D={d}"
-            q, k, v, do = _flash_inputs(bh, t_q, t_k, d, dtype, seed=bh + t_q + d)
+            full = f"{label} BH={bh} Tq={t_q} Tk={t_k} D={d} {layout}"
+            q, k, v, do = _flash_inputs(bh, t_q, t_k, d, dtype, seed=bh + t_q + d, layout=layout)
             o, lse = fa.flash_fwd(q, k, v, **kw)
             o_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
             errs = {"flash_fwd": _report("flash_fwd", dtype, full, (o,), (o_p,), tol_f, failures)}
@@ -510,8 +581,10 @@ def phase_flash_kernels() -> dict:
             if label == "no visible key" and not (torch.equal(o, torch.zeros_like(o))
                                                   and bool(torch.isneginf(lse).all())):
                 failures.append(f"flash_fwd {dtype} {full}: o != 0 or lse != -inf")
+            if o.stride() != q.stride():
+                failures.append(f"flash_fwd {dtype} {full}: o not in q's layout")
             if backward:
-                delta = (do.float() * o_p.float()).sum(dim=-1)
+                delta = fa._delta(do, o_p)
                 args = (q, k, v, do, lse_p, delta)
                 errs["flash_dq"] = _report("flash_dq", dtype, full, (fa.flash_dq(*args, **kw),),
                                            (fa.flash_dq_plain(*args, **kw),), tol_b, failures)
@@ -521,8 +594,9 @@ def phase_flash_kernels() -> dict:
                     errs["flash_dqkv"] = _check_dqkv((q, k, v, o_p, do, lse_p), kw, tol_b, full,
                                                      failures)
             shape = _flash_shape(bh, t_q, d, dtype)
-            if shape == main_shapes[dtype] and backward and not causal:
+            if shape == main_shapes[dtype] and backward and not causal and layout != "flat":
                 main_errs.update({(name, shape): err for name, err in errs.items()})
+    _f32_fwd_edges(failures)
     torch.cuda.synchronize()
     if failures:
         raise RuntimeError(f"flash kernels disagree with their plain versions: {failures}")
@@ -844,9 +918,12 @@ def phase_step_profile(name: str, train, steps: int, repeats: int):
               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     device_us = {e.key: e.self_device_time_total for e in events}
     total_us = sum(device_us.values())
+    copies = [e for e in events if "copy" in e.key.lower()]
     print(f"step profile ({name}): {steps} steps per run; host clock per step over "
           f"{repeats} runs: {', '.join(f'{ms:.3f}' for ms in host_ms)} ms; device time "
-          f"{total_us / 1e3 / steps:.3f} ms per step (one profiled run)")
+          f"{total_us / 1e3 / steps:.3f} ms per step (one profiled run); device copy kernels "
+          f"{sum(e.count for e in copies) / steps:g} a step, "
+          f"{sum(e.self_device_time_total for e in copies) / 1e3 / steps:.4f} ms a step")
     for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / 1e3 / steps:8.3f} ms/step  {100 * us / max(total_us, 1):5.1f}%  {key[:90]}")
 
@@ -1177,28 +1254,28 @@ def phase_timing(runs: dict, errs: dict) -> list:
 def _flash_bounds(bh: int, t: int, d: int, dtype) -> dict:
     """Each flash kernel's least time, non-causal (every score counts):
     every input read once, every output written once, and its products at
-    the card's rate for the dtype (float32 on the CUDA cores, bf16 on the
-    tensor cores).  The forward reads q, k, v and writes o and lse; dQ
-    reads q, k, v, dO, lse and delta and writes dQ; dK/dV reads the same
-    and writes dK and dV; the fused backward reads q, k, v, o, dO and lse
-    and writes dQ, dK and dV.  Each product is 2 BH T^2 D operations: the
-    forward does 2 (q k^T, p v), dQ 3 (s, dp, ds k), dK/dV 4 (s, dp, p^T
-    dO, ds^T q), the fused backward 5 (s, dp, ds k, p^T dO, ds^T q).  The
-    fused backward is bounded by the pipe it runs on: in float32 each of
-    its products is three TF32 products (3xTF32) on the tensor cores, at
-    the TF32 rate."""
+    the rate of the pipe they run on.  The forward reads q, k, v and writes
+    o and lse; dQ reads q, k, v, dO, lse and delta and writes dQ; dK/dV
+    reads the same and writes dK and dV; the fused backward reads q, k, v,
+    o, dO and lse and writes dQ, dK and dV.  Each product is 2 BH T^2 D
+    operations: the forward does 2 (q k^T, p v), dQ 3 (s, dp, ds k), dK/dV
+    4 (s, dp, p^T dO, ds^T q), the fused backward 5 (s, dp, ds k, p^T dO,
+    ds^T q).  bf16 runs every product on the tensor cores at the bf16 rate;
+    float32 runs the forward and the fused backward on the tensor cores in
+    3xTF32 (three TF32 products a product, at the TF32 rate) and the split
+    backward on the CUDA cores."""
     seq = bh * t * d * (2 if dtype == torch.bfloat16 else 4)
     rows = bh * t * 4
     product = 2 * bh * t * t * d
     if dtype == torch.bfloat16:
-        rate, fused_ops, fused_rate = BF16_FLOPS_PER_S, 5 * product, BF16_FLOPS_PER_S
+        split_rate, tc, tc_rate = BF16_FLOPS_PER_S, product, BF16_FLOPS_PER_S
     else:
-        rate, fused_ops, fused_rate = F32_FLOPS_PER_S, 3 * 5 * product, TF32_FLOPS_PER_S
+        split_rate, tc, tc_rate = F32_FLOPS_PER_S, 3 * product, TF32_FLOPS_PER_S
     return {
-        "flash_fwd": _bound_ms(4 * seq + rows, 2 * product, rate),
-        "flash_dq": _bound_ms(5 * seq + 2 * rows, 3 * product, rate),
-        "flash_dkv": _bound_ms(6 * seq + 2 * rows, 4 * product, rate),
-        "flash_dqkv": _bound_ms(8 * seq + rows, fused_ops, fused_rate),
+        "flash_fwd": _bound_ms(4 * seq + rows, 2 * tc, tc_rate),
+        "flash_dq": _bound_ms(5 * seq + 2 * rows, 3 * product, split_rate),
+        "flash_dkv": _bound_ms(6 * seq + 2 * rows, 4 * product, split_rate),
+        "flash_dqkv": _bound_ms(8 * seq + rows, 5 * tc, tc_rate),
     }
 
 
@@ -1207,23 +1284,26 @@ def _flash_calls(bh: int, t: int, d: int, dtype, heads: int) -> dict:
     (``flash_dqkv``: one head) and ``scaled_dot_product_attention``
     (forward, or its whole backward) on the same inputs, as ``(kernel,
     plain, one block, library)``; under ``"split"`` the backward as the
-    split route runs it (delta in torch, ``flash_dq``, ``flash_dkv``)."""
+    split route runs it (delta in torch, ``flash_dq``, ``flash_dkv``).  The
+    kernels' inputs are in the model's layout: q, k, v and dO (B, T, H, D)
+    views of (B, T, H*D) tensors; SDPA's are contiguous (B, H, T, D)."""
     from pytorch_distributed_rnn_tpu_torch.ops import fused_attention as fa
 
-    q, k, v, do = _flash_inputs(bh, t, t, d, dtype, seed=11)
+    q, k, v, _ = _flash_inputs(bh, t, t, d, dtype, seed=11, layout="projection")
+    do = torch.randn_like(q)  # the model's dO: q's layout
     o, lse = fa.flash_fwd_plain(q, k, v)
-    delta = (do.float() * o.float()).sum(dim=-1)
+    delta = fa._delta(do, o)
     bwd = (q, k, v, do, lse, delta)
-    rows = fa.BLOCK_ROWS  # one query tile (fwd, dQ) or one key tile (dK/dV): one block
+    rows = fa.BLOCK_ROWS  # one query tile (dQ) or one key tile (dK/dV): one block
 
-    def first(x, n=None):
-        return x[:1, :n].contiguous()
+    def first(x, n=None):  # the first head's first n rows
+        return x[:1, :n].contiguous() if x.ndim == 2 else x[:1, :n, :1].contiguous()
 
+    fwd_rows = FWD_BLOCK_ROWS[dtype]
     one_q = (first(q, rows), first(k), first(v), first(do, rows), first(lse, rows),
              first(delta, rows))
     one_k = (first(q), first(k, rows), first(v, rows), first(do), first(lse), first(delta))
-    q4, k4, v4 = (x.reshape(bh // heads, heads, t, d).detach().requires_grad_()
-                  for x in (q, k, v))
+    q4, k4, v4 = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def lib_fwd():
@@ -1231,7 +1311,7 @@ def _flash_calls(bh: int, t: int, d: int, dtype, heads: int) -> dict:
             sdpa(q4, k4, v4)
 
     out = sdpa(q4, k4, v4)
-    do4 = do.reshape(out.shape)
+    do4 = do.transpose(1, 2).contiguous()
 
     def lib_bwd():
         torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
@@ -1240,13 +1320,13 @@ def _flash_calls(bh: int, t: int, d: int, dtype, heads: int) -> dict:
     one_head = tuple(first(x) for x in fused)
 
     def split():
-        delta = (do.float() * o.float()).sum(dim=-1)
+        delta = fa._delta(do, o)
         fa.flash_dq(q, k, v, do, lse, delta)
         fa.flash_dkv(q, k, v, do, lse, delta)
 
     return {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_fwd_plain(q, k, v),
-                      lambda: fa.flash_fwd(*one_q[:3]), lib_fwd),
+                      lambda: fa.flash_fwd(first(q, fwd_rows), *one_q[1:3]), lib_fwd),
         "flash_dq": (lambda: fa.flash_dq(*bwd), lambda: fa.flash_dq_plain(*bwd),
                      lambda: fa.flash_dq(*one_q), lib_bwd),
         "flash_dkv": (lambda: fa.flash_dkv(*bwd), lambda: fa.flash_dkv_plain(*bwd),
@@ -1257,25 +1337,41 @@ def _flash_calls(bh: int, t: int, d: int, dtype, heads: int) -> dict:
     }
 
 
-def _glue_ms(batch: int, heads: int, t: int, d: int, dtype) -> float:
-    """The layout copies around one forward call of ``flash_attention`` in
-    the model: q, k and v from the projections' (B, T, H*D) into contiguous
-    (B*H, T, D), and o back to (B, T, H*D) (the backward copies the same
-    bytes again, transposed)."""
+def _glue(batch: int, heads: int, t: int, d: int, dtype) -> tuple:
+    """The device work of what the model's path does to the layout around
+    one forward call of ``flash_attention``: q, k and v split into heads
+    off the projections' (B, T, H*D) (``_split_heads``, then
+    ``flash_attention``'s (B, T, H, D) views) and o's heads merged back
+    (``_merge_heads``).  Returns (kernels launched, their device ms) a call
+    under ``torch.profiler``: none since the kernels read the (B, T, H, D)
+    layout (the copies this replaced took as long as the f32 forward)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_distributed_rnn_tpu_torch.models.attention import _merge_heads, _split_heads
+
     x = torch.randn((batch, t, heads * d), device="cuda").to(dtype)
-
-    def glue():
-        for _ in range(3):
-            x.reshape(batch, t, heads, d).transpose(1, 2).reshape(batch * heads, t, d)
-        x.reshape(batch, heads, t, d).transpose(1, 2).reshape(batch, t, heads * d)
-
-    return _time_ms(glue, 20)
+    o = torch.empty((batch, t, heads, d), device="cuda", dtype=dtype)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            for _ in range(3):
+                if _split_heads(x, heads).transpose(1, 2).stride(-1) != 1:
+                    raise RuntimeError("the split heads are not the kernels' layout")
+            if _merge_heads(o.transpose(1, 2)).data_ptr() != o.data_ptr():
+                raise RuntimeError("merging the heads copied o")
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in events) / 20,
+            sum(e.self_device_time_total for e in events) / 1e3 / 20)
 
 
 def phase_flash_timing(runs: dict, errs: dict) -> list:
-    """The flash kernels of each main path at its shape beside their bounds,
-    plain versions and SDPA; ``serial_ms`` is the kernel at one block (one
-    64-row tile of one head; ``flash_dqkv``: one head).  At the CLI shape
+    """The flash kernels of each main path at its shape, on the model's
+    (B, T, H, D) layout, beside their bounds, plain versions and SDPA;
+    ``serial_ms`` is the kernel at one block (one tile of one head:
+    ``FWD_BLOCK_ROWS`` query rows forward, 64 rows backward;
+    ``flash_dqkv``: one head).  At the CLI shape
     ``flash_dqkv`` also carries the split route's times on the same inputs
     (``split_dq_ms``, ``split_dkv_ms``, and ``split_ms``: delta, dQ and
     dK/dV as the backward ran them before)."""
@@ -1299,6 +1395,7 @@ def phase_flash_timing(runs: dict, errs: dict) -> list:
                 "route": "cuda",
                 "source": SOURCES[name],
                 "replaces": REPLACES[name],
+                "kernel": FLASH_KERNELS[(name, dtype)],
                 "shape": shape,
                 "path": run.name,
                 "launches": run.launches[name],
@@ -1317,11 +1414,12 @@ def phase_flash_timing(runs: dict, errs: dict) -> list:
                 "split_dkv_ms": _time_ms(calls["flash_dkv"][0], 20),
                 "split_ms": _time_ms(calls["split"], 20),
             })
+        glue_kernels, glue_ms = _glue(batch, heads, t, d, dtype)
         print(f"timing flash at {shape}; serial_ms at one block; library_ms is "
               "scaled_dot_product_attention forward (CUDA events) / whole backward (dQ, dK, dV: "
               "the device time of its kernels per call under torch.profiler, "
-              f"{sdpa_bwd_kernels}); layout copies around one forward call "
-              f"{_glue_ms(batch, heads, t, d, dtype):.4f} ms")
+              f"{sdpa_bwd_kernels}); layout work around one forward call: {glue_kernels:g} "
+              f"kernels, {glue_ms:.4f} ms of device time")
     return rows
 
 

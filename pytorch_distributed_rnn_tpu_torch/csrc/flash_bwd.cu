@@ -16,7 +16,10 @@
 // one block: no atomics, and the results do not change from run to run.
 // Tiles wholly above the causal diagonal are never visited (key_end,
 // q_begin); the ragged T edge and the head-dim padding are masked in the
-// kernels, not padded in device memory.
+// kernels, not padded in device memory.  Every q-side and k-side tensor is
+// read and written through its (batch, head, row) strides
+// (flash_common.cuh: Rows), so the gradients land in the layout of the
+// tensors they belong to, the model's (B, T, H, D) views included.
 //
 // What bounds them on an H100 SXM: operations.  At the long-context shape
 // (BH = 64, T = 1024, D = 128, bf16) dQ does 6 BH T^2 D = 51.5 GFLOP and
@@ -45,15 +48,14 @@
 // each ldmatrix feeds two mma.sync (one warp's 16 rows), where wgmma with
 // TMA-fed tiles would feed a 64-row warpgroup.
 //
-// float32 (flash_dq_kernel, flash_dkv_kernel): on the CUDA cores in float32
-// (TF32 would miss the float32 tolerance), as csrc/flash_fwd.cu: 256
-// threads, 64 x 64 tiles staged in shared memory as float32 (row stride
-// DP + 1), each thread owning a 4 x 4 score micro tile and 4 x DP/16 output
-// columns; the score and dp products share one pass over the head dim; ds
-// (and p) go through shared memory for the second product.  dQ holds Q, dO,
-// K, V and ds (149 KB at D = 128); dK/dV holds K, V, Q, dO, p^T, ds^T and
-// the tile's lse and delta (166 KB), with dK and dV accumulating in
-// registers.
+// float32 beyond flash_dqkv's range (flash_dq_kernel, flash_dkv_kernel, on
+// no main path): on the CUDA cores in float32, 256 threads, 64 x 64 tiles
+// staged in shared memory as float32 (row stride DP + 1), each thread owning
+// a 4 x 4 score micro tile and 4 x DP/16 output columns; the score and dp
+// products share one pass over the head dim; ds (and p) go through shared
+// memory for the second product.  dQ holds Q, dO, K, V and ds (149 KB at
+// D = 128); dK/dV holds K, V, Q, dO, p^T, ds^T and the tile's lse and delta
+// (166 KB), with dK and dV accumulating in registers.
 //
 // float32 at Tq, Tk <= 128 and D <= 64 (flash_dqkv_tc_kernel, the attention
 // classifier's backward at BH = 1024, T = 128, D = 32): the split pair
@@ -136,7 +138,7 @@ __device__ __forceinline__ void two_products(const float* x, const float* y,
 }
 
 template <int DP>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, long long stride,
                                            const float (&acc)[kRows][HeadDim<DP>::kCols],
                                            int row0, int n_rows, int d, int ty, int tx) {
 #pragma unroll
@@ -146,18 +148,18 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
 #pragma unroll
     for (int c = 0; c < HeadDim<DP>::kCols; ++c) {
       const int col = tx + kTx * c;
-      if (col < d) dst[(size_t)row * d + col] = acc[r][c];
+      if (col < d) dst[row * stride + col] = acc[r][c];
     }
   }
 }
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ d_o,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int t_q, int t_k, int d, float scale,
-                    int causal, int q_off, int k_off) {
+    flash_dq_kernel(const float* __restrict__ q, Rows qs, const float* __restrict__ k, Rows ks,
+                    const float* __restrict__ v, Rows vs, const float* __restrict__ d_o,
+                    Rows dos, const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, Rows dqs, int heads, int t_q, int t_k, int d,
+                    float scale, int causal, int q_off, int k_off) {
   using H = HeadDim<DP>;
   extern __shared__ float smem[];
   float* q_s = smem;                          // (kBlockM, DP + 1)
@@ -170,11 +172,12 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.y * kBlockM;
   const int tx = threadIdx.x % kTx;
   const int ty = threadIdx.x / kTx;
-  const size_t q_base = (size_t)bh * t_q;
-  const size_t k_base = (size_t)bh * t_k;
+  const size_t q_base = (size_t)bh * t_q;  // lse, delta
+  const float* k_h = head_rows(k, ks, bh, heads);
+  const float* v_h = head_rows(v, vs, bh, heads);
 
-  stage_tile<float, DP>(q + q_base * d, q0, t_q, d, q_s, kBlockM);
-  stage_tile<float, DP>(d_o + q_base * d, q0, t_q, d, do_s, kBlockM);
+  stage_tile<DP>(head_rows(q, qs, bh, heads), qs.row, q0, t_q, d, q_s, kBlockM);
+  stage_tile<DP>(head_rows(d_o, dos, bh, heads), dos.row, q0, t_q, d, do_s, kBlockM);
   float lse_r[kRows], delta_r[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -192,8 +195,8 @@ __global__ void __launch_bounds__(kThreads)
   const int k_end = key_end(q0, t_q, t_k, causal, q_off, k_off);
   for (int k0 = 0; k0 < k_end; k0 += kBlockN) {
     __syncthreads();  // the previous tile's K and ds are read
-    stage_tile<float, DP>(k + k_base * d, k0, t_k, d, k_s, kBlockN);
-    stage_tile<float, DP>(v + k_base * d, k0, t_k, d, v_s, kBlockN);
+    stage_tile<DP>(k_h, ks.row, k0, t_k, d, k_s, kBlockN);
+    stage_tile<DP>(v_h, vs.row, k0, t_k, d, v_s, kBlockN);
     __syncthreads();
 
     float s[kRows][kCols], dp[kRows][kCols];
@@ -226,16 +229,17 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  store_rows<DP>(dq + q_base * d, acc, q0, t_q, d, ty, tx);
+  store_rows<DP>(head_rows(dq, dqs, bh, heads), dqs.row, acc, q0, t_q, d, ty, tx);
 }
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ d_o,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int t_q, int t_k, int d,
-                     float scale, int causal, int q_off, int k_off) {
+    flash_dkv_kernel(const float* __restrict__ q, Rows qs, const float* __restrict__ k, Rows ks,
+                     const float* __restrict__ v, Rows vs, const float* __restrict__ d_o,
+                     Rows dos, const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, Rows dks, float* __restrict__ dv, Rows dvs,
+                     int heads, int t_q, int t_k, int d, float scale, int causal, int q_off,
+                     int k_off) {
   using H = HeadDim<DP>;
   extern __shared__ float smem[];
   float* k_s = smem;                          // (kBlockN, DP + 1)
@@ -251,11 +255,12 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = blockIdx.y * kBlockN;
   const int tx = threadIdx.x % kTx;
   const int ty = threadIdx.x / kTx;
-  const size_t q_base = (size_t)bh * t_q;
-  const size_t k_base = (size_t)bh * t_k;
+  const size_t q_base = (size_t)bh * t_q;  // lse, delta
+  const float* q_h = head_rows(q, qs, bh, heads);
+  const float* do_h = head_rows(d_o, dos, bh, heads);
 
-  stage_tile<float, DP>(k + k_base * d, k0, t_k, d, k_s, kBlockN);
-  stage_tile<float, DP>(v + k_base * d, k0, t_k, d, v_s, kBlockN);
+  stage_tile<DP>(head_rows(k, ks, bh, heads), ks.row, k0, t_k, d, k_s, kBlockN);
+  stage_tile<DP>(head_rows(v, vs, bh, heads), vs.row, k0, t_k, d, v_s, kBlockN);
   float dk_acc[kRows][H::kCols], dv_acc[kRows][H::kCols];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -269,8 +274,8 @@ __global__ void __launch_bounds__(kThreads)
   if (causal) q_begin = max(0, k0 + k_off - q_off) / kBlockM * kBlockM;
   for (int q0 = q_begin; q0 < t_q; q0 += kBlockM) {
     __syncthreads();  // the previous tile's Q, dO, p^T and ds^T are read
-    stage_tile<float, DP>(q + q_base * d, q0, t_q, d, q_s, kBlockM);
-    stage_tile<float, DP>(d_o + q_base * d, q0, t_q, d, do_s, kBlockM);
+    stage_tile<DP>(q_h, qs.row, q0, t_q, d, q_s, kBlockM);
+    stage_tile<DP>(do_h, dos.row, q0, t_q, d, do_s, kBlockM);
     for (int i = threadIdx.x; i < kBlockM; i += kThreads) {
       const bool in = q0 + i < t_q;
       lse_s[i] = in ? lse[q_base + q0 + i] : 0.0f;
@@ -317,8 +322,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  store_rows<DP>(dk + k_base * d, dk_acc, k0, t_k, d, ty, tx);
-  store_rows<DP>(dv + k_base * d, dv_acc, k0, t_k, d, ty, tx);
+  store_rows<DP>(head_rows(dk, dks, bh, heads), dks.row, dk_acc, k0, t_k, d, ty, tx);
+  store_rows<DP>(head_rows(dv, dvs, bh, heads), dvs.row, dv_acc, k0, t_k, d, ty, tx);
 }
 
 // p = exp(s * scale - lse) of a visible score, else 0; not finite (a row
@@ -360,80 +365,6 @@ size_t dqkv_smem_bytes() {
                           3 * kChunkRows);
 }
 
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// Rows [row0, row0 + ROWS) of one head's (n_rows, d) float32 matrix into a
-// shared tile of row stride DP + 8 by cp.async, which the caller commits and
-// waits for; rows past n_rows and columns past d are zero.  16-byte copies
-// with vec (d % 4 == 0 and 16-byte aligned rows), else 4-byte ones.
-template <int ROWS, int DP>
-__device__ __forceinline__ void stage_rows(float* tile, const float* __restrict__ src, int row0,
-                                           int n_rows, int d, int vec) {
-  using C = Dqkv<DP>;
-  const uint32_t base = smem_addr(tile);
-  if (vec) {
-    for (int i = threadIdx.x; i < ROWS * C::kVecs; i += kThreads) {
-      const int r = i / C::kVecs;
-      const int c = 4 * (i % C::kVecs);
-      const int row = row0 + r;
-      const bool ok = row < n_rows && c < d;
-      cp_async_16(base + 4 * (r * C::kStride + c), ok ? src + (size_t)row * d + c : src, ok);
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < ROWS * DP; i += kThreads) {
-    const int r = i / DP;
-    const int c = i % DP;
-    const int row = row0 + r;
-    const bool ok = row < n_rows && c < d;
-    cp_async_4(base + 4 * (r * C::kStride + c), ok ? src + (size_t)row * d + c : src, ok);
-  }
-}
-
-// The 3xTF32 operands of m16n8k8 from float32 values, and the product.
-// Inside each 8-wide step of a contraction, mma index t stands for the
-// step's element 2t and t + 4 for 2t + 1 (any order of a sum's terms gives
-// the same product): so A's a[0], a[2] are one row's neighbours 2t, 2t + 1,
-// B's b0, b1 one column's, one 8-byte read each, and a C tile's (c[0],
-// c[2], c[1], c[3]) is the A operand of the next product over its columns.
-struct A3 {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ A3(float a0, float a1, float a2, float a3) {
-    split_tf32(a0, hi[0], lo[0]);
-    split_tf32(a1, hi[1], lo[1]);
-    split_tf32(a2, hi[2], lo[2]);
-    split_tf32(a3, hi[3], lo[3]);
-  }
-};
-
-struct B3 {
-  uint32_t hi0, hi1, lo0, lo1;
-  __device__ __forceinline__ B3(float b0, float b1) {
-    split_tf32(b0, hi0, lo0);
-    split_tf32(b1, hi1, lo1);
-  }
-};
-
-__device__ __forceinline__ void mma3(float (&c)[4], const A3& a, const B3& b) {
-  mma_tf32(c, a.lo, b.hi0, b.hi1);
-  mma_tf32(c, a.hi, b.lo0, b.lo1);
-  mma_tf32(c, a.hi, b.hi0, b.hi1);
-}
-
-// the same with the two small terms in their own sums, so a long
-// contraction is two chains of dependent mma, not one
-__device__ __forceinline__ void mma3(float (&c)[4], float (&small)[4], const A3& a, const B3& b) {
-  mma_tf32(small, a.lo, b.hi0, b.hi1);
-  mma_tf32(small, a.hi, b.lo0, b.lo1);
-  mma_tf32(c, a.hi, b.hi0, b.hi1);
-}
-
 // dQ, dK and dV of one head (blockIdx.x) of Tq, Tk <= 128, its keys in
 // shared memory for the whole launch.  The block walks the queries in
 // chunks of 32, Q, dO, O and lse of chunk c + 1 arriving by cp.async while
@@ -453,12 +384,13 @@ __device__ __forceinline__ void mma3(float (&c)[4], float (&small)[4], const A3&
 // wholly past the chunk's last visible key skip their products.
 template <int DP>
 __global__ void __launch_bounds__(kThreads, Dqkv<DP>::kMinBlocks)
-    flash_dqkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ o,
-                         const float* __restrict__ d_o, const float* __restrict__ lse,
-                         float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-                         int t_q, int t_k, int d, float scale, int causal, int q_off, int k_off,
-                         int vec) {
+    flash_dqkv_tc_kernel(const float* __restrict__ q, Rows qs, const float* __restrict__ k,
+                         Rows ks, const float* __restrict__ v, Rows vs,
+                         const float* __restrict__ o, Rows os, const float* __restrict__ d_o,
+                         Rows dos, const float* __restrict__ lse, float* __restrict__ dq,
+                         Rows dqs, float* __restrict__ dk, Rows dks, float* __restrict__ dv,
+                         Rows dvs, int heads, int t_q, int t_k, int d, float scale, int causal,
+                         int q_off, int k_off, int vec) {
   using C = Dqkv<DP>;
   constexpr int S = C::kStride;
   constexpr int KS = C::kSteps;
@@ -479,25 +411,31 @@ __global__ void __launch_bounds__(kThreads, Dqkv<DP>::kMinBlocks)
   const int g = lane >> 2;
   const int t = lane & 3;
   const int kr = 16 * warp;  // the warp's keys
-  const size_t q_base = (size_t)blockIdx.x * t_q;
-  const size_t k_base = (size_t)blockIdx.x * t_k;
+  const int bh = blockIdx.x;
+  const size_t q_base = (size_t)bh * t_q;  // lse
+  const float* q_h = head_rows(q, qs, bh, heads);
+  const float* do_h = head_rows(d_o, dos, bh, heads);
+  const float* o_h = head_rows(o, os, bh, heads);
   const int n_chunks = (t_q + kChunkRows - 1) / kChunkRows;
   const float scale_log2 = scale * kLog2e;
 
   auto stage_chunk = [&](int c) {
     const int st = c & 1;
     const int row0 = c * kChunkRows;
-    stage_rows<kChunkRows, DP>(q_s + st * kTile, q + q_base * d, row0, t_q, d, vec);
-    stage_rows<kChunkRows, DP>(do_s + st * kTile, d_o + q_base * d, row0, t_q, d, vec);
-    stage_rows<kChunkRows, DP>(o_s + st * kTile, o + q_base * d, row0, t_q, d, vec);
+    stage_f32_rows<kChunkRows, DP, S, kThreads>(q_s + st * kTile, q_h, qs.row, row0, t_q, d, vec);
+    stage_f32_rows<kChunkRows, DP, S, kThreads>(do_s + st * kTile, do_h, dos.row, row0, t_q, d,
+                                                vec);
+    stage_f32_rows<kChunkRows, DP, S, kThreads>(o_s + st * kTile, o_h, os.row, row0, t_q, d, vec);
     if (threadIdx.x < kChunkRows) {
       const bool ok = row0 + threadIdx.x < t_q;
       cp_async_4(smem_addr(lse_s + st * kChunkRows + threadIdx.x),
                  ok ? lse + q_base + row0 + threadIdx.x : lse, ok);
     }
   };
-  stage_rows<kDqkvMaxKeys, DP>(k_s, k + k_base * d, 0, t_k, d, vec);
-  stage_rows<kDqkvMaxKeys, DP>(v_s, v + k_base * d, 0, t_k, d, vec);
+  stage_f32_rows<kDqkvMaxKeys, DP, S, kThreads>(k_s, head_rows(k, ks, bh, heads), ks.row, 0, t_k,
+                                                d, vec);
+  stage_f32_rows<kDqkvMaxKeys, DP, S, kThreads>(v_s, head_rows(v, vs, bh, heads), vs.row, 0, t_k,
+                                                d, vec);
   stage_chunk(0);
   cp_async_commit();
 
@@ -630,7 +568,7 @@ __global__ void __launch_bounds__(kThreads, Dqkv<DP>::kMinBlocks)
         }
         const int row = q0 + r;
         if (row >= t_q || c >= d) continue;
-        float* out = dq + (q_base + row) * d + c;
+        float* out = head_rows(dq, dqs, bh, heads) + row * dqs.row + c;
         if (vec) {
           *reinterpret_cast<float4*>(out) = sum;
         } else {
@@ -643,6 +581,8 @@ __global__ void __launch_bounds__(kThreads, Dqkv<DP>::kMinBlocks)
     }
   }
   cp_async_wait<0>();
+  float* dk_h = head_rows(dk, dks, bh, heads);
+  float* dv_h = head_rows(dv, dvs, bh, heads);
 #pragma unroll
   for (int n = 0; n < KS; ++n) {
 #pragma unroll
@@ -650,8 +590,8 @@ __global__ void __launch_bounds__(kThreads, Dqkv<DP>::kMinBlocks)
       const int key = kr + g + 8 * (e >> 1);
       const int col = 8 * n + 2 * t + (e & 1);
       if (key < t_k && col < d) {
-        dk[(k_base + key) * d + col] = dk_acc[n][e];
-        dv[(k_base + key) * d + col] = dv_acc[n][e];
+        dk_h[key * dks.row + col] = dk_acc[n][e];
+        dv_h[key * dvs.row + col] = dv_acc[n][e];
       }
     }
   }
@@ -688,11 +628,11 @@ size_t dkv_tc_smem_bytes() {
 // those registers, then dQ += dS . K with K read transposed.
 template <int DP>
 __global__ void __launch_bounds__(kTcThreads, 2)
-    flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ d_o,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       bf16* __restrict__ dq, int t_q, int t_k, int d, float scale, int causal,
-                       int q_off, int k_off, int vec) {
+    flash_dq_tc_kernel(const bf16* __restrict__ q, Rows qs, const bf16* __restrict__ k, Rows ks,
+                       const bf16* __restrict__ v, Rows vs, const bf16* __restrict__ d_o,
+                       Rows dos, const float* __restrict__ lse, const float* __restrict__ delta,
+                       bf16* __restrict__ dq, Rows dqs, int heads, int t_q, int t_k, int d,
+                       float scale, int causal, int q_off, int k_off, int vec) {
   constexpr int KS = DP / 16;  // k-steps over the head dim
   constexpr int NT = DP / 8;   // 8-column blocks of the head dim
   extern __shared__ __align__(128) unsigned char tc_smem[];
@@ -707,18 +647,19 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const bf16* k_h = k + (size_t)bh * t_k * d;
-  const bf16* v_h = v + (size_t)bh * t_k * d;
-  const size_t q_base = (size_t)bh * t_q;
+  const bf16* k_h = head_rows(k, ks, bh, heads);
+  const bf16* v_h = head_rows(v, vs, bh, heads);
+  const size_t q_base = (size_t)bh * t_q;  // lse, delta
 
   const int k_end = key_end(q0, t_q, t_k, causal, q_off, k_off);
   const int n_tiles = k_end > 0 ? (k_end + kBlockN - 1) / kBlockN : 0;
 
-  load_tile<kBlockM, DP, kTcThreads>(q_s, q + q_base * d, q0, t_q, d, vec);
-  load_tile<kBlockM, DP, kTcThreads>(do_s, d_o + q_base * d, q0, t_q, d, vec);
+  load_tile<kBlockM, DP, kTcThreads>(q_s, head_rows(q, qs, bh, heads), qs.row, q0, t_q, d, vec);
+  load_tile<kBlockM, DP, kTcThreads>(do_s, head_rows(d_o, dos, bh, heads), dos.row, q0, t_q, d,
+                                     vec);
   if (n_tiles > 0) {
-    load_tile<kBlockN, DP, kTcThreads>(k_s, k_h, 0, t_k, d, vec);
-    load_tile<kBlockN, DP, kTcThreads>(v_s, v_h, 0, t_k, d, vec);
+    load_tile<kBlockN, DP, kTcThreads>(k_s, k_h, ks.row, 0, t_k, d, vec);
+    load_tile<kBlockN, DP, kTcThreads>(v_s, v_h, vs.row, 0, t_k, d, vec);
   }
   cp_async_commit();
 
@@ -742,8 +683,10 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     const int k0 = it * kBlockN;
     if (it + 1 < n_tiles) {
       const int nxt = (it + 1) & 1;
-      load_tile<kBlockN, DP, kTcThreads>(k_s + nxt * kBlockN * DP, k_h, k0 + kBlockN, t_k, d, vec);
-      load_tile<kBlockN, DP, kTcThreads>(v_s + nxt * kBlockN * DP, v_h, k0 + kBlockN, t_k, d, vec);
+      load_tile<kBlockN, DP, kTcThreads>(k_s + nxt * kBlockN * DP, k_h, ks.row, k0 + kBlockN,
+                                         t_k, d, vec);
+      load_tile<kBlockN, DP, kTcThreads>(v_s + nxt * kBlockN * DP, v_h, vs.row, k0 + kBlockN,
+                                         t_k, d, vec);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile it (and Q, dO) have landed
@@ -808,7 +751,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     __syncthreads();  // stage it & 1 is read: the next iteration refills it
   }
   cp_async_wait<0>();
-  store_tc_rows<DP>(dq + q_base * d, acc, q0 + 16 * warp, t_q, d, lane);
+  store_tc_rows<DP>(head_rows(dq, dqs, bh, heads), dqs.row, acc, q0 + 16 * warp, t_q, d, lane);
 }
 
 // dK and dV of one (head, 64-key tile).  Warp w owns keys k0 + 16w..+15 and
@@ -817,11 +760,12 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 // dV += P^T . dO and dK += dS^T . Q with dO and Q read transposed.
 template <int DP>
 __global__ void __launch_bounds__(kTcThreads, 2)
-    flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ d_o,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int t_q, int t_k, int d,
-                        float scale, int causal, int q_off, int k_off, int vec) {
+    flash_dkv_tc_kernel(const bf16* __restrict__ q, Rows qs, const bf16* __restrict__ k, Rows ks,
+                        const bf16* __restrict__ v, Rows vs, const bf16* __restrict__ d_o,
+                        Rows dos, const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dk, Rows dks, bf16* __restrict__ dv, Rows dvs,
+                        int heads, int t_q, int t_k, int d, float scale, int causal, int q_off,
+                        int k_off, int vec) {
   constexpr int KS = DP / 16;
   constexpr int NT = DP / 8;
   extern __shared__ __align__(128) unsigned char tc_smem[];
@@ -838,11 +782,10 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const bf16* q_h = q + (size_t)bh * t_q * d;
-  const bf16* do_h = d_o + (size_t)bh * t_q * d;
+  const bf16* q_h = head_rows(q, qs, bh, heads);
+  const bf16* do_h = head_rows(d_o, dos, bh, heads);
   const float* lse_h = lse + (size_t)bh * t_q;
   const float* delta_h = delta + (size_t)bh * t_q;
-  const size_t k_base = (size_t)bh * t_k;
 
   // the first query tile with a query on or below the diagonal of this key
   // tile's first key; earlier tiles are wholly above it
@@ -851,8 +794,8 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 
   // Q, dO, lse and delta of the query tile at q0 into stage st
   auto load_queries = [&](int st, int q0) {
-    load_tile<kBlockM, DP, kTcThreads>(q_s + st * kBlockM * DP, q_h, q0, t_q, d, vec);
-    load_tile<kBlockM, DP, kTcThreads>(do_s + st * kBlockM * DP, do_h, q0, t_q, d, vec);
+    load_tile<kBlockM, DP, kTcThreads>(q_s + st * kBlockM * DP, q_h, qs.row, q0, t_q, d, vec);
+    load_tile<kBlockM, DP, kTcThreads>(do_s + st * kBlockM * DP, do_h, dos.row, q0, t_q, d, vec);
     const int i = threadIdx.x % kBlockM;
     const bool in = q0 + i < t_q;
     const float* src = threadIdx.x < kBlockM ? lse_h : delta_h;
@@ -860,8 +803,8 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     cp_async_4(smem_addr(dst), in ? src + q0 + i : src, in);
   };
 
-  load_tile<kBlockN, DP, kTcThreads>(k_s, k + k_base * d, k0, t_k, d, vec);
-  load_tile<kBlockN, DP, kTcThreads>(v_s, v + k_base * d, k0, t_k, d, vec);
+  load_tile<kBlockN, DP, kTcThreads>(k_s, head_rows(k, ks, bh, heads), ks.row, k0, t_k, d, vec);
+  load_tile<kBlockN, DP, kTcThreads>(v_s, head_rows(v, vs, bh, heads), vs.row, k0, t_k, d, vec);
   if (n_tiles > 0) load_queries(0, q_begin);
   cp_async_commit();
 
@@ -952,170 +895,201 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     __syncthreads();  // stage it & 1 is read: the next iteration refills it
   }
   cp_async_wait<0>();
-  store_tc_rows<DP>(dk + k_base * d, dk_acc, k0 + 16 * warp, t_k, d, lane);
-  store_tc_rows<DP>(dv + k_base * d, dv_acc, k0 + 16 * warp, t_k, d, lane);
+  store_tc_rows<DP>(head_rows(dk, dks, bh, heads), dks.row, dk_acc, k0 + 16 * warp, t_k, d,
+                    lane);
+  store_tc_rows<DP>(head_rows(dv, dvs, bh, heads), dvs.row, dv_acc, k0 + 16 * warp, t_k, d,
+                    lane);
 }
 
 // ---------------------------------------------------------------------------
-// launchers: float32 on the CUDA cores, bfloat16 on the tensor cores
+// launchers: float32 on the CUDA cores (split) or the tensor cores (fused),
+// bfloat16 on the tensor cores
 // ---------------------------------------------------------------------------
 
+// the Rows of the strided tensors, in the order of the C entry's pointers
+struct Layouts {
+  Rows q, k, v, d_o, out1, out2;  // dQ (out1), or dK and dV (out1, out2)
+};
+
+Layouts layouts(const long long* strides, bool two_outputs) {
+  return {rows_at(strides, 0), rows_at(strides, 1), rows_at(strides, 2), rows_at(strides, 3),
+          rows_at(strides, 4), two_outputs ? rows_at(strides, 5) : Rows{0, 0, 0}};
+}
+
 int launch_dq_f32(const void* q, const void* k, const void* v, const void* d_o,
-                  const void* lse, const void* delta, void* dq, int bh, int t_q, int t_k,
-                  int d, float scale, int causal, int q_off, int k_off, cudaStream_t stream) {
+                  const void* lse, const void* delta, void* dq, const Layouts& s, int bh,
+                  int heads, int t_q, int t_k, int d, float scale, int causal, int q_off,
+                  int k_off, cudaStream_t stream) {
   return dispatch_head_dim(d, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
     const dim3 grid(bh, (t_q + kBlockM - 1) / kBlockM);
     return launch_kernel(flash_dq_kernel<DP>, grid, dq_smem_bytes<DP>(), stream,
-                         static_cast<const float*>(q), static_cast<const float*>(k),
-                         static_cast<const float*>(v), static_cast<const float*>(d_o),
+                         static_cast<const float*>(q), s.q, static_cast<const float*>(k), s.k,
+                         static_cast<const float*>(v), s.v, static_cast<const float*>(d_o), s.d_o,
                          static_cast<const float*>(lse), static_cast<const float*>(delta),
-                         static_cast<float*>(dq), t_q, t_k, d, scale, causal, q_off, k_off);
+                         static_cast<float*>(dq), s.out1, heads, t_q, t_k, d, scale, causal,
+                         q_off, k_off);
   });
 }
 
+// cp.async tiles where d fills whole 16-byte chunks and every row of q, k,
+// v and dO starts 16-byte aligned
+bool bf16_vec(int d, const void* q, const void* k, const void* v, const void* d_o,
+              const Layouts& s) {
+  return d % 8 == 0 && rows_aligned(q, s.q, 2) && rows_aligned(k, s.k, 2) &&
+         rows_aligned(v, s.v, 2) && rows_aligned(d_o, s.d_o, 2);
+}
+
 int launch_dq_bf16(const void* q, const void* k, const void* v, const void* d_o,
-                   const void* lse, const void* delta, void* dq, int bh, int t_q, int t_k,
-                   int d, float scale, int causal, int q_off, int k_off, cudaStream_t stream) {
-  const int vec = rows_aligned(d, q, k, v, d_o);
+                   const void* lse, const void* delta, void* dq, const Layouts& s, int bh,
+                   int heads, int t_q, int t_k, int d, float scale, int causal, int q_off,
+                   int k_off, cudaStream_t stream) {
+  const int vec = bf16_vec(d, q, k, v, d_o, s);
   return dispatch_head_dim(d, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
     const dim3 grid(bh, (t_q + kBlockM - 1) / kBlockM);
     return launch_tc(flash_dq_tc_kernel<DP>, grid, dq_tc_smem_bytes<DP>(), stream,
-                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
+                     static_cast<const bf16*>(q), s.q, static_cast<const bf16*>(k), s.k,
+                     static_cast<const bf16*>(v), s.v, static_cast<const bf16*>(d_o), s.d_o,
                      static_cast<const float*>(lse), static_cast<const float*>(delta),
-                     static_cast<bf16*>(dq), t_q, t_k, d, scale, causal, q_off, k_off, vec);
+                     static_cast<bf16*>(dq), s.out1, heads, t_q, t_k, d, scale, causal, q_off,
+                     k_off, vec);
   });
 }
 
 int launch_dkv_f32(const void* q, const void* k, const void* v, const void* d_o,
-                   const void* lse, const void* delta, void* dk, void* dv, int bh, int t_q,
-                   int t_k, int d, float scale, int causal, int q_off, int k_off,
-                   cudaStream_t stream) {
+                   const void* lse, const void* delta, void* dk, void* dv, const Layouts& s,
+                   int bh, int heads, int t_q, int t_k, int d, float scale, int causal,
+                   int q_off, int k_off, cudaStream_t stream) {
   return dispatch_head_dim(d, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
     const dim3 grid(bh, (t_k + kBlockN - 1) / kBlockN);
     return launch_kernel(flash_dkv_kernel<DP>, grid, dkv_smem_bytes<DP>(), stream,
-                         static_cast<const float*>(q), static_cast<const float*>(k),
-                         static_cast<const float*>(v), static_cast<const float*>(d_o),
+                         static_cast<const float*>(q), s.q, static_cast<const float*>(k), s.k,
+                         static_cast<const float*>(v), s.v, static_cast<const float*>(d_o), s.d_o,
                          static_cast<const float*>(lse), static_cast<const float*>(delta),
-                         static_cast<float*>(dk), static_cast<float*>(dv), t_q, t_k, d, scale,
-                         causal, q_off, k_off);
+                         static_cast<float*>(dk), s.out1, static_cast<float*>(dv), s.out2, heads,
+                         t_q, t_k, d, scale, causal, q_off, k_off);
   });
 }
 
 int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* d_o,
-                    const void* lse, const void* delta, void* dk, void* dv, int bh, int t_q,
-                    int t_k, int d, float scale, int causal, int q_off, int k_off,
-                    cudaStream_t stream) {
-  const int vec = rows_aligned(d, q, k, v, d_o);
+                    const void* lse, const void* delta, void* dk, void* dv, const Layouts& s,
+                    int bh, int heads, int t_q, int t_k, int d, float scale, int causal,
+                    int q_off, int k_off, cudaStream_t stream) {
+  const int vec = bf16_vec(d, q, k, v, d_o, s);
   return dispatch_head_dim(d, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
     const dim3 grid(bh, (t_k + kBlockN - 1) / kBlockN);
     return launch_tc(flash_dkv_tc_kernel<DP>, grid, dkv_tc_smem_bytes<DP>(), stream,
-                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v), static_cast<const bf16*>(d_o),
+                     static_cast<const bf16*>(q), s.q, static_cast<const bf16*>(k), s.k,
+                     static_cast<const bf16*>(v), s.v, static_cast<const bf16*>(d_o), s.d_o,
                      static_cast<const float*>(lse), static_cast<const float*>(delta),
-                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), t_q, t_k, d, scale, causal,
-                     q_off, k_off, vec);
+                     static_cast<bf16*>(dk), s.out1, static_cast<bf16*>(dv), s.out2, heads, t_q,
+                     t_k, d, scale, causal, q_off, k_off, vec);
   });
 }
 
+// strides: Rows of q, k, v, o, dO, dQ, dK and dV, in that order
 template <int DP>
 int launch_dqkv_dp(const void* q, const void* k, const void* v, const void* o, const void* d_o,
-                   const void* lse, void* dq, void* dk, void* dv, int bh, int t_q, int t_k,
-                   int d, float scale, int causal, int q_off, int k_off, int vec,
-                   cudaStream_t stream) {
-  const auto kernel = flash_dqkv_tc_kernel<DP>;
-  const size_t smem = dqkv_smem_bytes<DP>();
+                   const void* lse, void* dq, void* dk, void* dv, const long long* strides,
+                   int bh, int heads, int t_q, int t_k, int d, float scale, int causal,
+                   int q_off, int k_off, int vec, cudaStream_t stream) {
   // all of the SM's shared memory as the carveout: two blocks an SM up to DP = 32
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-  }
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<bh, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(d_o),
-      static_cast<const float*>(lse), static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), t_q, t_k, d, scale, causal, q_off, k_off, vec);
-  return (int)cudaGetLastError();
+  return launch_tc<kThreads>(
+      flash_dqkv_tc_kernel<DP>, dim3(bh), dqkv_smem_bytes<DP>(), stream,
+      static_cast<const float*>(q), rows_at(strides, 0), static_cast<const float*>(k),
+      rows_at(strides, 1), static_cast<const float*>(v), rows_at(strides, 2),
+      static_cast<const float*>(o), rows_at(strides, 3), static_cast<const float*>(d_o),
+      rows_at(strides, 4), static_cast<const float*>(lse), static_cast<float*>(dq),
+      rows_at(strides, 5), static_cast<float*>(dk), rows_at(strides, 6), static_cast<float*>(dv),
+      rows_at(strides, 7), heads, t_q, t_k, d, scale, causal, q_off, k_off, vec);
 }
 
 int launch_dqkv(const void* q, const void* k, const void* v, const void* o, const void* d_o,
-                const void* lse, void* dq, void* dk, void* dv, int bh, int t_q, int t_k, int d,
-                float scale, int causal, int q_off, int k_off, cudaStream_t stream) {
+                const void* lse, void* dq, void* dk, void* dv, const long long* strides, int bh,
+                int heads, int t_q, int t_k, int d, float scale, int causal, int q_off,
+                int k_off, cudaStream_t stream) {
   if (bh < 1 || t_q < 1 || t_q > kDqkvMaxKeys || t_k < 1 || t_k > kDqkvMaxKeys || d < 1 ||
       d > kDqkvMaxHeadDim) {
     return (int)cudaErrorInvalidValue;
   }
-  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
-                        reinterpret_cast<uintptr_t>(d_o);
-  const int vec = d % 4 == 0 && any % 16 == 0;
+  // 16-byte copies where d fills whole 16-byte chunks and every row of the
+  // loaded tensors and of dQ (written in 16-byte rows) is 16-byte aligned
+  bool vec = d % 4 == 0;
+  const void* loaded[] = {q, k, v, o, d_o, dq};  // the first 6 strided tensors
+  for (int i = 0; i < 6; ++i) vec = vec && rows_aligned(loaded[i], rows_at(strides, i), 4);
   if (d <= 16) {
-    return launch_dqkv_dp<16>(q, k, v, o, d_o, lse, dq, dk, dv, bh, t_q, t_k, d, scale, causal,
-                              q_off, k_off, vec, stream);
+    return launch_dqkv_dp<16>(q, k, v, o, d_o, lse, dq, dk, dv, strides, bh, heads, t_q, t_k, d,
+                              scale, causal, q_off, k_off, vec, stream);
   }
   if (d <= 32) {
-    return launch_dqkv_dp<32>(q, k, v, o, d_o, lse, dq, dk, dv, bh, t_q, t_k, d, scale, causal,
-                              q_off, k_off, vec, stream);
+    return launch_dqkv_dp<32>(q, k, v, o, d_o, lse, dq, dk, dv, strides, bh, heads, t_q, t_k, d,
+                              scale, causal, q_off, k_off, vec, stream);
   }
-  return launch_dqkv_dp<64>(q, k, v, o, d_o, lse, dq, dk, dv, bh, t_q, t_k, d, scale, causal,
-                            q_off, k_off, vec, stream);
+  return launch_dqkv_dp<64>(q, k, v, o, d_o, lse, dq, dk, dv, strides, bh, heads, t_q, t_k, d,
+                            scale, causal, q_off, k_off, vec, stream);
 }
 
 }  // namespace
 
-// Each returns cudaGetLastError() after its launch (0 = launched); shapes
-// and dtypes are checked by the Python wrappers (ops/fused_attention.py:
-// flash_dq, flash_dkv).  The dtype picks the kernel: float32 the CUDA-core
-// kernels, bfloat16 the tensor-core ones.
-extern "C" int flash_dq(const void* q, const void* k, const void* v,
-                        const void* d_o, const void* lse, const void* delta,
-                        void* dq, int bh, int t_q, int t_k, int d, float scale,
-                        int causal, int q_off, int k_off, int dtype, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+// Each returns cudaGetLastError() after its launch (0 = launched); shapes,
+// dtypes and strides are checked by the Python wrappers
+// (ops/fused_attention.py: flash_dq, flash_dkv, flash_dqkv).  bh = batch *
+// heads; strides holds the (batch, head, row) element strides of each
+// strided tensor (3 each, in the order of the pointer arguments; D has
+// stride 1); lse and delta are (bh, t_q) contiguous.  The dtype picks the
+// kernel: float32 the CUDA-core kernels, bfloat16 the tensor-core ones.
+// strides: q, k, v, dO, dQ
+extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* d_o,
+                        const void* lse, const void* delta, void* dq, const long long* strides,
+                        int bh, int heads, int t_q, int t_k, int d, float scale, int causal,
+                        int q_off, int k_off, int dtype, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (heads < 1 || bh % heads != 0) return (int)cudaErrorInvalidValue;
+  const Layouts s = layouts(strides, false);
   if (dtype == kFloat32) {
-    return launch_dq_f32(q, k, v, d_o, lse, delta, dq, bh, t_q, t_k, d, scale, causal, q_off,
-                         k_off, s);
+    return launch_dq_f32(q, k, v, d_o, lse, delta, dq, s, bh, heads, t_q, t_k, d, scale, causal,
+                         q_off, k_off, st);
   }
   if (dtype == kBFloat16) {
-    return launch_dq_bf16(q, k, v, d_o, lse, delta, dq, bh, t_q, t_k, d, scale, causal, q_off,
-                          k_off, s);
+    return launch_dq_bf16(q, k, v, d_o, lse, delta, dq, s, bh, heads, t_q, t_k, d, scale, causal,
+                          q_off, k_off, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int flash_dkv(const void* q, const void* k, const void* v,
-                         const void* d_o, const void* lse, const void* delta,
-                         void* dk, void* dv, int bh, int t_q, int t_k, int d,
+// strides: q, k, v, dO, dK, dV
+extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* d_o,
+                         const void* lse, const void* delta, void* dk, void* dv,
+                         const long long* strides, int bh, int heads, int t_q, int t_k, int d,
                          float scale, int causal, int q_off, int k_off, int dtype,
                          void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (heads < 1 || bh % heads != 0) return (int)cudaErrorInvalidValue;
+  const Layouts s = layouts(strides, true);
   if (dtype == kFloat32) {
-    return launch_dkv_f32(q, k, v, d_o, lse, delta, dk, dv, bh, t_q, t_k, d, scale, causal,
-                          q_off, k_off, s);
+    return launch_dkv_f32(q, k, v, d_o, lse, delta, dk, dv, s, bh, heads, t_q, t_k, d, scale,
+                          causal, q_off, k_off, st);
   }
   if (dtype == kBFloat16) {
-    return launch_dkv_bf16(q, k, v, d_o, lse, delta, dk, dv, bh, t_q, t_k, d, scale, causal,
-                           q_off, k_off, s);
+    return launch_dkv_bf16(q, k, v, d_o, lse, delta, dk, dv, s, bh, heads, t_q, t_k, d, scale,
+                           causal, q_off, k_off, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // dQ, dK and dV in one launch, float32 only, Tq, Tk <= 128 and D <= 64 (the
 // wrapper's route, ops/fused_attention.py:flash_bwd_route); delta is formed
-// in the kernel from o and dO.  Other dtypes and shapes return
-// cudaErrorInvalidValue.
+// in the kernel from o and dO.  strides: q, k, v, o, dO, dQ, dK, dV.  Other
+// dtypes and shapes return cudaErrorInvalidValue.
 extern "C" int flash_dqkv(const void* q, const void* k, const void* v, const void* o,
                           const void* d_o, const void* lse, void* dq, void* dk, void* dv,
-                          int bh, int t_q, int t_k, int d, float scale, int causal, int q_off,
-                          int k_off, int dtype, void* stream) {
-  if (dtype != kFloat32) return (int)cudaErrorInvalidValue;
-  return launch_dqkv(q, k, v, o, d_o, lse, dq, dk, dv, bh, t_q, t_k, d, scale, causal, q_off,
-                     k_off, static_cast<cudaStream_t>(stream));
+                          const long long* strides, int bh, int heads, int t_q, int t_k, int d,
+                          float scale, int causal, int q_off, int k_off, int dtype,
+                          void* stream) {
+  if (dtype != kFloat32 || heads < 1 || bh % heads != 0) return (int)cudaErrorInvalidValue;
+  return launch_dqkv(q, k, v, o, d_o, lse, dq, dk, dv, strides, bh, heads, t_q, t_k, d, scale,
+                     causal, q_off, k_off, static_cast<cudaStream_t>(stream));
 }

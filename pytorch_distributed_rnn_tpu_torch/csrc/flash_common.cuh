@@ -1,15 +1,20 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
 //
-// Layout: q (BH, Tq, D), k and v (BH, Tk, D), o and the gradients alike, all
-// contiguous and of one dtype (float32 or bfloat16); lse and delta are
-// (BH, Tq) float32.  Every product accumulates in float32.  The float32
-// kernels multiply on the CUDA cores (no TF32, which would miss the float32
-// tolerance); where the TPU kernel casts an operand to the input dtype
-// before a product (p before p.V, ds before ds.K, ...), they round it to
-// that dtype (round_to) and multiply the rounded value.  The bfloat16
-// kernels multiply on the tensor cores (flash_fwd.cu, flash_bwd.cu, with
-// the building blocks of flash_mma.cuh), where that cast is the rounding of
-// the bf16 operand itself.
+// Layout: every q-side tensor (q, o, dO, dQ) and k-side tensor (k, v, dK,
+// dV) is a head-major batch of rows with unit stride in D: element (batch
+// b, head h, row r, column c) sits at b * batch + h * head + r * row + c
+// (Rows), so the kernels read the (B, T, H, D) views of the model's
+// projections where they lie, and the (B*H, T, D) form as H = 1.  lse and
+// delta are (B*H, Tq) float32, contiguous.  Tensors are of one dtype
+// (float32 or bfloat16).  Every product accumulates in float32.  The split
+// float32 backward (flash_dq_kernel, flash_dkv_kernel) multiplies on the
+// CUDA cores; the float32 forward and fused backward run on the tensor
+// cores in 3xTF32, which keeps float32's accuracy where TF32 alone would
+// miss the float32 tolerance; the bfloat16 kernels multiply bf16 operands
+// on the tensor cores (flash_fwd.cu, flash_bwd.cu, with the building blocks
+// of flash_mma.cuh), where the TPU kernel's cast of an operand to the input
+// dtype before a product (p before p.V, ds before ds.K, ...) is the
+// rounding of the bf16 operand itself.
 //
 // Tiles: kBlockM query rows by kBlockN key rows (also the tensor-core
 // kernels' tiles).  The CUDA-core kernels stage them in shared memory as
@@ -18,10 +23,8 @@
 // has 256 threads as a 16 x 16 grid (ty, tx): in a score tile thread
 // (ty, tx) owns rows ty * 4 + r (r < 4) and columns tx + 16 * c (c < 4); in
 // an output tile the same rows and the head-dim columns tx + 16 * c
-// (c < DP / 16).  A row's 16 owners are one half-warp, so row reductions
-// are four xor-shuffles.  The odd row stride keeps the column-wise reads
-// (16 rows at one d) free of bank conflicts; the row-wise reads are
-// broadcasts.
+// (c < DP / 16).  The odd row stride keeps the column-wise reads (16 rows at
+// one d) free of bank conflicts; the row-wise reads are broadcasts.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,45 +51,6 @@ static_assert(kBlockM == kBlockN, "score tiles are square: rows and columns shar
 
 __device__ __forceinline__ float neg_inf() { return -CUDART_INF_F; }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// v as the TPU kernel's cast to T leaves it (a no-op for float32)
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-// Reductions over a row's 16 owner threads (one half-warp).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = kTx / 2; off > 0; off /= 2) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  }
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = kTx / 2; off > 0; off /= 2) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
 template <int DP>
 struct HeadDim {
   static_assert(DP % kTx == 0 && DP <= kMaxHeadDim, "padded head dim");
@@ -94,18 +58,36 @@ struct HeadDim {
   static constexpr int kCols = DP / kTx;   // a thread's head-dim columns
 };
 
-// Rows [row0, row0 + tile_rows) of one head's (n_rows, d) matrix into a
-// float32 shared tile of stride DP + 1; rows past n_rows and columns past d
-// read as zero (the ragged T edge and the head-dim padding).
-template <typename T, int DP>
-__device__ void stage_tile(const T* __restrict__ src, int row0, int n_rows,
-                           int d, float* dst, int tile_rows) {
+// Element strides of a head-major batch of rows (D has stride 1); a
+// dimension of size 1 may have any stride (the wrappers pass 0).
+struct Rows {
+  long long batch, head, row;
+};
+
+// Rows i of the strides array a C entry point takes: 3 a strided tensor,
+// in the order of its pointer arguments.
+inline Rows rows_at(const long long* strides, int i) {
+  return {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+}
+
+// The first row of head bh (= batch * heads + head) of a strided tensor.
+template <typename T>
+__device__ __forceinline__ T* head_rows(T* p, const Rows& s, int bh, int heads) {
+  return p + (bh / heads) * s.batch + (bh % heads) * s.head;
+}
+
+// Rows [row0, row0 + tile_rows) of one head's float32 rows (n_rows of them,
+// `stride` elements apart) into a shared tile of stride DP + 1; rows past
+// n_rows and columns past d read as zero (the ragged T edge and the
+// head-dim padding).
+template <int DP>
+__device__ void stage_tile(const float* __restrict__ src, long long stride, int row0,
+                           int n_rows, int d, float* dst, int tile_rows) {
   for (int i = threadIdx.x; i < tile_rows * DP; i += kThreads) {
     const int r = i / DP;
     const int c = i % DP;
     const int row = row0 + r;
-    dst[r * HeadDim<DP>::kStride + c] =
-        (row < n_rows && c < d) ? to_f32(src[(size_t)row * d + c]) : 0.0f;
+    dst[r * HeadDim<DP>::kStride + c] = (row < n_rows && c < d) ? src[row * stride + c] : 0.0f;
   }
 }
 

@@ -1,8 +1,11 @@
-// Tensor-core building blocks of the bf16 flash kernels (sm_90a), shared by
+// Tensor-core building blocks of the flash kernels (sm_90a), shared by
 // flash_fwd.cu and flash_bwd.cu: inline PTX for mma.sync, ldmatrix and
-// cp.async, the swizzled shared-memory tile layout they read, the C-tile
-// store and the launch; and the TF32 mma and 3xTF32 split of the float32
-// fused backward (flash_bwd.cu: flash_dqkv_tc_kernel).
+// cp.async, the swizzled shared-memory tile layout the bf16 kernels read,
+// the C-tile store and the launch; and the TF32 mma, the 3xTF32 operands
+// and products and the float32 row staging of the float32 forward and
+// fused backward (flash_fwd.cu: flash_fwd_f32_tc_kernel, flash_bwd.cu:
+// flash_dqkv_tc_kernel).  Every row is addressed through its tensor's row
+// stride (flash_common.cuh: Rows).
 //
 // Products are mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: A is a
 // 16 x 16 bf16 tile (4 registers of 2 values), B a 16 x 8 one (2
@@ -168,14 +171,15 @@ __device__ __forceinline__ uint32_t bt_addr(uint32_t base, int r0, int c0, int l
   return base + Swizzle<DP>::offset(r0 + ((lane >> 3) & 1) * 8 + (lane & 7), c0 + (lane >> 4));
 }
 
-// Rows [row0, row0 + ROWS) of one head's (n_rows, d) bf16 matrix into the
-// swizzled (ROWS, DP) tile; rows past n_rows and columns past d are zero.
-// With vec (d % 8 == 0 and 16-byte aligned rows) by cp.async, which the
-// caller commits and waits for; otherwise by plain element loads (a row of
-// d % 8 != 0 values is not 16-byte aligned).
+// Rows [row0, row0 + ROWS) of one head's bf16 rows (n_rows of them,
+// `stride` elements apart) into the swizzled (ROWS, DP) tile; rows past
+// n_rows and columns past d are zero.  With vec (d % 8 == 0 and 16-byte
+// aligned rows) by cp.async, which the caller commits and waits for;
+// otherwise by plain element loads.
 template <int ROWS, int DP, int THREADS>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* tile, const __nv_bfloat16* __restrict__ src,
-                                          int row0, int n_rows, int d, bool vec) {
+                                          long long stride, int row0, int n_rows, int d,
+                                          bool vec) {
   using S = Swizzle<DP>;
   if (vec) {
     const uint32_t base = smem_addr(tile);
@@ -184,7 +188,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* tile, const __nv_bfloat
       const int c = i % S::kChunks;
       const int row = row0 + r;
       const bool ok = row < n_rows && c * 8 < d;
-      cp_async_16(base + S::offset(r, c), ok ? src + (size_t)row * d + c * 8 : src, ok);
+      cp_async_16(base + S::offset(r, c), ok ? src + row * stride + c * 8 : src, ok);
     }
     return;
   }
@@ -194,15 +198,17 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* tile, const __nv_bfloat
     const int col = i % DP;
     const int row = row0 + r;
     const __nv_bfloat16 v =
-        (row < n_rows && col < d) ? src[(size_t)row * d + col] : __float2bfloat16(0.0f);
+        (row < n_rows && col < d) ? src[row * stride + col] : __float2bfloat16(0.0f);
     *reinterpret_cast<__nv_bfloat16*>(bytes + S::offset(r, col / 8) + (col % 8) * 2) = v;
   }
 }
 
 // One head's rows [row0 + 16 warp, +16) of the float32 C tiles acc (DP / 8
-// blocks of 8 columns) into dst (n_rows, d), rounded to bf16.
+// blocks of 8 columns) into dst (n_rows rows, `stride` elements apart, d
+// columns), rounded to bf16; a column pair whose address is 4-byte aligned
+// in one store.
 template <int DP>
-__device__ __forceinline__ void store_tc_rows(__nv_bfloat16* __restrict__ dst,
+__device__ __forceinline__ void store_tc_rows(__nv_bfloat16* __restrict__ dst, long long stride,
                                               const float (&acc)[DP / 8][4], int row0,
                                               int n_rows, int d, int lane) {
   const int g = lane >> 2;
@@ -211,11 +217,11 @@ __device__ __forceinline__ void store_tc_rows(__nv_bfloat16* __restrict__ dst,
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + g + 8 * half;
     if (row >= n_rows) continue;
-    __nv_bfloat16* out = dst + (size_t)row * d;
+    __nv_bfloat16* out = dst + row * stride;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int col = 8 * j + 2 * t;
-      if (col + 1 < d && d % 2 == 0) {
+      if (col + 1 < d && reinterpret_cast<uintptr_t>(out + col) % 4 == 0) {
         *reinterpret_cast<__nv_bfloat162*>(out + col) =
             __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
       } else {
@@ -227,9 +233,10 @@ __device__ __forceinline__ void store_tc_rows(__nv_bfloat16* __restrict__ dst,
 }
 
 // The tensor-core kernels: the shared memory they need as their maximum
-// and all of it as the SM's carveout (two blocks an SM), then the launch
-// and cudaGetLastError(); returns the CUDA error code (0 = launched).
-template <typename Kernel, typename... Args>
+// and all of it as the SM's carveout (two blocks an SM where they fit),
+// then the launch of THREADS threads a block and cudaGetLastError();
+// returns the CUDA error code (0 = launched).
+template <int THREADS = kTcThreads, typename Kernel, typename... Args>
 int launch_tc(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -238,16 +245,91 @@ int launch_tc(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args..
                                (int)cudaSharedmemCarveoutMaxShared);
   }
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kTcThreads, smem, stream>>>(args...);
+  kernel<<<grid, THREADS, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
-// whether every row of the (., d) bf16 inputs starts 16-byte aligned
-// (cp.async), else the kernels stage them with element loads
-inline bool rows_aligned(int d, const void* q, const void* k, const void* v, const void* d_o) {
-  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(d_o);
-  return d % 8 == 0 && any % 16 == 0;
+// Whether every row of a strided tensor of `item`-byte elements starts
+// 16-byte aligned (cp.async); else the kernels stage it with element loads.
+inline bool rows_aligned(const void* p, const Rows& s, int item) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (s.batch * item) % 16 == 0 &&
+         (s.head * item) % 16 == 0 && (s.row * item) % 16 == 0;
+}
+
+// The 3xTF32 operands of m16n8k8 from float32 values, and the product.
+// Inside each 8-wide step of a contraction, mma index t stands for the
+// step's element 2t and t + 4 for 2t + 1 (any order of a sum's terms gives
+// the same product): so A's a[0], a[2] are one row's neighbours 2t, 2t + 1,
+// B's b0, b1 one column's, one 8-byte read each, and a C tile's (c[0],
+// c[2], c[1], c[3]) is the A operand of the next product over its columns.
+struct A3 {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ A3(float a0, float a1, float a2, float a3) {
+    split_tf32(a0, hi[0], lo[0]);
+    split_tf32(a1, hi[1], lo[1]);
+    split_tf32(a2, hi[2], lo[2]);
+    split_tf32(a3, hi[3], lo[3]);
+  }
+};
+
+struct B3 {
+  uint32_t hi0, hi1, lo0, lo1;
+  __device__ __forceinline__ B3(float b0, float b1) {
+    split_tf32(b0, hi0, lo0);
+    split_tf32(b1, hi1, lo1);
+  }
+};
+
+__device__ __forceinline__ void mma3(float (&c)[4], const A3& a, const B3& b) {
+  mma_tf32(c, a.lo, b.hi0, b.hi1);
+  mma_tf32(c, a.hi, b.lo0, b.lo1);
+  mma_tf32(c, a.hi, b.hi0, b.hi1);
+}
+
+// the same with the two small terms in their own sums, so a long
+// contraction is two chains of dependent mma, not one
+__device__ __forceinline__ void mma3(float (&c)[4], float (&small)[4], const A3& a, const B3& b) {
+  mma_tf32(small, a.lo, b.hi0, b.hi1);
+  mma_tf32(small, a.hi, b.lo0, b.lo1);
+  mma_tf32(c, a.hi, b.hi0, b.hi1);
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Rows [row0, row0 + ROWS) of one head's float32 rows (n_rows of them,
+// `stride` elements apart) into a shared tile of row stride STRIDE floats
+// by cp.async, which the caller commits and waits for; rows past n_rows and
+// columns past d are zero.  16-byte copies with vec (d % 4 == 0 and 16-byte
+// aligned rows), else 4-byte ones.
+template <int ROWS, int DP, int STRIDE, int THREADS>
+__device__ __forceinline__ void stage_f32_rows(float* tile, const float* __restrict__ src,
+                                               long long stride, int row0, int n_rows, int d,
+                                               int vec) {
+  static_assert(STRIDE % 4 == 0, "16-byte aligned shared rows");
+  const uint32_t base = smem_addr(tile);
+  if (vec) {
+    for (int i = threadIdx.x; i < ROWS * (DP / 4); i += THREADS) {
+      const int r = i / (DP / 4);
+      const int c = 4 * (i % (DP / 4));
+      const int row = row0 + r;
+      const bool ok = row < n_rows && c < d;
+      cp_async_16(base + 4 * (r * STRIDE + c), ok ? src + row * stride + c : src, ok);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
+    const int r = i / DP;
+    const int c = i % DP;
+    const int row = row0 + r;
+    const bool ok = row < n_rows && c < d;
+    cp_async_4(base + 4 * (r * STRIDE + c), ok ? src + row * stride + c : src, ok);
+  }
 }
 
 }  // namespace flash

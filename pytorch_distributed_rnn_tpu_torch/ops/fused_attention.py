@@ -15,18 +15,24 @@ CUDA kernels carry the attention of every encoder block on the card:
   delta, S and dP once and writes dQ, dK and dV (:func:`flash_bwd_route`
   picks it or the split pair by shape and dtype).
 
-The kernels take contiguous ``(B*H, T, D)`` tensors, float32 or bfloat16,
-any T and a head dim D of 1 to 128 (``flash_dqkv``: float32, Tq and Tk up
-to ``DQKV_MAX_LEN``, D up to ``DQKV_MAX_HEAD_DIM``); ``lse`` and ``delta``
-are ``(B*H, Tq)`` float32.  ``scale = D ** -0.5`` multiplies the float32
-product, and each operand the TPU kernel casts to the input dtype before
-a product (p before p.V, ds before ds.K, p for dV, ds for dK) is rounded
-to it.  Every product sums in float32.  The dtype picks the kernels:
-bfloat16 runs all three on the tensor cores (``mma.sync``, with p and ds
-kept in registers between products), float32 the forward and the split
-backward on the CUDA cores (TF32 alone would miss the float32 tolerance)
-and ``flash_dqkv`` on the tensor cores in 3xTF32 (each operand split
-into two TF32 parts, three products).  Causal masking works on the runtime global positions
+The kernels take the heads as a head-major batch of rows: each q-side
+tensor (q, o, dO, dQ) as ``(B, Tq, H, D)`` and each k-side one (k, v, dK,
+dV) as ``(B, Tk, H, D)``, addressed by their (batch, head, row) strides
+with unit stride in D, so the model's views of its projections go in
+without a copy; ``(B*H, T, D)`` tensors are the same layout with H = 1.
+float32 or bfloat16, any T and a head dim D of 1 to 128 (``flash_dqkv``:
+float32, Tq and Tk up to ``DQKV_MAX_LEN``, D up to
+``DQKV_MAX_HEAD_DIM``); ``lse`` and ``delta`` are ``(B*H, Tq)`` float32,
+contiguous.  Outputs take their inputs' layout (o and dQ q's, dK k's, dV
+v's).  ``scale = D ** -0.5`` multiplies the float32 product, and each
+operand the TPU kernel casts to the input dtype before a product (p
+before p.V, ds before ds.K, p for dV, ds for dK) is rounded to it.  Every
+product sums in float32.  The dtype picks the kernels: bfloat16 runs all
+three on the tensor cores (``mma.sync``, with p and ds kept in registers
+between products); float32 runs the forward and ``flash_dqkv`` on the
+tensor cores in 3xTF32 (each operand split into two TF32 parts, three
+products: TF32 alone would miss the float32 tolerance) and the split
+backward beyond ``flash_dqkv``'s range on the CUDA cores.  Causal masking works on the runtime global positions
 ``q_offset``/``k_offset`` of the first query and key, and a query that sees
 no key gives ``o = 0`` and ``lse = -inf``.  On the split route ``delta =
 rowsum(dO * O)`` is plain torch, as ``_delta_of`` is XLA outside the TPU
@@ -58,8 +64,9 @@ DQKV_MAX_LEN = 128
 DQKV_MAX_HEAD_DIM = 64
 BLOCK_ROWS = 64  # rows of a query or key tile (kBlockM, kBlockN): one block's share
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# pointer arguments of each kernel's C entry point; then the ints bh, t_q,
-# t_k, d, the float scale, the ints causal, q_off, k_off, dtype, the stream
+# pointer arguments of each kernel's C entry point; then the strides (3 a
+# strided tensor, in pointer order), the ints bh, heads, t_q, t_k, d, the
+# float scale, the ints causal, q_off, k_off, dtype, the stream
 _POINTERS = {"flash_fwd": 5, "flash_dq": 7, "flash_dkv": 8, "flash_dqkv": 9}
 
 
@@ -118,11 +125,31 @@ def _scores(q, k):
     return (q.float() @ k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
 
 
+def _by_head(x):
+    """A (B, T, H, D) tensor as its (B, H, T, D) view; (B*H, T, D) as it is."""
+    return x.transpose(1, 2) if x.ndim == 4 else x
+
+
+def _head_rows(rows, x):
+    """``lse`` or ``delta`` (B*H, Tq) as the (..., Tq) rows of ``x``'s
+    by-head view."""
+    return rows.reshape(_by_head(x).shape[:-1])
+
+
+def _like(x, value):
+    """``value`` (by head) in a new tensor of ``x``'s dtype and layout: the
+    kernels write every output in its input's layout."""
+    out = torch.empty_like(x)
+    _by_head(out).copy_(value)
+    return out
+
+
 def flash_fwd_plain(q, k, v, causal=False, q_offset=0, k_offset=0):
-    """``q`` (BH, Tq, D), ``k``/``v`` (BH, Tk, D) -> ``o`` (BH, Tq, D) in
-    q's dtype and ``lse`` (BH, Tq) float32; p is cast to v's dtype before
-    p.V, and a row with no visible key gives o = 0, lse = -inf."""
-    s = _scores(q, k)
+    """``q`` (B, Tq, H, D) or (BH, Tq, D), ``k``/``v`` (B, Tk, H, D) or
+    (BH, Tk, D) -> ``o`` in q's dtype and layout and ``lse`` (BH, Tq)
+    float32; p is cast to v's dtype before p.V, and a row with no visible
+    key gives o = 0, lse = -inf."""
+    s = _scores(_by_head(q), _by_head(k))
     mask = _visible(q.shape[1], k.shape[1], causal, q_offset, k_offset, q.device)
     if mask is not None:
         s = s.masked_fill(~mask, float("-inf"))
@@ -132,50 +159,51 @@ def flash_fwd_plain(q, k, v, causal=False, q_offset=0, k_offset=0):
         p = torch.where(mask, p, torch.zeros_like(p))  # fully masked rows: exp(nan)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l > 0, l, torch.ones_like(l))
-    acc = p.to(v.dtype).float() @ v.float()
-    o = (acc / l_safe).to(q.dtype)
+    acc = p.to(v.dtype).float() @ _by_head(v).float()
     lse = torch.where(l > 0, m + torch.log(l_safe), torch.full_like(l, float("-inf")))
-    return o, lse[..., 0]
+    return _like(q, (acc / l_safe).to(q.dtype)), lse[..., 0].reshape(-1, q.shape[1])
 
 
 def _recompute(q, k, v, do, lse, delta, causal, q_offset, k_offset):
     """``p = exp(s - lse)`` scrubbed of masked and non-finite entries
-    (``_recompute_p``) and ``ds = p (dO v^T - delta) * scale``, float32."""
-    p = torch.exp(_scores(q, k) - lse[..., None])
+    (``_recompute_p``) and ``ds = p (dO v^T - delta) * scale``, float32, by
+    head."""
+    qh, kh = _by_head(q), _by_head(k)
+    p = torch.exp(_scores(qh, kh) - _head_rows(lse, q)[..., None])
     mask = _visible(q.shape[1], k.shape[1], causal, q_offset, k_offset, q.device)
     if mask is not None:
         p = torch.where(mask, p, torch.zeros_like(p))
     p = torch.where(torch.isfinite(p), p, torch.zeros_like(p))
-    dp = do.float() @ v.float().transpose(-1, -2)
-    return p, p * (dp - delta[..., None]) * q.shape[-1] ** -0.5
+    dp = _by_head(do).float() @ _by_head(v).float().transpose(-1, -2)
+    return p, p * (dp - _head_rows(delta, q)[..., None]) * q.shape[-1] ** -0.5
 
 
 def _dq_of(ds, q, k):
-    """dQ in q's dtype: ``ds`` cast to k's dtype before ds.K."""
-    return (ds.to(k.dtype).float() @ k.float()).to(q.dtype)
+    """dQ in q's dtype and layout: ``ds`` cast to k's dtype before ds.K."""
+    return _like(q, (ds.to(k.dtype).float() @ _by_head(k).float()).to(q.dtype))
 
 
 def _dkv_of(p, ds, q, k, v, do):
-    """dK, dV in k's and v's dtypes: ``p`` cast to dO's dtype before
-    p^T.dO, ``ds`` to q's dtype before ds^T.Q."""
-    dv = p.to(do.dtype).float().transpose(-1, -2) @ do.float()
-    dk = ds.to(q.dtype).float().transpose(-1, -2) @ q.float()
-    return dk.to(k.dtype), dv.to(v.dtype)
+    """dK, dV in k's and v's dtypes and layouts: ``p`` cast to dO's dtype
+    before p^T.dO, ``ds`` to q's dtype before ds^T.Q."""
+    dv = p.to(do.dtype).float().transpose(-1, -2) @ _by_head(do).float()
+    dk = ds.to(q.dtype).float().transpose(-1, -2) @ _by_head(q).float()
+    return _like(k, dk.to(k.dtype)), _like(v, dv.to(v.dtype))
 
 
 def _delta(do, o):
-    """``rowsum(dO * O)`` in float32 (``_delta_of``)."""
-    return (do.float() * o.float()).sum(dim=-1)
+    """``rowsum(dO * O)`` in float32 (``_delta_of``), (B*H, Tq)."""
+    return (_by_head(do).float() * _by_head(o).float()).sum(dim=-1).reshape(-1, o.shape[1])
 
 
 def flash_dq_plain(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
-    """dQ (BH, Tq, D) in q's dtype."""
+    """dQ in q's dtype and layout."""
     _, ds = _recompute(q, k, v, do, lse, delta, causal, q_offset, k_offset)
     return _dq_of(ds, q, k)
 
 
 def flash_dkv_plain(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
-    """dK, dV (BH, Tk, D) in k's and v's dtypes."""
+    """dK, dV in k's and v's dtypes and layouts."""
     p, ds = _recompute(q, k, v, do, lse, delta, causal, q_offset, k_offset)
     return _dkv_of(p, ds, q, k, v, do)
 
@@ -199,40 +227,59 @@ def _library(name: str):
     fn = getattr(_build.load(LIBRARIES[name]), name)
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * _POINTERS[name] + [ctypes.c_int] * 4 + [ctypes.c_float]
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * _POINTERS[name] + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
 
 
+def _row_strides(t) -> list:
+    """The (batch, head, row) element strides the kernels address a
+    (B, T, H, D) tensor by, a (B*H, T, D) one as H = 1; a dimension of size
+    1 gets stride 0 (any stride addresses it)."""
+    if t.ndim == 3:
+        sizes, strides = (t.shape[0], 1, t.shape[1]), (t.stride(0), 0, t.stride(1))
+    else:
+        sizes, strides = (t.shape[0], t.shape[2], t.shape[1]), (t.stride(0), t.stride(2),
+                                                                 t.stride(1))
+    return [stride if size > 1 else 0 for size, stride in zip(sizes, strides)]
+
+
 def _check(name, q, k, v, rows=()):
-    """Device, dtype, shape and contiguity checks before a launch: ``q``
-    (BH, Tq, D), ``k``/``v`` (BH, Tk, D) in q's dtype, and the ``(tensor,
-    shape, dtype)`` triples of ``rows`` (the backward's dO, lse, delta:
-    :func:`_bwd_rows`); returns (BH, Tq, Tk, D)."""
+    """Device, dtype, shape and layout checks before a launch: ``q`` (B, Tq,
+    H, D) or (BH, Tq, D), ``k``/``v`` (B, Tk, H, D) or (BH, Tk, D) in q's
+    dtype, and the ``(tensor, shape, dtype)`` triples of ``rows`` (the
+    backward's dO, lse, delta: :func:`_bwd_rows`).  Every tensor of q's rank
+    has unit stride in D (any other strides); the (BH, Tq) float32 ones are
+    contiguous.  Returns (BH, H, Tq, Tk, D)."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
-    if q.ndim != 3 or k.ndim != 3:
-        raise ValueError(f"{name}: wants (B*H, T, D) tensors, got {tuple(q.shape)}")
-    bh, t_q, d = q.shape
-    t_k = k.shape[1]
-    want = [(k, (bh, t_k, d), q.dtype), (v, (bh, t_k, d), q.dtype)]
+    if q.ndim not in (3, 4) or k.ndim != q.ndim:
+        raise ValueError(f"{name}: wants (B, T, H, D) or (B*H, T, D) tensors, got "
+                         f"{tuple(q.shape)}/{tuple(k.shape)}")
+    t_q, t_k, d = q.shape[1], k.shape[1], q.shape[-1]
+    heads = q.shape[2] if q.ndim == 4 else 1
+    bh = q.shape[0] * heads
+    k_shape = (q.shape[0], t_k, *q.shape[2:])
+    want = [(k, k_shape, q.dtype), (v, k_shape, q.dtype)]
     want += [(t, shape, dtype) for t, shape, dtype in rows]
-    for t, shape, dtype in [(q, (bh, t_q, d), q.dtype), *want]:
+    for t, shape, dtype in [(q, tuple(q.shape), q.dtype), *want]:
         if t.device != q.device:
             raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
+        if (t.ndim == 2 and not t.is_contiguous()) or (t.ndim > 2 and t.stride(-1) != 1
+                                                       and d > 1):
+            raise ValueError(f"{name}: tensors must have unit stride in D (lse and delta "
+                             "contiguous)")
     if bh < 1 or t_q < 1 or t_k < 1 or not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(
             f"{name}: no kernel for BH={bh} Tq={t_q} Tk={t_k} D={d} (D up to {MAX_HEAD_DIM})"
         )
-    return bh, t_q, t_k, d
+    return bh, heads, t_q, t_k, d
 
 
 def _require_cuda(name, q):
@@ -240,10 +287,14 @@ def _require_cuda(name, q):
         raise ValueError(f"{name}: runs on CPU or CUDA tensors, got {q.device}")
 
 
-def _launch(name, pointers, sizes, causal, q_offset, k_offset, dtype):
-    bh, t_q, t_k, d = sizes
+def _launch(name, tensors, sizes, causal, q_offset, k_offset, dtype):
+    """The C entry point on ``tensors`` in its pointer order, the strides of
+    the strided ones (all but lse and delta) beside them."""
+    bh, heads, t_q, t_k, d = sizes
+    strides = [n for t in tensors if t.ndim > 2 for n in _row_strides(t)]
     err = _library(name)(
-        *pointers, bh, t_q, t_k, d, d ** -0.5, int(causal), int(q_offset), int(k_offset),
+        *(t.data_ptr() for t in tensors), (ctypes.c_longlong * len(strides))(*strides), bh,
+        heads, t_q, t_k, d, d ** -0.5, int(causal), int(q_offset), int(k_offset),
         _DTYPE_CODES[dtype], torch.cuda.current_stream().cuda_stream,
     )
     if err != 0:
@@ -251,46 +302,49 @@ def _launch(name, pointers, sizes, causal, q_offset, k_offset, dtype):
     LAUNCHES[name] += 1
 
 
+def _rows_shape(q) -> tuple:
+    """(B*H, Tq): the shape of ``lse`` and ``delta`` for ``q``."""
+    return q.shape[0] * (q.shape[2] if q.ndim == 4 else 1), q.shape[1]
+
+
 def _bwd_rows(q, do, lse, delta):
     """The backward's extra inputs for :func:`_check`."""
-    bh, t_q, d = q.shape
-    return [(do, (bh, t_q, d), q.dtype), (lse, (bh, t_q), torch.float32),
-            (delta, (bh, t_q), torch.float32)]
+    return [(do, tuple(q.shape), q.dtype), (lse, _rows_shape(q), torch.float32),
+            (delta, _rows_shape(q), torch.float32)]
 
 
 def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
-    """``(o, lse)``.  CPU tensors take :func:`flash_fwd_plain`; CUDA tensors
-    launch ``csrc/flash_fwd.cu``."""
+    """``(o, lse)``, o in q's layout.  CPU tensors take
+    :func:`flash_fwd_plain`; CUDA tensors launch ``csrc/flash_fwd.cu``."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
     _require_cuda("flash_fwd", q)
     sizes = _check("flash_fwd", q, k, v)
     o = torch.empty_like(q)
-    lse = torch.empty(sizes[:2], dtype=torch.float32, device=q.device)
+    lse = torch.empty(_rows_shape(q), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _launch("flash_fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                              lse.data_ptr()), sizes, causal, q_offset, k_offset, q.dtype)
+        _launch("flash_fwd", (q, k, v, o, lse), sizes, causal, q_offset, k_offset, q.dtype)
     return o, lse
 
 
 def flash_dq(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
-    """dQ.  CPU tensors take :func:`flash_dq_plain`; CUDA tensors launch
-    ``csrc/flash_bwd.cu:flash_dq``."""
+    """dQ in q's layout.  CPU tensors take :func:`flash_dq_plain`; CUDA
+    tensors launch ``csrc/flash_bwd.cu:flash_dq``."""
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset)
     _require_cuda("flash_dq", q)
     sizes = _check("flash_dq", q, k, v, _bwd_rows(q, do, lse, delta))
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _launch("flash_dq", (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                             lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
-                sizes, causal, q_offset, k_offset, q.dtype)
+        _launch("flash_dq", (q, k, v, do, lse, delta, dq), sizes, causal, q_offset, k_offset,
+                q.dtype)
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
-    """``(dK, dV)``.  CPU tensors take :func:`flash_dkv_plain`; CUDA tensors
-    launch ``csrc/flash_bwd.cu:flash_dkv``."""
+    """``(dK, dV)`` in k's and v's layouts.  CPU tensors take
+    :func:`flash_dkv_plain`; CUDA tensors launch
+    ``csrc/flash_bwd.cu:flash_dkv``."""
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, do, lse, delta, causal, q_offset, k_offset)
     _require_cuda("flash_dkv", q)
@@ -298,33 +352,31 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, q_offset=0, k_offset=0):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _launch("flash_dkv", (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-                sizes, causal, q_offset, k_offset, q.dtype)
+        _launch("flash_dkv", (q, k, v, do, lse, delta, dk, dv), sizes, causal, q_offset,
+                k_offset, q.dtype)
     return dk, dv
 
 
 def flash_dqkv(q, k, v, o, do, lse, causal=False, q_offset=0, k_offset=0):
-    """``(dQ, dK, dV)`` in one launch.  CPU tensors take
-    :func:`flash_dqkv_plain`; CUDA tensors launch
+    """``(dQ, dK, dV)`` in one launch, each in its input's layout.  CPU
+    tensors take :func:`flash_dqkv_plain`; CUDA tensors launch
     ``csrc/flash_bwd.cu:flash_dqkv``, which takes what
     :func:`flash_bwd_route` sends it (float32, Tq and Tk up to
     ``DQKV_MAX_LEN``, D up to ``DQKV_MAX_HEAD_DIM``) and nothing else."""
     if q.device.type == "cpu":
         return flash_dqkv_plain(q, k, v, o, do, lse, causal, q_offset, k_offset)
     _require_cuda("flash_dqkv", q)
-    bh, t_q, d = q.shape
-    rows = [(o, (bh, t_q, d), q.dtype), (do, (bh, t_q, d), q.dtype),
-            (lse, (bh, t_q), torch.float32)]
+    rows = [(o, tuple(q.shape), q.dtype), (do, tuple(q.shape), q.dtype),
+            (lse, _rows_shape(q), torch.float32)]
     sizes = _check("flash_dqkv", q, k, v, rows)
-    if flash_bwd_route(t_q, sizes[2], d, q.dtype) != "dqkv":
-        raise ValueError(f"flash_dqkv: no kernel for Tq={t_q} Tk={sizes[2]} D={d} {q.dtype} "
+    _, _, t_q, t_k, d = sizes
+    if flash_bwd_route(t_q, t_k, d, q.dtype) != "dqkv":
+        raise ValueError(f"flash_dqkv: no kernel for Tq={t_q} Tk={t_k} D={d} {q.dtype} "
                          f"(float32, T up to {DQKV_MAX_LEN}, D up to {DQKV_MAX_HEAD_DIM})")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _launch("flash_dqkv", (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                               do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                               dv.data_ptr()), sizes, causal, q_offset, k_offset, q.dtype)
+        _launch("flash_dqkv", (q, k, v, o, do, lse, dq, dk, dv), sizes, causal, q_offset,
+                k_offset, q.dtype)
     return dq, dk, dv
 
 
@@ -334,11 +386,13 @@ def flash_dqkv(q, k, v, o, do, lse, causal=False, q_offset=0, k_offset=0):
 
 
 class FlashAttention(torch.autograd.Function):
-    """Differentiable flash attention on (B*H, T, D), the semantics of the
-    JAX package's ``_flash`` custom VJP: the forward saves ``(q, k, v, o,
-    lse)``; the backward takes :func:`flash_bwd_route`'s kernels, one
-    ``flash_dqkv`` (delta formed inside), or ``delta = rowsum(dO * O)`` in
-    float32 and the dQ and the dK/dV kernel."""
+    """Differentiable flash attention on (B, T, H, D) (or (B*H, T, D))
+    tensors, the semantics of the JAX package's ``_flash`` custom VJP: the
+    forward saves ``(q, k, v, o, lse)``; the backward takes
+    :func:`flash_bwd_route`'s kernels, one ``flash_dqkv`` (delta formed
+    inside), or ``delta = rowsum(dO * O)`` in float32 and the dQ and the
+    dK/dV kernel.  dO is read in the layout it arrives in; only one without
+    unit stride in D, which the kernels refuse, is copied."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, k_offset):
@@ -350,8 +404,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.to(o.dtype).contiguous()
-        if flash_bwd_route(q.shape[1], k.shape[1], q.shape[2], q.dtype) == "dqkv":
+        do = do.to(o.dtype)
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        if flash_bwd_route(q.shape[1], k.shape[1], q.shape[-1], q.dtype) == "dqkv":
             dq, dk, dv = flash_dqkv(q, k, v, o, do, lse, *ctx.mask)
         else:
             delta = _delta(do, o)
@@ -366,18 +422,22 @@ def flash_attention(q, k, v, *, causal: bool = False, q_offset: int = 0, k_offse
     ``q`` (B, H, Tq, D), ``k``/``v`` (B, H, Tk, D) -> (B, H, Tq, D);
     ``q_offset``/``k_offset`` are the global positions of the first query
     and key, so causal masking works on sequence chunks.  Differentiable
-    through the backward kernels of :func:`flash_bwd_route`.  The JAX
-    function's ``block_q`` / ``block_k`` are TPU tiling (multiples of 128
-    lanes) and have no counterpart: the Hopper tile sizes belong to the
-    kernels."""
+    through the backward kernels of :func:`flash_bwd_route`.  The kernels
+    read each input through its (B, T, H, D) view, which for the heads the
+    model splits off its projections (``models/attention.py:_split_heads``)
+    is the projection itself: no copy.  An input whose D is not of unit
+    stride is copied here (``contiguous``), the one layout the kernels
+    refuse.  The result is the (B, H, Tq, D) view of an output in q's
+    layout, so merging the heads back is a view too.  The JAX function's
+    ``block_q`` / ``block_k`` are TPU tiling (multiples of 128 lanes) and
+    have no counterpart: the Hopper tile sizes belong to the kernels."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention wants (B, H, T, D) inputs, got "
                          f"{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}")
-    b, h, t_q, d = q.shape
-    o = FlashAttention.apply(
-        q.reshape(b * h, t_q, d).contiguous(),
-        k.reshape(b * h, k.shape[2], d).contiguous(),
-        v.reshape(b * h, v.shape[2], d).contiguous(),
-        causal, q_offset, k_offset,
-    )
-    return o.reshape(b, h, t_q, d)
+
+    def by_row(x):
+        x = x.transpose(1, 2)
+        return x if x.stride(-1) == 1 else x.contiguous()
+
+    o = FlashAttention.apply(by_row(q), by_row(k), by_row(v), causal, q_offset, k_offset)
+    return o.transpose(1, 2)

@@ -3,6 +3,7 @@
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab rows
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab split
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab tc
+    python -m pytorch_distributed_rnn_tpu_torch.utils.ab fwd --other DIR [--rounds N]
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab step --other DIR [--rounds N] [--path P]
 
 Each run measures one tree (a copy of this package with a source
@@ -32,6 +33,17 @@ products straight into the accumulators (``chained``), and a copy that
 keeps its thread index from the kernel's start (``hoisted``: the compiler
 then holds the addresses it derives across the step).
 
+``fwd``: the flash forward with the package under DIR, with this one,
+and with this one at 4 warps (64 query rows) a float32 block in place
+of 8 (``csrc/flash_fwd.cu:kF32FwdWarps``): ``flash_fwd`` in float32 at
+the attention CLI's train shape (BH=1024, T=128, D=32) on (BH, T, D)
+rows, with its scaled error against the plain version; the same as the
+model calls it, ``flash_attention`` on the heads ``_split_heads`` makes
+of (B, T, H*D) projections and the heads merged back (``call_ms``), with
+the device copy kernels of that call (``copy_launches``, ``copy_ms``,
+under ``torch.profiler``); and the bf16 forward at the long-context
+shape (BH=64, T=1024, D=128).
+
 ``step``: a main path with the package under DIR (for example a ``git
 archive`` of another commit) and with this one: 2 epochs on seeded
 synthetic data at the CLI's sizes, then 4 more epochs a step on the host
@@ -43,7 +55,10 @@ attention --hidden-units 128 --num-heads 4 --stacked-layer 2
 --batch-size 256 --dropout 0`` on the same windows;
 ``f``, ``--model char --hidden-units 512 --stacked-layer 2 --seq-length
 128 --batch-size 256 --dropout 0`` (the default LSTM cell) on the
-synthetic motif corpus.
+synthetic motif corpus; ``e``, the long-context classifier (dim 512, 4
+heads, depth 2, bf16, T=1024), Adam steps at batch 16 on seeded random
+windows through the model and a train-step loop (10 steps an epoch).
+Each step's device copy kernels are counted too.
 
 Copies go to ``build/ab/``.  Kernel times are CUDA events over repeated
 launches.  This file imports nothing of the package at module level, so a
@@ -55,6 +70,7 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -93,6 +109,9 @@ TC_CHAINED = ((
 ),)
 TC_HOISTED = (("csrc/lstm_fwd.cu", "    const int tid = step_tid();", "    const int tid = threadIdx.x;"),)
 TC_SHAPE = (128, 256, 512)  # T, B, H of the char LM
+FWD_WARPS_4 = (("csrc/flash_fwd.cu", "constexpr int kF32FwdWarps = 8;",
+                "constexpr int kF32FwdWarps = 4;"),)
+LONG_SHAPE = (64, 1024, 128)  # B*H, T, D of the long-context classifier
 TC_CASES = ((512, 256), (512, 104), (512, 204), (449, 37), (480, 61))  # (H, B)
 # each main path's flags beyond the data and checkpoint paths, and its batch
 PATHS = {
@@ -102,7 +121,9 @@ PATHS = {
            "--stacked-layer", "2", "--batch-size", "256", "--dropout", "0"], 256),
     "f": (["--model", "char", "--hidden-units", "512", "--stacked-layer", "2",
            "--seq-length", "128", "--batch-size", "256", "--dropout", "0"], 256),
+    "e": (None, 16),  # the long-context classifier, no CLI path
 }
+LONG_DIM, LONG_HEADS, LONG_STEPS = 512, 4, 10
 PORT_KERNELS = ("lstm_", "gru_", "flash_")  # name prefixes of the port's kernels
 
 
@@ -198,8 +219,6 @@ def _time_split() -> dict:
 
 def _time_tc() -> dict:
     """The tree's tensor-core LSTM forward: time, error and resources."""
-    import re
-
     import torch
 
     fr = _own("ops.fused_rnn")
@@ -250,6 +269,84 @@ def _time_tc() -> dict:
             "resources": resources}
 
 
+def _copy_kernels(prof, calls: int) -> tuple:
+    """The device copy kernels of a ``torch.profiler`` run: launches and ms
+    per call."""
+    import torch
+
+    copies = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+              and "copy" in e.key.lower()]
+    return (sum(e.count for e in copies) / calls,
+            sum(e.self_device_time_total for e in copies) / 1e3 / calls)
+
+
+def _time_fwd() -> dict:
+    """The tree's flash forward: f32 at the CLI shape, as the model calls
+    it (with its copy kernels), and bf16 at the long-context shape."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fa = _own("ops.fused_attention")
+    tattn = _own("models.attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bh, heads = ATTN_BATCHES[0], 4
+    q, k, v = (torch.randn(bh, ATTN_SEQ_LEN, ATTN_HEAD_DIM, generator=gen, device="cuda")
+               for _ in range(3))
+    o, _ = fa.flash_fwd(q, k, v)
+    want, _ = fa.flash_fwd_plain(q, k, v)
+    out = {"ms": _time_ms(lambda: fa.flash_fwd(q, k, v), 50),
+           "scaled_err": ((o - want).abs() / (1 + want.abs())).max().item()}
+    proj = [torch.randn(bh // heads, ATTN_SEQ_LEN, heads * ATTN_HEAD_DIM, generator=gen,
+                        device="cuda") for _ in range(3)]
+
+    def call():
+        views = [tattn._split_heads(x, heads) for x in proj]
+        return tattn._merge_heads(fa.flash_attention(*views))
+
+    with torch.no_grad():
+        out["call_ms"] = _time_ms(call, 50)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+    out["copy_launches"], out["copy_ms"] = _copy_kernels(prof, 10)
+    bh, t, d = LONG_SHAPE
+    ql, kl, vl = (torch.randn(bh, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(3))
+    out["bf16_long_ms"] = _time_ms(lambda: fa.flash_fwd(ql, kl, vl), 20)
+    return out
+
+
+def _long_context_epoch():
+    """The long-context classifier's train step loop (path e): a function
+    that runs ``LONG_STEPS`` Adam steps, ending on a host read of the loss."""
+    import torch
+
+    models = _own("models")
+    losses = _own("ops.losses")
+    _, batch = PATHS["e"]
+    model = models.AttentionClassifier(input_dim=9, dim=LONG_DIM, depth=2, num_heads=LONG_HEADS,
+                                       output_dim=6, max_len=1024, precision="bf16",
+                                       generator=torch.Generator().manual_seed(0)).cuda()
+    optimizer = torch.optim.Adam(model.parameters(), lr=1e-3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((batch, 1024, 9), generator=gen, device="cuda")
+    y = torch.randint(0, 6, (batch,), generator=gen, device="cuda")
+
+    def epoch():
+        model.train()
+        for _ in range(LONG_STEPS):
+            loss = losses.cross_entropy_loss(model(x), y)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer.step()
+        return float(loss)
+
+    return epoch
+
+
 def _time_step(path: str = "d") -> dict:
     """A main path with the tree's package: 2 epochs, then 4 on the host
     clock and one profiled."""
@@ -263,29 +360,42 @@ def _time_step(path: str = "d") -> dict:
     torch.backends.cudnn.allow_tf32 = False
     flags, batch = PATHS[path]
     with tempfile.TemporaryDirectory(prefix="ab_step_") as tmp:
-        work = Path(tmp)
-        har.write_synthetic_har_cache(work / "data", num_train=7352, num_test=2947, seed=0)
-        os.chdir(work)  # main writes history.json into the working directory
-        # the char path makes its synthetic corpus where the path holds none
-        data = work / ("no-corpus" if path == "f" else "data")
-        trainer = port_main.main([*flags, "--dataset-path", str(data),
-                                  "--checkpoint-directory", str(work / "models"),
-                                  "--epochs", "2", "--seed", "0", "local"])
-        steps = -(-len(trainer.training_set) // batch)
+        if path == "e":
+            epoch, steps = _long_context_epoch(), LONG_STEPS
+            for _ in range(2):
+                epoch()
+        else:
+            work = Path(tmp)
+            har.write_synthetic_har_cache(work / "data", num_train=7352, num_test=2947, seed=0)
+            os.chdir(work)  # main writes history.json into the working directory
+            # the char path makes its synthetic corpus where the path holds none
+            data = work / ("no-corpus" if path == "f" else "data")
+            trainer = port_main.main([*flags, "--dataset-path", str(data),
+                                      "--checkpoint-directory", str(work / "models"),
+                                      "--epochs", "2", "--seed", "0", "local"])
+            steps = -(-len(trainer.training_set) // batch)
+
+            def epoch():
+                trainer._train_epoch(formatter)
+
         host_ms = []
         for _ in range(4):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            trainer._train_epoch(formatter)
+            epoch()
             host_ms.append((time.perf_counter() - t0) * 1e3 / steps)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            trainer._train_epoch(formatter)
+            epoch()
     device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
-    kernels = {key.split("::")[-1].split("(")[0]: us / 1e3 / steps
-               for key, us in device_us.items() if any(k in key for k in PORT_KERNELS)}
+    kernels = {}
+    for key, us in device_us.items():  # by kernel name and template arguments
+        if m := re.search(r"(?:%s)\w*(<[^>]*>)?" % "|".join(PORT_KERNELS), key):
+            kernels[m.group(0)] = kernels.get(m.group(0), 0.0) + us / 1e3 / steps
+    copy_launches, copy_ms = _copy_kernels(prof, steps)
     return {"path": path, "host_ms": host_ms,
-            "device_ms": sum(device_us.values()) / 1e3 / steps, "kernel_device_ms": kernels}
+            "device_ms": sum(device_us.values()) / 1e3 / steps, "kernel_device_ms": kernels,
+            "copy_launches": copy_launches, "copy_ms": copy_ms}
 
 
 def _run(root: Path, what: str, *args: str) -> dict:
@@ -303,7 +413,8 @@ def _run(root: Path, what: str, *args: str) -> dict:
 def _parse(argv: list) -> tuple:
     """``(mode, other tree or None, rounds, path)``; raises SystemExit on
     misuse."""
-    usage = "usage: ab rows | ab split | ab tc | ab step --other DIR [--rounds N] [--path a|b|d|f]"
+    usage = ("usage: ab rows | ab split | ab tc | ab fwd --other DIR [--rounds N] | "
+             "ab step --other DIR [--rounds N] [--path a|b|d|e|f]")
     if argv in (["rows"], ["split"], ["tc"]):
         return argv[0], None, 1, None
     mode, rest = (argv[0], argv[1:]) if argv else (None, [])
@@ -313,9 +424,10 @@ def _parse(argv: list) -> tuple:
     rounds = options.pop("--rounds", "1")
     if not rounds.isdigit() or int(rounds) < 1:
         raise SystemExit(usage)
-    path = options.pop("--path", "d")
-    if mode == "step" and "--other" in options and path in PATHS and len(options) == 1:
-        return "step", Path(options["--other"]).resolve(), int(rounds), path
+    path = options.pop("--path", "d") if mode == "step" else None
+    if (mode in ("step", "fwd") and "--other" in options and len(options) == 1
+            and (path is None or path in PATHS)):
+        return mode, Path(options["--other"]).resolve(), int(rounds), path
     raise SystemExit(usage)
 
 
@@ -331,6 +443,9 @@ def main(argv=None) -> int:
         runs = [("this", PACKAGE.parent, "_time_tc"),
                 ("chained", patched_copy(WORK / "chained", TC_CHAINED), "_time_tc"),
                 ("hoisted", patched_copy(WORK / "hoisted", TC_HOISTED), "_time_tc")]
+    elif mode == "fwd":
+        runs = [("other", other, "_time_fwd"), ("this", PACKAGE.parent, "_time_fwd"),
+                ("warps4", patched_copy(WORK / "warps4", FWD_WARPS_4), "_time_fwd")]
     else:
         runs = [("other", other, "_time_step"), ("this", PACKAGE.parent, "_time_step")]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

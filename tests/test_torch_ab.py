@@ -19,6 +19,9 @@ from pytorch_distributed_rnn_tpu_torch.utils import ab
     (["step", "--other", "x", "--rounds", "3", "--path", "a"],
      ("step", Path("x").resolve(), 3, "a")),
     (["step", "--other", "x", "--path", "b"], ("step", Path("x").resolve(), 1, "b")),
+    (["step", "--other", "x", "--path", "e"], ("step", Path("x").resolve(), 1, "e")),
+    (["fwd", "--other", "x"], ("fwd", Path("x").resolve(), 1, None)),
+    (["fwd", "--rounds", "2", "--other", "x"], ("fwd", Path("x").resolve(), 2, None)),
 ])
 def test_parse(argv, want):
     assert ab._parse(argv) == want
@@ -29,6 +32,7 @@ def test_parse(argv, want):
     ["step", "--other", "x", "--rounds", "0"], ["step", "--other", "x", "--pairs", "5"],
     ["kernels"], ["tc", "--rounds", "2"], ["step", "--other", "x", "--path", "c"], ["gates"],
     ["rows", "--rounds", "2"], ["step", "--other", "x", "--other", "y"],
+    ["fwd"], ["fwd", "--other", "x", "--path", "d"], ["fwd", "--rounds", "2"],
 ])
 def test_parse_rejects(argv):
     with pytest.raises(SystemExit):
@@ -36,8 +40,8 @@ def test_parse_rejects(argv):
 
 
 @pytest.mark.parametrize("substitutions", [ab.ROWS_8_TO_4, ab.MASK_TO_CVT, ab.TC_CHAINED,
-                                           ab.TC_HOISTED],
-                         ids=["rows", "split", "chained", "hoisted"])
+                                           ab.TC_HOISTED, ab.FWD_WARPS_4],
+                         ids=["rows", "split", "chained", "hoisted", "warps4"])
 def test_patched_copy_makes_each_substitution(tmp_path, substitutions):
     root = ab.patched_copy(tmp_path / "copy", substitutions)
     for rel, old, new in substitutions:

@@ -2,10 +2,14 @@
 
 ``ops/fused_attention.py`` (the flash kernels' plain versions, the
 ``FlashAttention`` binding and ``flash_attention``) against the JAX
-``flash_attention`` in Pallas interpret mode and the JAX kernels' own
-``_fwd_impl``/``_bwd_impl`` (``flash_dqkv_plain`` against ``_bwd_impl``
-with ``_delta_of``), and against ``mha_attention``; the backward's route
-(``flash_bwd_route``);
+``flash_attention`` in Pallas interpret mode (also on the heads
+``_split_heads`` makes of (B, T, H*D) projections, forward and
+gradients) and the JAX kernels' own ``_fwd_impl``/``_bwd_impl``
+(``flash_dqkv_plain`` against ``_bwd_impl`` with ``_delta_of``; on
+(B*H, T, D) rows and on the (B, T, H, D) layout), and against
+``mha_attention``; the backward's route (``flash_bwd_route``); the
+kernels' (batch, head, row) strides (``_row_strides``) and that the
+classifier's flash path hands the wrappers its projections' own storage;
 ``ops/attention.py:mha_attention``; ``models/attention.py`` (layer norm,
 the GELU epilogue, ``AttentionClassifier`` forward and gradients with
 weights carried over by ``interop``); a two-epoch ``local`` loss history
@@ -17,8 +21,9 @@ tests' (f32 1e-5 forward and 1e-4 gradients, bf16 5e-2) for the model.
 
 The ``cuda``-marked tests hold the CUDA kernels against the plain
 versions on a card (bf16 there at 1e-2 of each output's largest value),
-check that two ``flash_dqkv`` launches give the same bits, and skip
-without one; JAX is imported inside the tests that use it, so
+on (B*H, T, D) rows and on the (B, T, H, D) layout, the f32 forward at
+its tile edges, check that two ``flash_dqkv`` launches give the same
+bits, and skip without one; JAX is imported inside the tests that use it, so
 on a card (where JAX is not installed) they run alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_attention.py
@@ -166,21 +171,147 @@ def test_flash_grads_match_jax(causal, q_offset, t_k):
                                        err_msg=f"d{name}")
 
 
+def _heads_layout(a, heads):
+    """(B*H, T, D) numpy rows as the (B, T, H, D) tensor layout the kernels
+    read (a view of a (B, T, H*D) projection); ``heads`` 1 keeps the
+    (B*H, T, D) form."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if heads == 1:
+        return t
+    bh, n, d = t.shape
+    return t.reshape(bh // heads, heads, n, d).transpose(1, 2).contiguous()
+
+
+def _flat_heads(t):
+    """A (B, T, H, D) tensor's rows as (B*H, T, D); (B*H, T, D) as it is."""
+    return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3]) if t.ndim == 4 else t
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize(
-    "causal,q_offset,k_offset,t,d",
-    [pytest.param(False, 0, 0, 100, 16, id="False-0-0"),
-     pytest.param(True, 32, 0, 100, 16, id="True-32-0"),
+    "t,causal,q_offset,k_offset",
+    [(200, False, 0, 0), (200, True, 0, 0), (64, True, 128, 64), (128, True, 32, 0)],
+)
+def test_flash_on_split_head_views_matches_jax(dtype, t, causal, q_offset, k_offset):
+    """``flash_attention`` on the (B, H, T, D) views that the model's
+    ``_split_heads`` makes of (B, T, H*D) projections (the layout the
+    kernels read without a copy) against the JAX ``flash_attention``
+    (Pallas interpret mode) on the same split: the output and the
+    gradients of the three projections."""
+    import jax
+    import jax.numpy as jnp
+
+    from pytorch_distributed_rnn_tpu.ops.pallas_attention import flash_attention as jax_flash
+
+    b, h, d = 2, 3, 16
+    rng = np.random.RandomState(t + q_offset)
+    proj = [rng.randn(b, t, h * d).astype(np.float32) for _ in range(3)]
+    w = rng.randn(b, h, t, d).astype(np.float32)
+    kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
+    tp = _torch(proj, dtype, grad=True)
+    views = [tattn._split_heads(x, h) for x in tp]
+    assert not views[0].is_contiguous() and views[0].transpose(1, 2).is_contiguous()
+    out = fa.flash_attention(*views, **kw)
+    (out.float() * torch.from_numpy(w)).sum().backward()
+
+    def loss(*xs):
+        split = [x.reshape(b, t, h, d).transpose(0, 2, 1, 3) for x in xs]
+        return jnp.sum(jax_flash(*split, **kw).astype(jnp.float32) * w)
+
+    jp = _jax(proj, dtype)
+    want = jax_flash(*(x.reshape(b, t, h, d).transpose(0, 2, 1, 3) for x in jp), **kw)
+    grads = jax.grad(loss, argnums=(0, 1, 2))(*jp)
+    fwd_tol = ATOL if dtype == "f32" else BF16_ATTN
+    rtol, atol = (RTOL_GRAD, ATOL_GRAD) if dtype == "f32" else (BF16_ATTN, BF16_ATTN)
+    np.testing.assert_allclose(_np(out), _np(want), rtol=fwd_tol, atol=fwd_tol)
+    for name, x, g in zip("qkv", tp, grads):
+        np.testing.assert_allclose(_np(x.grad), _np(g), rtol=rtol, atol=atol, err_msg=f"d{name}")
+
+
+def test_model_path_hands_the_kernels_the_projections(monkeypatch):
+    """On the classifier's flash path the kernels' wrappers get q, k and v
+    in the projections' own storage ((B, T, H, D) views: no head-split
+    copy), the backward gets the forward's o and a dO of unit stride in D,
+    and ``block_epilogue`` merges the heads of ``flash_fwd``'s o as a view
+    (no merge copy)."""
+    seen = {"linear": []}
+    linear, epilogue = tattn._linear, tattn.block_epilogue
+    fwd, dqkv = fa.flash_fwd, fa.flash_dqkv
+
+    def record_linear(p, x):
+        seen["linear"].append(linear(p, x))
+        return seen["linear"][-1]
+
+    def record_fwd(q, k, v, *args):
+        seen["fwd"] = (q, k, v)
+        seen["o"], lse = fwd(q, k, v, *args)
+        return seen["o"], lse
+
+    def record_dqkv(q, k, v, o, do, *args):
+        seen["dqkv"] = (q, k, v, o, do)
+        return dqkv(q, k, v, o, do, *args)
+
+    def record_epilogue(params, x, attn_out, **kw):
+        seen["attn_out"] = attn_out
+        return epilogue(params, x, attn_out, **kw)
+
+    monkeypatch.setattr(tattn, "_linear", record_linear)
+    monkeypatch.setattr(tattn, "block_epilogue", record_epilogue)
+    monkeypatch.setattr(fa, "flash_fwd", record_fwd)
+    monkeypatch.setattr(fa, "flash_dqkv", record_dqkv)
+    b, t, dim, heads = 3, 24, 16, 2
+    model = AttentionClassifier(input_dim=9, dim=dim, depth=1, num_heads=heads, impl="flash")
+    x = torch.from_numpy(np.random.RandomState(0).randn(b, t, 9).astype(np.float32))
+    model(x).sum().backward()
+
+    projections = seen["linear"][1:4]  # embed, then wq, wk, wv
+    for name, got, proj in zip("qkv", seen["fwd"], projections):
+        assert got.shape == (b, t, heads, dim // heads), name
+        assert got.data_ptr() == proj.data_ptr() and got._base is not None, name
+        assert fa._row_strides(got) == [t * dim, dim // heads, dim], name
+    fa._check("flash_fwd", *seen["fwd"])  # the layout the card's kernels take
+    q, k, v, o, do = seen["dqkv"]
+    assert [a.data_ptr() for a in (q, k, v, o)] == [a.data_ptr() for a in (*seen["fwd"],
+                                                                            seen["o"])]
+    assert do.stride(-1) == 1
+    merged = tattn._merge_heads(seen["attn_out"])
+    assert merged.data_ptr() == seen["o"].data_ptr() and merged.shape == (b, t, dim)
+
+
+@pytest.mark.parametrize(
+    "shape,permute,want",
+    [((2, 5, 3, 8), None, [120, 8, 24]),  # (B, T, H, D) of a (B, T, H*D) projection
+     ((2, 3, 5, 8), (0, 2, 1, 3), [120, 40, 8]),  # (B, H, T, D) storage seen as (B, T, H, D)
+     ((6, 5, 8), None, [40, 0, 8]),  # (B*H, T, D): H = 1
+     ((1, 5, 1, 8), None, [0, 0, 8]),  # a dimension of size 1: stride 0
+     ((4, 1, 8), None, [8, 0, 0])],
+)
+def test_row_strides(shape, permute, want):
+    t = torch.zeros(shape)
+    if permute is not None:
+        t = t.permute(permute)
+    assert fa._row_strides(t) == want
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize(
+    "causal,q_offset,k_offset,t,d,heads",
+    [pytest.param(False, 0, 0, 100, 16, 1, id="False-0-0"),
+     pytest.param(True, 32, 0, 100, 16, 1, id="True-32-0"),
      # a head dim of whole 16-byte chunks but not of whole 16-column
      # k-steps (the card's bf16 kernels pad it in shared memory), over two
      # JAX blocks
-     pytest.param(False, 0, 0, 200, 72, id="False-0-0-T200-D72"),
-     pytest.param(True, 32, 0, 200, 72, id="True-32-0-T200-D72")],
+     pytest.param(False, 0, 0, 200, 72, 1, id="False-0-0-T200-D72"),
+     pytest.param(True, 32, 0, 200, 72, 1, id="True-32-0-T200-D72"),
+     # the (B, T, H, D) layout of the model's projections, 3 heads
+     pytest.param(True, 32, 0, 100, 16, 3, id="H3-True-32-0"),
+     pytest.param(False, 0, 0, 200, 72, 3, id="H3-False-0-0-T200-D72")],
 )
-def test_plain_versions_match_jax_kernels(dtype, causal, q_offset, k_offset, t, d):
+def test_plain_versions_match_jax_kernels(dtype, causal, q_offset, k_offset, t, d, heads):
     """``flash_{fwd,dq,dkv}_plain`` against the JAX kernels themselves
     (``_fwd_impl``, ``_bwd_impl``, lse and delta lane-replicated there),
-    at a ragged length padded to the JAX blocks."""
+    at a ragged length padded to the JAX blocks, on (B*H, T, D) tensors and
+    on the (B, T, H, D) layout (the outputs in their inputs' layout)."""
     import jax.numpy as jnp
 
     from pytorch_distributed_rnn_tpu.ops import pallas_attention as jpa
@@ -196,39 +327,47 @@ def test_plain_versions_match_jax_kernels(dtype, causal, q_offset, k_offset, t, 
     jq, jk, jv, jdo = (pad(a) for a in _jax((q, k, v, do), dtype))
     offs = jnp.array([q_offset, k_offset], jnp.int32)
     j_o, j_lse = jpa._fwd_impl(jq, jk, jv, offs, causal, blk, blk, t, t)
-    tq, tk, tv, tdo = _torch((q, k, v, do), dtype)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tq, tk, tv, tdo = (_heads_layout(a, heads).to(tdt) for a in (q, k, v, do))
     o, lse = fa.flash_fwd_plain(tq, tk, tv, causal, q_offset, k_offset)
-    np.testing.assert_allclose(_np(o), _np(j_o[:, :t]), rtol=tol, atol=tol)
+    assert o.shape == tq.shape and o.stride() == tq.stride() and lse.shape == (bh, t)
+    np.testing.assert_allclose(_np(_flat_heads(o)), _np(j_o[:, :t]), rtol=tol, atol=tol)
     np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse[:, :t, 0]), rtol=tol, atol=tol)
 
     j_delta = jpa._delta_of(jdo, j_o)
     j_dq, j_dk, j_dv = jpa._bwd_impl(jq, jk, jv, jdo, j_lse, j_delta, offs, causal, blk, blk,
                                      t, t)
-    delta = (tdo.float() * o.float()).sum(-1)
+    delta = fa._delta(tdo, o)
     dq = fa.flash_dq_plain(tq, tk, tv, tdo, lse, delta, causal, q_offset, k_offset)
     dk, dv = fa.flash_dkv_plain(tq, tk, tv, tdo, lse, delta, causal, q_offset, k_offset)
     assert dq.dtype == dk.dtype == dv.dtype == tq.dtype
-    for name, got, want in (("dq", dq, j_dq), ("dk", dk, j_dk), ("dv", dv, j_dv)):
-        np.testing.assert_allclose(_np(got), _np(want[:, :t]), rtol=tol * 10, atol=tol,
-                                   err_msg=name)
+    for name, got, want, like in (("dq", dq, j_dq, tq), ("dk", dk, j_dk, tk),
+                                  ("dv", dv, j_dv, tv)):
+        assert got.shape == like.shape and got.stride() == like.stride(), name
+        np.testing.assert_allclose(_np(_flat_heads(got)), _np(want[:, :t]), rtol=tol * 10,
+                                   atol=tol, err_msg=name)
 
 
 @pytest.mark.parametrize(
-    "t_q,t_k,d,causal,q_offset,k_offset",
-    [pytest.param(100, 100, 16, False, 0, 0, id="T100-D16"),
-     pytest.param(100, 100, 16, True, 32, 0, id="T100-D16-causal-32-0"),
-     pytest.param(200, 200, 72, False, 0, 0, id="T200-D72"),
-     pytest.param(200, 200, 72, True, 32, 0, id="T200-D72-causal-32-0"),
-     pytest.param(64, 64, 16, True, 128, 64, id="causal-offsets-128-64"),
-     pytest.param(96, 160, 32, False, 0, 0, id="cross-96-160"),
-     pytest.param(77, 100, 30, True, 40, 0, id="ragged-77-100-causal"),
+    "t_q,t_k,d,causal,q_offset,k_offset,heads",
+    [pytest.param(100, 100, 16, False, 0, 0, 1, id="T100-D16"),
+     pytest.param(100, 100, 16, True, 32, 0, 1, id="T100-D16-causal-32-0"),
+     pytest.param(200, 200, 72, False, 0, 0, 1, id="T200-D72"),
+     pytest.param(200, 200, 72, True, 32, 0, 1, id="T200-D72-causal-32-0"),
+     pytest.param(64, 64, 16, True, 128, 64, 1, id="causal-offsets-128-64"),
+     pytest.param(96, 160, 32, False, 0, 0, 1, id="cross-96-160"),
+     pytest.param(77, 100, 30, True, 40, 0, 1, id="ragged-77-100-causal"),
      # every query before every key: dQ, dK and dV are exactly 0
-     pytest.param(32, 32, 32, True, 0, 512, id="no-visible-key")],
+     pytest.param(32, 32, 32, True, 0, 512, 1, id="no-visible-key"),
+     # the (B, T, H, D) layout of the model's projections, 3 heads
+     pytest.param(77, 100, 30, True, 40, 0, 3, id="H3-ragged-77-100-causal"),
+     pytest.param(128, 128, 32, False, 0, 0, 3, id="H3-T128-D32")],
 )
-def test_dqkv_plain_matches_jax_kernels(t_q, t_k, d, causal, q_offset, k_offset):
+def test_dqkv_plain_matches_jax_kernels(t_q, t_k, d, causal, q_offset, k_offset, heads):
     """``flash_dqkv_plain`` (delta formed inside) against the JAX kernels
     ``_bwd_impl`` with ``_delta_of`` in float32, the forward's o and lse
-    from ``_fwd_impl``, at lengths padded to the JAX blocks."""
+    from ``_fwd_impl``, at lengths padded to the JAX blocks, on (B*H, T, D)
+    tensors and on the (B, T, H, D) layout."""
     import jax.numpy as jnp
 
     from pytorch_distributed_rnn_tpu.ops import pallas_attention as jpa
@@ -246,13 +385,13 @@ def test_dqkv_plain_matches_jax_kernels(t_q, t_k, d, causal, q_offset, k_offset)
     j_o, j_lse = jpa._fwd_impl(jq, jk, jv, offs, causal, blk, blk, t_q, t_k)
     j_grads = jpa._bwd_impl(jq, jk, jv, jdo, j_lse, jpa._delta_of(jdo, j_o), offs, causal, blk,
                             blk, t_q, t_k)
-    tq, tk, tv, tdo = _torch((q, k, v, do))
+    tq, tk, tv, tdo = (_heads_layout(a, heads) for a in (q, k, v, do))
     o, lse = fa.flash_fwd_plain(tq, tk, tv, causal, q_offset, k_offset)
     got = fa.flash_dqkv_plain(tq, tk, tv, o, tdo, lse, causal, q_offset, k_offset)
-    for name, g, want, t in zip(("dq", "dk", "dv"), got, j_grads, (t_q, t_k, t_k)):
-        assert g.dtype == torch.float32 and g.shape == (bh, t, d)
-        np.testing.assert_allclose(_np(g), _np(want[:, :t]), rtol=F32_GRAD, atol=F32_GRAD,
-                                   err_msg=name)
+    for name, g, want, like in zip(("dq", "dk", "dv"), got, j_grads, (tq, tk, tv)):
+        assert g.dtype == torch.float32 and g.shape == like.shape and g.stride() == like.stride()
+        np.testing.assert_allclose(_np(_flat_heads(g)), _np(want[:, :like.shape[1]]),
+                                   rtol=F32_GRAD, atol=F32_GRAD, err_msg=name)
     if k_offset == 512:
         assert not any(g.any() for g in got)
 
@@ -639,7 +778,33 @@ def test_cli_rejects_dim_not_divisible_by_heads(cache_dir):
 # ---------------------------------------------------------------------------
 
 
+def _cuda_rows(bh, t, d, dtype, gen, layout):
+    """Random O(1) rows of BH heads on the card: (BH, T, D) (``flat``), or
+    in the kernels' (B, T, H, D) layout with H = 2 where BH is even, as a
+    view of a (B, T, H*D) projection (``projection``) or of (B, H, T, D)
+    storage (``by-head``)."""
+    if layout == "flat":
+        return torch.randn(bh, t, d, generator=gen, device="cuda").to(dtype)
+    heads = 2 if bh % 2 == 0 else 1
+    if layout == "projection":
+        x = torch.randn(bh // heads, t, heads * d, generator=gen, device="cuda").to(dtype)
+        return x.view(bh // heads, t, heads, d)
+    x = torch.randn(bh // heads, heads, t, d, generator=gen, device="cuda").to(dtype)
+    return x.transpose(1, 2)
+
+
+def _assert_kernel_close(got, want, tol, dtype):
+    """float32 elementwise at ``tol``; bf16 at 1e-2 of the largest value."""
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    else:
+        err, peak = (got - want).abs().max().item(), want.abs().max().item()
+        assert err <= BF16_KERNEL * peak, (err, peak)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["flat", "projection"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 # the CLI shape (D=32), the CLI default width (D=8), the long-context
 # head (D=128), a ragged T, cross lengths, causal offsets, a chunk that
@@ -653,31 +818,28 @@ def test_cli_rejects_dim_not_divisible_by_heads(cache_dir):
      (5, 77, 200, 100, True, 150, 0), (64, 1024, 1024, 128, True, 0, 0),
      (16, 128, 128, 72, False, 0, 0)],
 )
-def test_cuda_kernels_match_plain_versions(bh, t_q, t_k, d, causal, q_offset, k_offset, dtype):
+def test_cuda_kernels_match_plain_versions(bh, t_q, t_k, d, causal, q_offset, k_offset, dtype,
+                                           layout):
+    """Every kernel against its plain version, on (BH, T, D) rows and on
+    the (B, T, H, D) views of projections (dO then in another layout, the
+    (B, H, T, D) storage's: each tensor is read by its own strides)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
 
     def assert_kernel_close(got, want, tol):
-        got, want = got.float(), want.float()
-        if dtype == torch.float32:
-            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
-        else:
-            err, peak = (got - want).abs().max().item(), want.abs().max().item()
-            assert err <= BF16_KERNEL * peak, (err, peak)
+        assert got.shape == want.shape and got.stride() == want.stride()
+        _assert_kernel_close(got, want, tol, dtype)
 
     gen = torch.Generator(device="cuda").manual_seed(bh * t_q + d)
-
-    def rand(t):
-        return torch.randn(bh, t, d, generator=gen, device="cuda").to(dtype)
-
-    q, k, v, do = rand(t_q), rand(t_k), rand(t_k), rand(t_q)
+    q, k, v = (_cuda_rows(bh, t, d, dtype, gen, layout) for t in (t_q, t_k, t_k))
+    do = _cuda_rows(bh, t_q, d, dtype, gen, "flat" if layout == "flat" else "by-head")
     kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
     fa.reset_launch_counts()
     o, lse = fa.flash_fwd(q, k, v, **kw)
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
     assert_kernel_close(o, o_p, F32_FWD)
     torch.testing.assert_close(lse, lse_p, rtol=F32_FWD, atol=F32_FWD)
-    delta = (do.float() * o_p.float()).sum(-1)
+    delta = fa._delta(do, o_p)
     args = (q, k, v, do, lse_p, delta)
     assert_kernel_close(fa.flash_dq(*args, **kw), fa.flash_dq_plain(*args, **kw), F32_GRAD)
     for got, want in zip(fa.flash_dkv(*args, **kw), fa.flash_dkv_plain(*args, **kw)):
@@ -691,6 +853,33 @@ def test_cuda_kernels_match_plain_versions(bh, t_q, t_k, d, causal, q_offset, k_
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
                            "flash_dqkv": int(fused)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["none", "causal-offsets", "no-visible-key"])
+@pytest.mark.parametrize("d", [1, 8, 31, 32, 64, 100, 128])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 128, 200, 1024])
+def test_cuda_f32_forward_edges_match_plain(t, d, mask):
+    """The float32 forward (3xTF32 on the tensor cores) against its plain
+    version at the edges of its tiles (T around the 64-key tile and the
+    128-row block, D padded to 16, 32, 64, 128, unaligned rows at D=1, 31,
+    100), on the (B, T, H, D) views of projections, causal with offsets and
+    a chunk with no visible key (o = 0, lse = -inf)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(t * 131 + d)
+    q, k, v = (_cuda_rows(4, t, d, torch.float32, gen, "projection") for _ in range(3))
+    kw = {"none": dict(causal=False), "causal-offsets": dict(causal=True, q_offset=37, k_offset=5),
+          "no-visible-key": dict(causal=True, q_offset=0, k_offset=t)}[mask]
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] == 1 and o.stride() == q.stride()
+    _assert_kernel_close(o, o_p, F32_FWD, torch.float32)
+    torch.testing.assert_close(lse, lse_p, rtol=F32_FWD, atol=F32_FWD)
+    if mask == "no-visible-key":
+        assert torch.equal(o, torch.zeros_like(o)) and torch.isneginf(lse).all()
 
 
 @pytest.mark.cuda

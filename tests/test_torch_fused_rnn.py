@@ -150,6 +150,48 @@ def test_plain_backward_on_saved_gates_matches_jax_kernel_at_h32():
         np.testing.assert_allclose(_f32(a), _f32(b), rtol=F32_GRAD, atol=F32_GRAD, err_msg=name)
 
 
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16", "bf16-saturated"])
+@pytest.mark.parametrize("hidden", [32, 111])
+def test_plain_backward_on_saved_gates_matches_jax_kernel_by_width(hidden, dtype_name):
+    """``lstm_bwd_plain`` reading the plain forward's gates at both widths
+    that save them (H=32, and 111, the narrowest cluster width) against
+    ``_lstm_bwd_pallas`` (Pallas interpret mode), which recomputes them in
+    float32, and against itself recomputing them: dx_proj, dh0, dc0.  In
+    bf16 the saved gates are rounded to bf16 and the backward forms i(1-i),
+    f(1-f), o(1-o) and 1-g^2 from them; ``bf16-saturated`` scales x_proj by
+    8 so that most i, f and o sit within 0.01 of 0 or 1, where those
+    factors lose most of their relative precision."""
+    import jax.numpy as jnp
+
+    from pytorch_distributed_rnn_tpu.ops.pallas_rnn import _lstm_bwd_pallas
+
+    saturated = dtype_name == "bf16-saturated"
+    tdt = torch.float32 if dtype_name == "f32" else torch.bfloat16
+    jdt = jnp.float32 if dtype_name == "f32" else jnp.bfloat16
+    tol = F32_GRAD if dtype_name == "f32" else BF16
+    rng = np.random.RandomState(hidden)
+    batch, seq = 5, 8
+    x_proj = rng.randn(seq, batch, 4 * hidden).astype(np.float32) * (8.0 if saturated else 1.0)
+    w = (0.2 * (32 / hidden) ** 0.5 * rng.randn(hidden, 4 * hidden)).astype(np.float32)
+    h0, c0 = (0.5 * rng.randn(batch, hidden).astype(np.float32) for _ in range(2))
+    cot = [rng.randn(*s).astype(np.float32)
+           for s in ((seq, batch, hidden), (batch, hidden), (batch, hidden))]
+    t = [torch.tensor(a, dtype=tdt) for a in (x_proj, h0, c0, w, *cot)]
+    h_all, c_all, gates = fr.lstm_fwd_plain(*t[:4])
+    assert fr.lstm_saves_gates(hidden)
+    if saturated:
+        ifo = torch.cat([gates[..., :2 * hidden], gates[..., 3 * hidden:]], dim=-1).float()
+        assert ((ifo - 0.5).abs() > 0.49).float().mean() > 0.5
+    got = fr.lstm_bwd_plain(None, h_all, c_all, *t[1:], gates=gates)
+    recomputed = fr.lstm_bwd_plain(t[0], h_all, c_all, *t[1:])
+    want = _lstm_bwd_pallas(*(jnp.asarray(_f32(a), jdt) for a in (x_proj, h_all, c_all, h0, c0,
+                                                                   w, *cot)), block_b=batch)
+    for name, a, b, r in zip(("dx_proj", "dh0", "dc0"), got, want, recomputed):
+        assert a.dtype == tdt
+        np.testing.assert_allclose(_f32(a), _f32(b), rtol=tol, atol=tol, err_msg=name)
+        np.testing.assert_allclose(_f32(a), _f32(r), rtol=tol, atol=tol, err_msg=name)
+
+
 def test_fused_scan_matches_jax_fused_scan_at_h32():
     """``FusedLSTMScan`` at H=32 on a ragged batch against the JAX
     ``fused_lstm_scan``: h_all and the final state, and the gradients of

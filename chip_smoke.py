@@ -64,8 +64,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    e. the long-context classifier (dim 512, 4 heads, depth 2, bf16,
       T=1024) trained 10 Adam steps at batch 16 on seeded random windows,
       through the model and a train-step loop: ``flash_fwd``, ``flash_dq``
-      and ``flash_dkv``, no ``flash_dqkv``.
-   Each checks finite losses (a-d, f: and the perf line), that its kernels
+      and ``flash_dkv``, no ``flash_dqkv``;
+   g. the data-parallel strategies through ``torchrun`` and the CLI
+      (``parallel/launch.py`` running ``main ... distributed|horovod`` on
+      every rank) at path a's width with ``--dropout 0``: world 1 on NCCL
+      (``distributed`` with and without ``--sharded-update``, and ``--cell
+      gru``), and h. world 2, two ranks sharing the card over gloo
+      (``distributed`` and ``horovod``, each with and without
+      ``--sharded-update``).  Every rank must end with rank 0's parameters
+      bit for bit, sharded with replicated bit for bit, ``distributed``
+      with ``horovod`` within 1e-5 and each world with a ``local`` run of
+      the same flags within 1e-4; each rank's kernel launches are counted
+      (reset before its run, read after) against the steps it took.
+   Each of a-f checks finite losses (a-d, f: and the perf line), that its kernels
    were launched and no others (c, f: one of each a layer a train step),
    and that the trained model's kernel path agrees with its plain path:
    fused vs scan logits (a-c, f; c and f also greedy tokens, or a near tie
@@ -626,19 +637,15 @@ class PathRun:
 
 
 def _reset_launch_counts():
-    from pytorch_distributed_rnn_tpu_torch.ops import fused_attention as fa
-    from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
+    from pytorch_distributed_rnn_tpu_torch.parallel import launch
 
-    fr.reset_launch_counts()
-    fa.reset_launch_counts()
+    launch.reset_launch_counts()
 
 
 def _launch_counts() -> dict:
-    """Every kernel's launches since the last reset."""
-    from pytorch_distributed_rnn_tpu_torch.ops import fused_attention as fa
-    from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
+    from pytorch_distributed_rnn_tpu_torch.parallel import launch
 
-    return {**fr.LAUNCHES, **fa.LAUNCHES}
+    return launch.launch_counts()
 
 
 def _drive(workdir: Path, argv: list, after=None) -> tuple:
@@ -855,6 +862,146 @@ def phase_attention(workdir: Path) -> PathRun:
     return run
 
 
+DP_TOL_LOCAL = 1e-4  # a world's final parameters against local's, float32 on the card
+DP_TOL_FLAVOURS = 1e-5  # distributed against horovod
+
+
+def _torchrun(ranks: int, jobs: list, workdir: Path, name: str) -> tuple:
+    """``jobs`` (``parallel/launch.py``) on a ``torchrun`` world of ``ranks``
+    processes on the card; a failure in any rank fails the phase.  Returns
+    the wall seconds and the launcher's standard error."""
+    spec = workdir / f"{name}.json"
+    spec.write_text(json.dumps({"device": "cuda", "jobs": jobs}))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", str(ranks), "-m",
+                           "pytorch_distributed_rnn_tpu_torch.parallel.launch", str(spec)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-8000:])
+        raise RuntimeError(f"{name}: torchrun exited {proc.returncode}")
+    return wall, proc.stderr
+
+
+def _dp_job(workdir: Path, name: str, flags: list) -> dict:
+    return {"dir": str(workdir / "dp" / name),
+            "argv": ["--dataset-path", str(workdir / "data"), "--checkpoint-directory", "models",
+                     "--epochs", "2", "--seed", "0", "--dropout", "0", *flags]}
+
+
+def _dp_results(job: dict, ranks: int) -> tuple:
+    """Every rank's ``rank<r>.pt``, checked to hold rank 0's final
+    parameters bit for bit, and rank 0's ``history.json``."""
+    results = [torch.load(Path(job["dir"]) / f"rank{r}.pt", weights_only=True)
+               for r in range(ranks)]
+    history = json.loads((Path(job["dir"]) / "rank0" / "history.json").read_text())
+    losses = history["train_history"] + history["validation_history"]
+    if len(history["train_history"]) != 2 or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"{job['dir']}: losses not finite: {history}")
+    for rank, result in enumerate(results[1:], start=1):
+        if any(not torch.equal(result["state"][k], v) for k, v in results[0]["state"].items()):
+            raise RuntimeError(f"{job['dir']}: rank {rank} ends with other parameters than rank 0")
+    perf = [[m for m in r["log"] if "Memory Usage" in m] for r in results]
+    if any(len(p) != 1 or not p[0].startswith(f"{rank}: ") for rank, p in enumerate(perf)):
+        raise RuntimeError(f"{job['dir']}: perf lines {perf}")
+    print(f"  {Path(job['dir']).name}: train_history={history['train_history']}, "
+          f"validation_history={history['validation_history']}, perf lines "
+          f"{[p[0] for p in perf]}, rank 0 launches {results[0]['launches']}")
+    return results, history
+
+
+def _check_dp_launches(name: str, results: list, cell: str, layers: int = 2) -> dict:
+    """Each rank launched its cell's kernels and no others: a forward and a
+    backward a layer a train step, and rank 0 a forward a layer for each
+    evaluation (one an epoch, then the test set).  Returns rank 0's
+    launches a train step."""
+    fwd, bwd = f"{cell}_fwd", f"{cell}_bwd"
+    for rank, result in enumerate(results):
+        launches, steps = result["launches"], result["steps"]
+        for kernel, count in launches.items():
+            if (kernel in (fwd, bwd)) != (count > 0):
+                raise RuntimeError(f"{name}: rank {rank} launched {kernel} {count} times")
+        evaluations = 3 if rank == 0 else 0
+        if not launches[fwd] - evaluations * layers == launches[bwd] == steps * layers:
+            raise RuntimeError(f"{name}: rank {rank} launches {launches} over {steps} steps")
+    steps = results[0]["steps"]
+    return {fwd: (results[0]["launches"][fwd] - 3 * layers) / steps,
+            bwd: results[0]["launches"][bwd] / steps}
+
+
+def _state_err(a: dict, b: dict) -> float:
+    return max((a[k].float() - b[k].float().cpu()).abs().max().item() for k in a)
+
+
+def _dp_compare(what: str, a: tuple, b: tuple, tol: float):
+    """Two runs' final parameters and histories: equal bit for bit where
+    ``tol`` is 0, else within ``tol``."""
+    (state_a, hist_a), (state_b, hist_b) = a, b
+    err = _state_err(state_a, state_b)
+    hist_err = max(abs(x - y) for key in ("train_history", "validation_history")
+                   for x, y in zip(hist_a[key], hist_b[key]))
+    print(f"  {what}: params max_abs_err={err:.3e}, history max_abs_err={hist_err:.3e}, "
+          f"tol={'bitwise' if tol == 0 else f'{tol:g}'}")
+    if err > tol or hist_err > tol or (tol == 0 and hist_a != hist_b):
+        raise RuntimeError(f"{what}: disagree")
+
+
+def phase_distributed(workdir: Path) -> dict:
+    """The data-parallel strategies through ``torchrun`` and the CLI at
+    path a's width (2 x 32 LSTM, batch 1440, 2 epochs, ``--dropout 0`` so
+    that worlds compare with local): world 1 on NCCL (``distributed`` with
+    and without ``--sharded-update``, and ``--cell gru``), world 2 sharing
+    the card over gloo (``distributed`` and ``horovod``, each with and
+    without ``--sharded-update``), held against a ``local`` run from the
+    same seed, against each other, and the kernels' launches counted on
+    every rank."""
+    print("main path: distributed (g: world 1 on NCCL; h: world 2 on one card over gloo)")
+    trainer, local_history, _, _ = _drive(workdir, _dp_job(workdir, "local", ["local"])["argv"])
+    local = ({k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}, local_history)
+
+    g_jobs = {name: _dp_job(workdir, f"g-{name}", flags) for name, flags in (
+        ("sharded", ["--sharded-update", "distributed"]),
+        ("replicated", ["--no-sharded-update", "distributed"]),
+        ("gru", ["--cell", "gru", "distributed"]))}
+    wall, _ = _torchrun(1, list(g_jobs.values()), workdir, "g")
+    print(f"  world 1 on NCCL: {len(g_jobs)} runs in {wall:.2f} s (one torchrun)")
+    g = {name: _dp_results(job, 1) for name, job in g_jobs.items()}
+    per_step = {"g": _check_dp_launches("g sharded", g["sharded"][0], "lstm")}
+    _check_dp_launches("g replicated", g["replicated"][0], "lstm")
+    per_step["g gru"] = _check_dp_launches("g gru", g["gru"][0], "gru")
+
+    h_jobs = {(flavour, sharding): _dp_job(workdir, f"h-{flavour}-{sharding}",
+                                           [f"--{sharding}", flavour])
+              for flavour in ("distributed", "horovod")
+              for sharding in ("sharded-update", "no-sharded-update")}
+    wall, stderr = _torchrun(2, list(h_jobs.values()), workdir, "h")
+    print(f"  world 2 sharing the card over gloo: {len(h_jobs)} runs in {wall:.2f} s "
+          "(one torchrun)")
+    if "ranks share 1 card(s) over gloo" not in stderr:
+        raise RuntimeError("h: rank 0 did not log the shared-card backend")
+    h = {key: _dp_results(job, 2) for key, job in h_jobs.items()}
+    for key, (results, _) in h.items():
+        per_step[f"h {'/'.join(key)}"] = _check_dp_launches(f"h {key}", results, "lstm")
+    print(f"  launches a train step (rank 0): {per_step}")
+
+    def final(run):
+        results, history = run
+        return results[0]["state"], history
+
+    _dp_compare("g: sharded vs replicated", final(g["sharded"]), final(g["replicated"]), 0)
+    _dp_compare("g vs local", final(g["sharded"]), local, DP_TOL_LOCAL)
+    for flavour in ("distributed", "horovod"):
+        _dp_compare(f"h {flavour}: sharded vs replicated",
+                    final(h[flavour, "sharded-update"]), final(h[flavour, "no-sharded-update"]), 0)
+    _dp_compare("h: distributed vs horovod", final(h["distributed", "no-sharded-update"]),
+                final(h["horovod", "no-sharded-update"]), DP_TOL_FLAVOURS)
+    _dp_compare("h distributed vs local", final(h["distributed", "sharded-update"]), local,
+                DP_TOL_LOCAL)
+    return per_step
+
+
 def phase_long_context():
     """The long-context classifier (bench.py's attention_seq1024_dim512
     bf16 row): ``LONG_STEPS`` Adam steps through the model and a
@@ -899,6 +1046,15 @@ def phase_long_context():
     return run, train_steps
 
 
+def _device_events(prof) -> list:
+    """The kernels, copies and sets of a profiled run, without the device
+    spans of user annotations (``Optimizer.step``, DDP's forward), which
+    cover kernels counted already (``utils/ab.py:device_events``)."""
+    from pytorch_distributed_rnn_tpu_torch.utils.ab import device_events
+
+    return device_events(prof)
+
+
 def phase_step_profile(name: str, train, steps: int, repeats: int):
     """``train()`` runs ``steps`` more train steps of a trained model,
     ending on a host read of the loss: each of ``repeats`` runs timed on
@@ -914,8 +1070,7 @@ def phase_step_profile(name: str, train, steps: int, repeats: int):
         host_ms.append((time.perf_counter() - t0) * 1e3 / steps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         train()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    events = _device_events(prof)
     device_us = {e.key: e.self_device_time_total for e in events}
     total_us = sum(device_us.values())
     copies = [e for e in events if "copy" in e.key.lower()]
@@ -968,8 +1123,7 @@ def _device_ms(fn, iters: int = 20) -> tuple[float, list]:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    events = _device_events(prof)
     total_us = sum(e.self_device_time_total for e in events)
     if total_us <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
@@ -1360,8 +1514,7 @@ def _glue(batch: int, heads: int, t: int, d: int, dtype) -> tuple:
             if _merge_heads(o.transpose(1, 2)).data_ptr() != o.data_ptr():
                 raise RuntimeError("merging the heads copied o")
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    events = _device_events(prof)
     return (sum(e.count for e in events) / 20,
             sum(e.self_device_time_total for e in events) / 1e3 / 20)
 
@@ -1443,6 +1596,7 @@ def main() -> int:
             "char_lstm": phase_char(workdir, "lstm"),
             "attention": phase_attention(workdir),
         }
+        phase_distributed(workdir)
     runs["long"], long_train = phase_long_context()
     formatter = TrainingMessageFormatter(1)
     for key, epochs in (("motion_lstm", PROFILE_EPOCHS), ("motion_gru", 2), ("char_gru", 2),

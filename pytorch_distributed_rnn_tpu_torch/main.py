@@ -2,13 +2,17 @@
 
 The flag surface of the JAX package's ``main.py``, plus ``--device
 {cuda,cpu}`` (default ``cuda``; without a card the run fails and says to
-pass ``--device cpu``).  Only ``local`` is registered as a subcommand;
-``--model`` takes ``rnn``, ``char`` and ``attention``.
+pass ``--device cpu``).  The subcommands are ``local`` and the
+data-parallel strategies ``distributed`` (DDP) and ``horovod``, one
+process a rank (``--sharded-update``, on by default, shards their Adam
+step); ``--model`` takes ``rnn``, ``char`` and ``attention``.
 Flags whose machinery is not ported yet are parsed and rejected loudly
 when set to anything but their default.
 
 Run:
   python -m pytorch_distributed_rnn_tpu_torch.main --dataset-path data local
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m pytorch_distributed_rnn_tpu_torch.main --dataset-path data distributed
   python -m pytorch_distributed_rnn_tpu_torch.main --model char --cell gru \
       --hidden-units 512 --seq-length 128 --batch-size 256 --dropout 0 local
   python -m pytorch_distributed_rnn_tpu_torch.main --model attention \
@@ -49,7 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-validation", action="store_true")
     parser.add_argument("--cell", default="lstm", choices=["lstm", "gru"],
                         help="recurrent cell; both run the fused kernels on the card "
-                        "where they take the width (GRU up to 512, LSTM up to 110)")
+                        "up to 512 hidden units")
     parser.add_argument("--model", default="rnn", choices=["rnn", "attention", "char", "moe"],
                         help="model family; the port trains rnn (motion classifier), "
                         "char (char LM) and attention (attention classifier, "
@@ -78,7 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--grad-accum", default=1, type=int, metavar="K",
                         help=f"values above 1 are {NOT_PORTED}")
     parser.add_argument("--sharded-update", default=True, action=argparse.BooleanOptionalAction,
-                        help="data-parallel strategies only; inert on local")
+                        help="distributed and horovod: reduce-scatter the gradient, "
+                        "step Adam on each rank's 1/world slice, all-gather the "
+                        "parameters (default on); inert on local")
     parser.add_argument("--bucketed-comm", default=True, action=argparse.BooleanOptionalAction,
                         help="distributed-native only; inert on local")
     parser.add_argument("--bucket-mb", default=25.0, type=float, metavar="MB",

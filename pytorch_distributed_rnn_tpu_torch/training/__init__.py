@@ -1,6 +1,12 @@
-"""Trainer registry: the ``local`` subcommand and the shared run tail,
-the counterparts of the JAX package's ``training/__init__.py``
-``add_sub_commands``/``train``/``_run_trainer``."""
+"""Trainer registry: the ``local``, ``distributed`` and ``horovod``
+subcommands and the shared run tail, the counterparts of the JAX package's
+``training/__init__.py`` ``add_sub_commands``/``train``/``_run_trainer``.
+
+``distributed`` and ``horovod`` run one process a rank: start them with
+``torchrun`` (``python -m torch.distributed.run --nproc-per-node W -m
+pytorch_distributed_rnn_tpu_torch.main ... distributed``); without a
+launcher they run as a world of 1.
+"""
 
 from __future__ import annotations
 
@@ -8,23 +14,52 @@ import json
 import logging
 
 from pytorch_distributed_rnn_tpu_torch.training.base import Trainer
+from pytorch_distributed_rnn_tpu_torch.training.distributed import (
+    DDPTrainer,
+    HorovodTrainer,
+    SpmdTrainer,
+)
 
-__all__ = ["Trainer", "add_sub_commands", "train"]
+__all__ = ["DDPTrainer", "HorovodTrainer", "SpmdTrainer", "Trainer", "add_sub_commands",
+           "train"]
 
 
 def add_sub_commands(sub_parser):
-    local = sub_parser.add_parser("local")
-    local.set_defaults(func=lambda args: train(args, Trainer))
+    for name, trainer_class in (("local", Trainer), ("distributed", DDPTrainer),
+                                ("horovod", HorovodTrainer)):
+        command = sub_parser.add_parser(name)
+        command.set_defaults(func=lambda args, cls=trainer_class: train(args, cls))
 
 
 def train(args, trainer_class):
     """Load the family's datasets, build its model and run the trainer
-    with the family's loss mixed in."""
+    with the family's loss mixed in.  A data-parallel strategy first joins
+    the process group of its launch; rank 0 builds the kernels and
+    prepares the data before the other ranks read them."""
     logging.basicConfig(level=args.log)
     logging.getLogger().setLevel(args.log)
+    if not issubclass(trainer_class, SpmdTrainer):
+        return _train(args, trainer_class)
+    from pytorch_distributed_rnn_tpu_torch.parallel import collectives
+
+    group = collectives.init_process_group(args.device)
+    try:
+        if group.device.type == "cuda":
+            collectives.build_kernels_once(group)
+        return _train(args, trainer_class, group)
+    finally:
+        collectives.destroy(group)
+
+
+def _train(args, trainer_class, group=None):
     from pytorch_distributed_rnn_tpu_torch.training import families
 
-    training_set, validation_set, test_set = families.load_datasets(args)
+    if group is not None and group.rank != 0:
+        group.barrier()  # rank 0 may write the data cache first
+    datasets = families.load_datasets(args)
+    if group is not None and group.rank == 0:
+        group.barrier()
+    training_set, validation_set, test_set = datasets
     logging.info(f"Training set of size {len(training_set)}")
     if args.no_validation:
         validation_set = test_set = None
@@ -32,13 +67,19 @@ def train(args, trainer_class):
         logging.info(f"Validation set of size {len(validation_set)}")
         logging.info(f"Test set of size {len(test_set)}")
     model = families.build_model(args, training_set)
+    placement = {"device": args.device}
+    if group is not None:
+        placement = {"device": group.device, "group": group,
+                     "sharded_update": args.sharded_update}
     return _run_trainer(args, families.wrap_trainer(args, trainer_class), model,
-                        (training_set, validation_set, test_set))
+                        (training_set, validation_set, test_set), **placement)
 
 
-def _run_trainer(args, trainer_class, model, datasets):
-    """Construct, optionally resume, train, and dump ``history.json`` into
-    the working directory."""
+def _run_trainer(args, trainer_class, model, datasets, **placement):
+    """Construct, optionally resume, train, and (rank 0) dump
+    ``history.json`` into the working directory.  ``placement`` holds the
+    device, and a data-parallel strategy's process group and
+    ``sharded_update``."""
     training_set, validation_set, test_set = datasets
     trainer = trainer_class(
         model=model,
@@ -51,16 +92,17 @@ def _run_trainer(args, trainer_class, model, datasets):
         seed=args.seed,
         checkpoint_every=args.checkpoint_every,
         keep_checkpoints=args.keep_checkpoints,
-        device=args.device,
+        **placement,
     )
     if args.resume:
         meta = trainer.resume_from(args.resume)
         logging.info(f"Resumed from {args.resume} at epoch {meta['epoch']}")
     logging.info(f"Training model for {args.epochs} epochs...")
     _, train_history, validation_history = trainer.train(epochs=args.epochs)
-    with open("history.json", "w") as file:
-        json.dump({
-            "train_history": train_history,
-            "validation_history": validation_history,
-        }, file)
+    if trainer.rank == 0:
+        with open("history.json", "w") as file:
+            json.dump({
+                "train_history": train_history,
+                "validation_history": validation_history,
+            }, file)
     return trainer

@@ -70,6 +70,7 @@ class Trainer:
         self.checkpoint_every = int(checkpoint_every or 0)
         self.keep_checkpoints = int(keep_checkpoints or 0)
         seed = seed if seed is not None else 0
+        self.rank = 0  # the rank that evaluates and writes files
         self.sampler = DistributedSampler(len(training_set), num_replicas=1, rank=0, seed=seed)
         self.optimizer = torch.optim.Adam(
             self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8
@@ -99,11 +100,16 @@ class Trainer:
 
     # -- loss ----------------------------------------------------------------
 
+    def _net(self):
+        """The module a batch goes through: ``model`` itself here; a
+        data-parallel wrapper of it in train mode where a strategy has one."""
+        return self.model
+
     def _loss_and_metrics(self, x, y, generator=None):
         """A batch's mean loss and its ``correct`` count (classification:
         argmax of the logits equals the label).  ``generator`` drives
         train-mode dropout; evaluation passes None."""
-        logits = self.model(x, generator)
+        logits = self._net()(x, generator)
         return cross_entropy_loss(logits, y), (logits.argmax(dim=1) == y).sum()
 
     # -- loop ----------------------------------------------------------------
@@ -113,7 +119,7 @@ class Trainer:
         validation_history)``."""
         training_history: list[float] = []
         validation_history: list[float] = []
-        formatter = TrainingMessageFormatter(epochs)
+        formatter = TrainingMessageFormatter(epochs, self.rank)
 
         def train_inner():
             best_loss = self._resume_best_loss
@@ -169,7 +175,12 @@ class Trainer:
                 ))
         # parity quirk kept: sum of batch-mean losses / dataset size
         n = len(self.training_set)
-        return float(total_loss) / n, float(total_correct) / n
+        loss_sum, correct_sum = self._epoch_sums(total_loss, total_correct)
+        return loss_sum / n, correct_sum / n
+
+    def _epoch_sums(self, total_loss, total_correct) -> tuple[float, float]:
+        """The epoch's sum of batch-mean losses and its ``correct`` sum."""
+        return float(total_loss), float(total_correct)
 
     def _evaluate(self, dataset, formatter, epoch=None):
         """Whole-dataset evaluation as one batch, eval mode, no grad."""
@@ -197,9 +208,13 @@ class Trainer:
     def _save_checkpoint(self, epoch, loss, best=False):
         if self.checkpoint_dir is None:
             return
+        # every rank takes the optimizer state (a collective where it is
+        # sharded); rank 0 writes
+        opt_state = self.optimizer.state_dict()
+        if self.rank != 0:
+            return
         save_checkpoint(
-            self.checkpoint_dir, epoch, self.model.state_dict(),
-            self.optimizer.state_dict(), loss, best=best,
+            self.checkpoint_dir, epoch, self.model.state_dict(), opt_state, loss, best=best,
         )
         if not best and self.keep_checkpoints:
             rotate_checkpoints(self.checkpoint_dir, self.keep_checkpoints)

@@ -1,0 +1,136 @@
+"""Data-parallel trainers, one process a rank: the ``distributed`` (DDP)
+and ``horovod`` strategies.
+
+The counterpart of the JAX package's ``training/distributed.py``.  The
+JAX ``SpmdTrainer`` is one controller whose "ranks" are positions on a
+``dp`` mesh axis; the port runs one process a rank over
+``torch.distributed``, as the reference does under ``mpirun``
+(``trainer/distributed.py``, ``ddp.py``, ``horovod.py``).  Each rank:
+
+- takes ``batch_size // world`` rows a step, walking row ``rank`` of the
+  sampler's ``global_indices()``, so step s of the world covers the rows
+  of ``local``'s step s (global-batch semantics);
+- draws dropout masks from its own generator, the rank folded into the
+  seed (rank 0 draws ``local``'s masks);
+- reports the train loss as the mean over ranks of the local means and
+  ``correct`` summed over ranks, with one allreduce an epoch;
+- leaves evaluation, checkpoints and ``history.json`` to rank 0, which
+  broadcasts each evaluation's loss so every rank takes the same
+  best-model decisions (and joins the optimizer-state gather of a
+  sharded checkpoint);
+- tags its log lines with its rank (``0: Memory Usage: ...``).
+
+Checkpoints hold the unwrapped module's ``state_dict`` and
+``torch.optim.Adam``'s unsharded per-parameter state, so a checkpoint of
+any strategy resumes in any other.  The update is the optax formula
+(``ops/adam.py``) on every path here, replicated or sharded.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pytorch_distributed_rnn_tpu_torch.data.sampler import DistributedSampler
+from pytorch_distributed_rnn_tpu_torch.ops.adam import Adam
+from pytorch_distributed_rnn_tpu_torch.parallel import dp
+from pytorch_distributed_rnn_tpu_torch.parallel.sharded_update import ShardedUpdate
+from pytorch_distributed_rnn_tpu_torch.training.base import Trainer
+
+# the generator seeds of the ranks: rank r adds r times this odd constant
+_RANK_SEED_STRIDE = 0x9E3779B1
+
+
+class SpmdTrainer(Trainer):
+    """Shared machinery of the data-parallel strategies.  ``group`` is the
+    ``parallel.collectives.World`` of this process; the model runs on its
+    device.  ``sharded_update`` (the default, as in the JAX package)
+    replaces the gradient allreduce and the replicated Adam step with
+    ``parallel.sharded_update.ShardedUpdate``."""
+
+    SYNC = "backward"
+
+    def __init__(self, model, training_set, batch_size: int, learning_rate: float,
+                 validation_set=None, test_set=None, checkpoint_dir=None,
+                 seed: int | None = None, checkpoint_every: int = 0,
+                 keep_checkpoints: int = 0, device=None, group=None,
+                 sharded_update: bool = True):
+        if group is None:
+            raise ValueError(f"{type(self).__name__} needs the process group (group=)")
+        if device is not None and torch.device(device).type != group.device.type:
+            raise ValueError(f"device {device} is not the process group's {group.device}")
+        super().__init__(model, training_set, batch_size, learning_rate,
+                         validation_set=validation_set, test_set=test_set,
+                         checkpoint_dir=checkpoint_dir, seed=seed,
+                         checkpoint_every=checkpoint_every,
+                         keep_checkpoints=keep_checkpoints, device=group.device)
+        seed = seed if seed is not None else 0
+        self.group = group
+        self.rank = group.rank
+        self.world_size = group.size
+        self.sampler = DistributedSampler(len(training_set), num_replicas=group.size,
+                                          rank=group.rank, seed=seed)
+        self.dropout_generator.manual_seed((seed ^ 0x5EED) + group.rank * _RANK_SEED_STRIDE)
+        adam = Adam(self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        self.sharded_update = bool(sharded_update)
+        self._ddp = None
+        if self.sharded_update:
+            self.optimizer = ShardedUpdate(adam, group.size, group.rank, group)
+            if self.SYNC == "backward":
+                # what DDP's construction would do: rank 0's weights everywhere
+                dp.broadcast_params(self.model.parameters(), group)
+        elif self.SYNC == "backward":
+            self.optimizer = adam
+            self._ddp = dp.wrap_ddp(self.model, group)
+        else:
+            self.optimizer = dp.DistributedOptimizer(adam, group)
+
+    def _net(self):
+        if self._ddp is not None and self.model.training:
+            return self._ddp
+        return self.model
+
+    def _epoch_index_batches(self):
+        """This rank's rows of each global batch: ``batch_size // world`` of
+        its sampler shard a step (every rank takes the same number)."""
+        per_rank = max(1, self.batch_size // self.world_size)
+        indices = np.asarray(self.sampler.indices())
+        return [indices[s:s + per_rank] for s in range(0, len(indices), per_rank)]
+
+    def _epoch_sums(self, total_loss, total_correct) -> tuple[float, float]:
+        sums = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                            for v in (total_loss, total_correct)])
+        self.group.psum_([sums])
+        loss_sum, correct_sum = sums.tolist()
+        return loss_sum / self.world_size, correct_sum
+
+    def _evaluate(self, dataset, formatter, epoch=None):
+        """Rank 0 evaluates; every rank gets its loss and accuracy."""
+        result = torch.full((2,), float("nan"), dtype=torch.float64)
+        if self.rank == 0:
+            result = torch.tensor(super()._evaluate(dataset, formatter, epoch),
+                                  dtype=torch.float64)
+        result = result.to(self.device)
+        self.group.broadcast_(result)
+        eval_loss, accuracy = result.tolist()
+        return eval_loss, accuracy
+
+
+class DDPTrainer(SpmdTrainer):
+    """``distributed``: gradients averaged during ``backward()`` by
+    ``DistributedDataParallel`` (reference ``trainer/ddp.py:19``), whose
+    construction broadcasts rank 0's parameters."""
+
+    SYNC = "backward"
+
+
+class HorovodTrainer(SpmdTrainer):
+    """``horovod``: local gradients handed to a ``DistributedOptimizer``
+    that averages them inside ``step()``, and rank 0's parameters broadcast
+    at ``train()`` entry (reference ``trainer/horovod.py:33-42``)."""
+
+    SYNC = "step"
+
+    def train(self, epochs: int):
+        dp.broadcast_params(self.model.parameters(), self.group)
+        return super().train(epochs)

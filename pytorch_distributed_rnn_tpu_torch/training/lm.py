@@ -24,7 +24,7 @@ class LMLossMixin:
 
     def _loss_and_metrics(self, x, y, generator=None):
         del y  # the targets come from the window itself
-        logits = self.model(x[:, :-1], generator).float()
+        logits = self._net()(x[:, :-1], generator).float()
         targets = x[:, 1:].long()
         loss = cross_entropy_loss(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
         acc = (logits.argmax(dim=-1) == targets).float().mean(dim=1)

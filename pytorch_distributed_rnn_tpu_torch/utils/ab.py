@@ -5,6 +5,7 @@
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab tc
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab fwd --other DIR [--rounds N]
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab step --other DIR [--rounds N] [--path P]
+    python -m pytorch_distributed_rnn_tpu_torch.utils.ab dp [--rounds N]
 
 Each run measures one tree (a copy of this package with a source
 substitution, or another checkout) in its own process, with the measuring
@@ -59,6 +60,18 @@ synthetic motif corpus; ``e``, the long-context classifier (dim 512, 4
 heads, depth 2, bf16, T=1024), Adam steps at batch 16 on seeded random
 windows through the model and a train-step loop (10 steps an epoch).
 Each step's device copy kernels are counted too.
+
+``dp``: the data-parallel paths of this tree beside path a, in turns
+(a, g, g0, h, h0, then back): ``g`` is ``distributed`` at world 1 on
+NCCL with the CLI's default ``--sharded-update``, ``g0`` the same with
+``--no-sharded-update``, ``h`` and ``h0`` the same at world 2, two ranks
+sharing the card over gloo (not a scaling figure).  Each rank of a world
+is a ``torchrun`` process that measures as ``step`` does, with path a's
+flags, and reports besides: the collectives' device time a step (the NCCL kernels) and their
+host time a step (the ``nccl:``/``gloo:`` events of the profile), the eight
+largest device entries a step, and the device time of one Adam step alone (``adam_ms``: ``torch.optim.Adam`` on
+path a, the port's ``ops/adam.py`` on each parameter on g0 and h0, and
+on the rank's flat 1/world slice on g and h).
 
 Copies go to ``build/ab/``.  Kernel times are CUDA events over repeated
 launches.  This file imports nothing of the package at module level, so a
@@ -123,6 +136,10 @@ PATHS = {
            "--seq-length", "128", "--batch-size", "256", "--dropout", "0"], 256),
     "e": (None, 16),  # the long-context classifier, no CLI path
 }
+# the data-parallel paths: path a's flags under ``distributed``, with the
+# sharding flag and the ranks (all on one card)
+DP_PATHS = {"g": ("--sharded-update", 1), "g0": ("--no-sharded-update", 1),
+            "h": ("--sharded-update", 2), "h0": ("--no-sharded-update", 2)}
 LONG_DIM, LONG_HEADS, LONG_STEPS = 512, 4, 10
 PORT_KERNELS = ("lstm_", "gru_", "flash_")  # name prefixes of the port's kernels
 
@@ -269,14 +286,24 @@ def _time_tc() -> dict:
             "resources": resources}
 
 
+def device_events(prof) -> list:
+    """The device entries of a ``torch.profiler`` run's ``key_averages()``:
+    the kernels, copies and sets, without the device spans of user
+    annotations (``record_function`` ranges such as
+    ``Optimizer.step#Adam.step`` or ``DistributedDataParallel.forward``),
+    which cover kernels counted already, as the profiler's own table
+    leaves them out of its device total."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _copy_kernels(prof, calls: int) -> tuple:
     """The device copy kernels of a ``torch.profiler`` run: launches and ms
     per call."""
-    import torch
-
-    copies = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-              and "copy" in e.key.lower()]
+    copies = [e for e in device_events(prof) if "copy" in e.key.lower()]
     return (sum(e.count for e in copies) / calls,
             sum(e.self_device_time_total for e in copies) / 1e3 / calls)
 
@@ -347,9 +374,44 @@ def _long_context_epoch():
     return epoch
 
 
+def _adam_ms(trainer) -> float:
+    """The device time of one Adam step of ``trainer`` alone (the grads of
+    its last step; the parameters move, so measure after training)."""
+    import torch
+
+    optimizer = trainer.optimizer
+    if hasattr(optimizer, "shard"):  # the sharded update: Adam on the rank's slice
+        adam = _own("ops.adam")
+        group = optimizer.optimizer.param_groups[0]
+        p = optimizer.shard_slice(optimizer.ravel(optimizer.params), optimizer.rank).clone()
+        g, m, v = torch.randn_like(p), optimizer.exp_avg.clone(), optimizer.exp_avg_sq.clone()
+
+        def step():
+            adam.adam_update_([p], [g], [m], [v], optimizer.steps + 1, group["lr"],
+                              *group["betas"], group["eps"])
+    else:
+        step = getattr(optimizer, "optimizer", optimizer).step  # Horovod's wrapper: its Adam
+    return _device_ms(step, 20)
+
+
+def _device_ms(fn, calls: int) -> float:
+    """``fn``'s device time a call under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / calls
+
+
 def _time_step(path: str = "d") -> dict:
     """A main path with the tree's package: 2 epochs, then 4 on the host
-    clock and one profiled."""
+    clock and one profiled.  A data-parallel path (``DP_PATHS``) runs on
+    each rank of its ``torchrun`` world."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -358,7 +420,14 @@ def _time_step(path: str = "d") -> dict:
     formatter = _own("training.formatter").TrainingMessageFormatter(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    flags, batch = PATHS[path]
+    command, group = "local", None
+    if path in DP_PATHS:
+        (flags, batch), sharding = PATHS["a"], DP_PATHS[path][0]
+        flags, command = [*flags, sharding], "distributed"
+        # the group outlives main(), which then leaves it to this process
+        group = _own("parallel.collectives").init_process_group("cuda")
+    else:
+        flags, batch = PATHS[path]
     with tempfile.TemporaryDirectory(prefix="ab_step_") as tmp:
         if path == "e":
             epoch, steps = _long_context_epoch(), LONG_STEPS
@@ -372,8 +441,8 @@ def _time_step(path: str = "d") -> dict:
             data = work / ("no-corpus" if path == "f" else "data")
             trainer = port_main.main([*flags, "--dataset-path", str(data),
                                       "--checkpoint-directory", str(work / "models"),
-                                      "--epochs", "2", "--seed", "0", "local"])
-            steps = -(-len(trainer.training_set) // batch)
+                                      "--epochs", "2", "--seed", "0", command])
+            steps = len(trainer._epoch_index_batches())
 
             def epoch():
                 trainer._train_epoch(formatter)
@@ -386,35 +455,57 @@ def _time_step(path: str = "d") -> dict:
             host_ms.append((time.perf_counter() - t0) * 1e3 / steps)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             epoch()
-    device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                 if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
+    device_us = {e.key: e.self_device_time_total for e in device_events(prof)}
     kernels = {}
     for key, us in device_us.items():  # by kernel name and template arguments
         if m := re.search(r"(?:%s)\w*(<[^>]*>)?" % "|".join(PORT_KERNELS), key):
             kernels[m.group(0)] = kernels.get(m.group(0), 0.0) + us / 1e3 / steps
     copy_launches, copy_ms = _copy_kernels(prof, steps)
-    return {"path": path, "host_ms": host_ms,
-            "device_ms": sum(device_us.values()) / 1e3 / steps, "kernel_device_ms": kernels,
-            "copy_launches": copy_launches, "copy_ms": copy_ms}
+    out = {"path": path, "host_ms": host_ms,
+           "device_ms": sum(device_us.values()) / 1e3 / steps, "kernel_device_ms": kernels,
+           "copy_launches": copy_launches, "copy_ms": copy_ms}
+    if path in ("a", *DP_PATHS):
+        comm = [e for e in prof.key_averages() if e.key.lower().startswith(("nccl:", "gloo:"))]
+        out.update(
+            rank=group.rank if group is not None else 0,
+            collective_device_ms=sum(us for key, us in device_us.items()
+                                     if "nccl" in key.lower()) / 1e3 / steps,
+            collective_host_ms=sum(e.cpu_time_total for e in comm) / 1e3 / steps,
+            collective_calls=sorted({e.key for e in comm}),
+            top_device_ms={key[:80]: us / 1e3 / steps for key, us in
+                           sorted(device_us.items(), key=lambda kv: -kv[1])[:8]},
+            adam_ms=_adam_ms(trainer))
+    if group is not None:
+        _own("parallel.collectives").destroy(group)
+    return out
 
 
-def _run(root: Path, what: str, *args: str) -> dict:
+def _run(root: Path, what: str, *args: str, ranks: int = 0):
     """``what(*args)`` of this file in a child process whose ``sys.path[0]``
-    is ``root``."""
+    is ``root``; with ``ranks``, in each process of a ``torchrun`` world of
+    that many ranks on this machine, and then a list, rank by rank."""
     code = ("import json, runpy, sys; sys.path.insert(0, sys.argv[1]); "
             "print(json.dumps(runpy.run_path(sys.argv[2])[sys.argv[3]](*sys.argv[4:])))")
-    proc = subprocess.run([sys.executable, "-c", code, str(root), str(Path(__file__)), what,
-                           *args], capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{root}: {proc.stderr[-2000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    launcher = []
+    if ranks:
+        launcher = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+                    str(ranks), "--no-python", sys.executable]
+    proc = subprocess.run([sys.executable, *launcher, "-c", code, str(root), str(Path(__file__)),
+                           what, *args], capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:  # a rank's traceback comes before the launcher's
+        first = proc.stderr.find("Traceback")
+        raise RuntimeError(f"{root}: {proc.stderr[max(first, 0):][:4000]}")
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    if not ranks:
+        return lines[-1]
+    return sorted(lines, key=lambda r: r["rank"])
 
 
 def _parse(argv: list) -> tuple:
     """``(mode, other tree or None, rounds, path)``; raises SystemExit on
     misuse."""
     usage = ("usage: ab rows | ab split | ab tc | ab fwd --other DIR [--rounds N] | "
-             "ab step --other DIR [--rounds N] [--path a|b|d|e|f]")
+             "ab step --other DIR [--rounds N] [--path a|b|d|e|f] | ab dp [--rounds N]")
     if argv in (["rows"], ["split"], ["tc"]):
         return argv[0], None, 1, None
     mode, rest = (argv[0], argv[1:]) if argv else (None, [])
@@ -424,6 +515,8 @@ def _parse(argv: list) -> tuple:
     rounds = options.pop("--rounds", "1")
     if not rounds.isdigit() or int(rounds) < 1:
         raise SystemExit(usage)
+    if mode == "dp" and not options:
+        return mode, None, int(rounds), None
     path = options.pop("--path", "d") if mode == "step" else None
     if (mode in ("step", "fwd") and "--other" in options and len(options) == 1
             and (path is None or path in PATHS)):
@@ -446,6 +539,8 @@ def main(argv=None) -> int:
     elif mode == "fwd":
         runs = [("other", other, "_time_fwd"), ("this", PACKAGE.parent, "_time_fwd"),
                 ("warps4", patched_copy(WORK / "warps4", FWD_WARPS_4), "_time_fwd")]
+    elif mode == "dp":
+        runs = [(name, PACKAGE.parent, "_time_step") for name in ("a", *DP_PATHS)]
     else:
         runs = [("other", other, "_time_step"), ("this", PACKAGE.parent, "_time_step")]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -453,6 +548,11 @@ def main(argv=None) -> int:
     print(smi.stdout.strip().splitlines()[0])
     for i in (*range(len(runs)), *reversed(range(len(runs)))) * rounds:
         label, root, what = runs[i]
+        if mode == "dp":
+            ranks = DP_PATHS[label][1] if label in DP_PATHS else 0
+            result = _run(root, what, label, ranks=ranks)
+            print(json.dumps({"run": label, "ranks": result if ranks else [result]}), flush=True)
+            continue
         result = _run(root, what, *([path] if path else []))
         if mode == "rows" and str(result["rows"]) != label:
             raise RuntimeError(f"the copy for {label} rows ran {result['rows']}")

@@ -22,6 +22,8 @@ from pytorch_distributed_rnn_tpu_torch.utils import ab
     (["step", "--other", "x", "--path", "e"], ("step", Path("x").resolve(), 1, "e")),
     (["fwd", "--other", "x"], ("fwd", Path("x").resolve(), 1, None)),
     (["fwd", "--rounds", "2", "--other", "x"], ("fwd", Path("x").resolve(), 2, None)),
+    (["dp"], ("dp", None, 1, None)),
+    (["dp", "--rounds", "3"], ("dp", None, 3, None)),
 ])
 def test_parse(argv, want):
     assert ab._parse(argv) == want
@@ -33,6 +35,7 @@ def test_parse(argv, want):
     ["kernels"], ["tc", "--rounds", "2"], ["step", "--other", "x", "--path", "c"], ["gates"],
     ["rows", "--rounds", "2"], ["step", "--other", "x", "--other", "y"],
     ["fwd"], ["fwd", "--other", "x", "--path", "d"], ["fwd", "--rounds", "2"],
+    ["dp", "--other", "x"], ["dp", "--path", "g"], ["step", "--other", "x", "--path", "g"],
 ])
 def test_parse_rejects(argv):
     with pytest.raises(SystemExit):
@@ -53,3 +56,20 @@ def test_patched_copy_makes_each_substitution(tmp_path, substitutions):
 def test_patched_copy_raises_on_a_missing_text(tmp_path):
     with pytest.raises(RuntimeError, match="not found"):
         ab.patched_copy(tmp_path / "copy", (("ops/fused_rnn.py", "no such text", "x"),))
+
+
+def test_device_events_leave_out_user_annotations():
+    """A ``record_function`` range (``Optimizer.step#Adam.step``, DDP's
+    forward) has a device span over kernels the profile counts already: it
+    is not a device entry of its own."""
+    from types import SimpleNamespace
+
+    import torch
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = [SimpleNamespace(key="lstm_fwd_kernel", device_type=cuda, is_user_annotation=False),
+              SimpleNamespace(key="Optimizer.step#Adam.step", device_type=cuda,
+                              is_user_annotation=True),
+              SimpleNamespace(key="aten::mm", device_type=cpu, is_user_annotation=False)]
+    prof = SimpleNamespace(key_averages=lambda: events)
+    assert [e.key for e in ab.device_events(prof)] == ["lstm_fwd_kernel"]

@@ -246,7 +246,8 @@ def test_lm_loss_and_token_accuracy():
     tokens = torch.from_numpy(_tokens(4, 10, seed=6))
 
     class Host(LMLossMixin):
-        pass
+        def _net(self):  # the trainer's hook: the module a batch goes through
+            return self.model
 
     host = Host()
     host.model = model.eval()

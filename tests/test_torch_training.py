@@ -247,5 +247,8 @@ def test_other_model_families_exit(cache_dir, family):
 
 
 def test_only_local_is_a_subcommand():
-    with pytest.raises(SystemExit):
-        port_main.main(["--device", "cpu", "distributed"])
+    """The strategies not ported yet are not subcommands (``local``,
+    ``distributed`` and ``horovod`` are)."""
+    for command in ("fsdp", "distributed-native", "mesh", "parameter-server"):
+        with pytest.raises(SystemExit):
+            port_main.main(["--device", "cpu", command])

@@ -62,8 +62,8 @@ Phases, in order; any failure raises and the script exits nonzero:
       HAR windows of (a): ``flash_fwd`` and one ``flash_dqkv`` a block a
       train step, no ``flash_dq``/``flash_dkv``;
    e. the long-context classifier (dim 512, 4 heads, depth 2, bf16,
-      T=1024) trained 10 Adam steps at batch 16 on seeded random windows,
-      through the model and a train-step loop: ``flash_fwd``, ``flash_dq``
+      T=1024) trained one epoch of 10 Adam steps at batch 16 on seeded
+      random windows through the trainer: ``flash_fwd``, ``flash_dq``
       and ``flash_dkv``, no ``flash_dqkv``;
    g. the data-parallel strategies through ``torchrun`` and the CLI
       (``parallel/launch.py`` running ``main ... distributed|horovod`` on
@@ -76,18 +76,30 @@ Phases, in order; any failure raises and the script exits nonzero:
       with ``horovod`` within 1e-5 and each world with a ``local`` run of
       the same flags within 1e-4; each rank's kernel launches are counted
       (reset before its run, read after) against the steps it took.
-   Each of a-f checks finite losses (a-d, f: and the perf line), that its kernels
-   were launched and no others (c, f: one of each a layer a train step),
-   and that the trained model's kernel path agrees with its plain path:
-   fused vs scan logits (a-c, f; c and f also greedy tokens, or a near tie
-   where they differ), flash vs dense logits (d, e).
+   Paths a-f train on the device-resident step (CUDA-graph replays of the
+   train step; INFO logging), so each kernel's launches count at each
+   replay.  Each of a-f checks finite losses (a-d, f: and the perf line),
+   that its kernels were launched and no others (c, f: one of each a
+   layer a train step), and that the trained model's kernel path agrees
+   with its plain path: fused vs scan logits (a-c, f; c and f also greedy
+   tokens, or a near tie where they differ), flash vs dense logits (d, e).
    Each kernel's launches per train step come from the run's counts.
-5. step profile: more epochs (or steps) of each trained model, timed on
-   the host clock, and one under ``torch.profiler`` (device time by
-   kernel, and the device copy kernels a step: the head split and merge
-   copies that path d and e no longer run would show there); and one epoch
-   of path f's model on its scan path (the Python loop over T), what its
-   kernels replace.
+   Then the fast paths against the per-batch loop (``phase_graph``): on
+   a-f two trainers from the same weights (``--no-validation``, 2
+   epochs), the per-batch loop and the per-epoch graph path, end with the
+   same loss history, parameters and Adam state bit for bit and the same
+   launches (a and b at dropout 0 and 0.1, the others at 0); ``--fuse-run``
+   on a-d and f through the CLI and on e through the trainer is within
+   1e-5 of the per-epoch path's history with the same launches a step, and
+   its graph's capture ms and replay ms a step are printed.
+5. step profile: more epochs of each trained path (a-f), the per-batch
+   loop and the graph path in turns (eager, graph, graph, eager, twice),
+   timed on the host clock, and one epoch of each under ``torch.profiler``:
+   device ms a step, the card's idle share of the step, the device copy
+   kernels a step, the graphs' capture times, and the profiled epoch's
+   launch counts held against the profile's count of each kernel; and
+   one epoch of path f's model on its scan path in the per-batch loop
+   (the Python loop over T), what its kernels replace.
 6. timing: CUDA-event times of each kernel, its plain version and the
    library's call (cuDNN's LSTM or GRU, ``torch.nn.LSTM``/``torch.nn.GRU``;
    ``scaled_dot_product_attention`` forward for ``flash_fwd``, and for
@@ -127,6 +139,7 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -175,8 +188,6 @@ NO_STACK_KERNELS = ("gru_fwd_cluster_kernel", "gru_fwd_reg_kernel", "gru_bwd_reg
                     "lstm_fwd_kernel", "lstm_fwd_cluster_kernel", "lstm_fwd_tc_kernel",
                     "lstm_bwd_reg_kernel", "lstm_bwd_cluster_kernel", "flash_dqkv_tc_kernel",
                     "flash_fwd_f32_tc_kernel")
-# the scan path's train steps profiled once beside path f (the char LSTM)
-SCAN_PROFILE_EPOCHS = 1
 LOGIT_TOL = 1e-4  # trained fused logits against the scan path, f32
 TOLERANCES = {  # (forward, backward)
     # the JAX kernel tests' (test_pallas_rnn.py), elementwise:
@@ -196,7 +207,7 @@ ATTN_BWD_BATCHES = (256, 128)
 # the long-context path: bench.py's attention_seq1024_dim512_flash_bf16
 LONG_DIM, LONG_HEADS, LONG_T, LONG_BATCH, LONG_STEPS = 512, 4, 1024, 16, 10
 LOGIT_TOL_BF16 = 5e-2  # flash vs dense logits in bf16: the JAX model tests' bf16 tolerance
-PROFILE_EPOCHS = 3
+PROFILE_ROUNDS = 2  # eager, graph, graph, eager epochs a round (phase 6)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense
@@ -862,6 +873,150 @@ def phase_attention(workdir: Path) -> PathRun:
     return run
 
 
+FUSE_RTOL = 1e-5  # a --fuse-run history against the per-epoch path's (tests/test_training.py)
+# the graph phase's CLI paths: flags beyond the data and checkpoint paths
+GRAPH_PATHS = {
+    "a": [],
+    "b": ["--cell", "gru"],
+    "c": ["--model", "char", "--cell", "gru", "--hidden-units", str(CHAR_HIDDEN),
+          "--stacked-layer", "2", "--seq-length", str(SEQ_LEN), "--batch-size", str(CHAR_BATCH),
+          "--dropout", "0"],
+    "d": ["--model", "attention", "--hidden-units", str(ATTN_DIM), "--num-heads",
+          str(ATTN_HEADS), "--stacked-layer", str(ATTN_DEPTH), "--batch-size", str(ATTN_BATCH),
+          "--dropout", "0"],
+    "f": ["--model", "char", "--hidden-units", str(CHAR_HIDDEN), "--stacked-layer", "2",
+          "--seq-length", str(SEQ_LEN), "--batch-size", str(CHAR_BATCH), "--dropout", "0"],
+}
+
+
+def _graph_argv(workdir: Path, path: str, extra: list) -> list:
+    data = workdir / ("no-corpus" if path in ("c", "f") else "data")
+    return [*GRAPH_PATHS[path], "--dataset-path", str(data), "--checkpoint-directory",
+            str(workdir / f"models-graph-{path}"), "--seed", "0", "--no-validation", *extra,
+            "local"]
+
+
+def _cli_trainer(workdir: Path, argv: list, epochs: int = 0):
+    """``main ... local`` in the working directory (history.json goes
+    there): the trainer after ``epochs`` epochs."""
+    from pytorch_distributed_rnn_tpu_torch import main as port_main
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        return port_main.main(["--epochs", str(epochs), *argv])
+    finally:
+        os.chdir(cwd)
+
+
+def _same_bits(what: str, a, b):
+    """Two trainers' parameters and Adam states equal bit for bit."""
+    for key, value in a.model.state_dict().items():
+        if not torch.equal(value, b.model.state_dict()[key]):
+            raise RuntimeError(f"{what}: parameter {key} differs")
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    for i, state in sa.items():
+        for key, value in state.items():
+            if not torch.equal(value, sb[i][key]):
+                raise RuntimeError(f"{what}: Adam state {i} {key} differs")
+
+
+def _graph_pair(what: str, make, formatter, epochs: int = 2) -> tuple:
+    """Two trainers from ``make()`` (the same weights): ``epochs`` epochs
+    of the per-batch loop and of the per-epoch graph path, each with the
+    launch counts reset before and read after.  The loss histories,
+    parameters and Adam states must agree bit for bit, and the launches
+    too.  Returns the graph trainer, its history and launches a step."""
+    trainers = {"eager": make(), "graph": make()}
+    history, launches = {}, {}
+    for mode, trainer in trainers.items():
+        _reset_launch_counts()
+        history[mode] = []
+        for epoch in range(epochs):
+            trainer.sampler.set_epoch(epoch)
+            history[mode].append(trainer._train_epoch(formatter, eager=mode == "eager")[0])
+        torch.cuda.synchronize()
+        launches[mode] = _launch_counts()
+    steps = epochs * len(trainers["graph"]._epoch_index_batches())
+    per_step = {k: v / steps for k, v in launches["graph"].items() if v}
+    capture = {f"{kind} {rows}": round(g.capture_s * 1e3, 3)
+               for (kind, rows), g in trainers["graph"].graphs.items()}
+    print(f"  {what}: eager {history['eager']}, graph {history['graph']}; launches a step "
+          f"{per_step}; capture ms {capture}")
+    if history["eager"] != history["graph"] or not all(map(math.isfinite, history["graph"])):
+        raise RuntimeError(f"{what}: the graph path's history is not the eager loop's")
+    if launches["eager"] != launches["graph"] or not per_step:
+        raise RuntimeError(f"{what}: launches eager {launches['eager']}, graph "
+                           f"{launches['graph']}")
+    _same_bits(what, trainers["eager"], trainers["graph"])
+    print(f"  {what}: histories, parameters and Adam states equal bit for bit")
+    return trainers["graph"], history["graph"], per_step
+
+
+def _fused_check(what: str, history: list, launches: dict, steps: int, reference: list,
+                 per_step: dict):
+    fused_step = {k: v / steps for k, v in launches.items() if v}
+    err = max(abs(a - b) / abs(b) for a, b in zip(history, reference))
+    print(f"  {what} --fuse-run: {history}, rtol against the per-epoch path {err:.3e} "
+          f"(bar {FUSE_RTOL:g}); launches a step {fused_step}")
+    if len(history) != len(reference) or err > FUSE_RTOL:
+        raise RuntimeError(f"{what}: --fuse-run history {history} against {reference}")
+    if fused_step != per_step:
+        raise RuntimeError(f"{what}: --fuse-run launches a step {fused_step}, not {per_step}")
+
+
+def phase_graph(workdir: Path, formatter) -> dict:
+    """The device-resident fast paths against the per-batch loop.  On paths
+    a-f, two trainers from the same weights (``--no-validation``) train 2
+    epochs, one in the per-batch loop, one on the per-epoch graph path
+    (CUDA-graph replays of the train step): the same loss history,
+    parameters and Adam state bit for bit, and the same launches (a and b
+    at ``--dropout`` 0 and at the CLI's 0.1, the others at 0).  Then
+    ``--fuse-run`` through the CLI on a-d and f (a and b at dropout 0) and
+    the trainer on e: each history within ``FUSE_RTOL`` of the per-epoch path's, the
+    same launches a step; and 2 more epochs of each fused trainer, its
+    graph replayed, on the host clock (replay ms a step)."""
+    print("graph: the per-epoch graph path and --fuse-run against the per-batch loop")
+    out = {}
+    for path in ("a", "b", "c", "d", "e", "f"):
+        for dropout in (("0", "0.1") if path in ("a", "b") else (None,)):
+            what = f"path {path}" + (f", dropout {dropout}" if dropout else "")
+            extra = ["--dropout", dropout] if dropout else []
+            if path == "e":
+                make = _long_context_trainer
+            else:
+                make = lambda p=path, x=extra: _cli_trainer(workdir, _graph_argv(workdir, p, x))
+            trainer, history, per_step = _graph_pair(what, make, formatter)
+            if dropout == "0.1":
+                continue
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            if path == "e":
+                fused = _long_context_trainer(fuse_run=True)
+                _, fused_history, _ = fused.train(epochs=2)
+            else:
+                fused = _cli_trainer(workdir, _graph_argv(workdir, path, [*extra, "--fuse-run"]),
+                                     epochs=2)
+                fused_history = json.loads((workdir / "history.json").read_text())[
+                    "train_history"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps = 2 * len(fused._epoch_index_batches())
+            _fused_check(what, fused_history, _launch_counts(), steps, history, per_step)
+            (graph,) = fused.graphs.values()
+            t0 = time.perf_counter()
+            fused._train_run_fused(2)
+            torch.cuda.synchronize()
+            replay_ms = (time.perf_counter() - t0) * 1e3 / steps
+            print(f"  {what} --fuse-run: one one-step graph replayed {steps - 1} times after its "
+                  f"warm-up step; run {wall:.2f} s with capture {graph.capture_s * 1e3:.1f} ms; "
+                  f"2 more epochs replayed: {replay_ms:.3f} ms a step on the host clock")
+            out[path] = {"capture_ms": graph.capture_s * 1e3, "replay_ms": replay_ms}
+            del trainer, fused
+        torch.cuda.empty_cache()
+    return out
+
+
 DP_TOL_LOCAL = 1e-4  # a world's final parameters against local's, float32 on the card
 DP_TOL_FLAVOURS = 1e-5  # distributed against horovod
 
@@ -1002,48 +1157,44 @@ def phase_distributed(workdir: Path) -> dict:
     return per_step
 
 
-def phase_long_context():
-    """The long-context classifier (bench.py's attention_seq1024_dim512
-    bf16 row): ``LONG_STEPS`` Adam steps through the model and a
-    train-step loop.  Returns the run and a function that trains n more
-    steps (for the profile)."""
+def _long_context_trainer(fuse_run: bool = False):
+    """Path e's trainer: the long-context classifier (bench.py's
+    attention_seq1024_dim512 bf16 row) on ``LONG_STEPS`` batches of
+    ``LONG_BATCH`` seeded random windows an epoch, Adam at 1e-3."""
+    from pytorch_distributed_rnn_tpu_torch.data import MotionDataset
     from pytorch_distributed_rnn_tpu_torch.models import AttentionClassifier
-    from pytorch_distributed_rnn_tpu_torch.ops.losses import cross_entropy_loss
+    from pytorch_distributed_rnn_tpu_torch.training import Trainer
 
-    print("main path: long-context attention")
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((LONG_BATCH * LONG_STEPS, LONG_T, 9), dtype=np.float32)
+    y = rng.integers(0, 6, LONG_BATCH * LONG_STEPS)
     model = AttentionClassifier(input_dim=9, dim=LONG_DIM, depth=2, num_heads=LONG_HEADS,
                                 output_dim=6, max_len=LONG_T, precision="bf16",
-                                generator=torch.Generator().manual_seed(0)).cuda()
-    optimizer = torch.optim.Adam(model.parameters(), lr=1e-3)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((LONG_BATCH, LONG_T, 9), generator=gen, device="cuda")
-    y = torch.randint(0, 6, (LONG_BATCH,), generator=gen, device="cuda")
+                                generator=torch.Generator().manual_seed(0))
+    return Trainer(model, MotionDataset(x, y), LONG_BATCH, 1e-3, seed=0, fuse_run=fuse_run,
+                   device="cuda")
 
-    def train_steps(n: int) -> list:
-        model.train()
-        losses = []
-        for _ in range(n):
-            loss = cross_entropy_loss(model(x), y)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            optimizer.step()
-            losses.append(loss.detach())
-        return [float(v) for v in losses]
 
+def phase_long_context() -> PathRun:
+    """The long-context classifier: one epoch of ``LONG_STEPS`` Adam steps
+    through the trainer (no evaluation)."""
+    print("main path: long-context attention")
+    trainer = _long_context_trainer()
     _reset_launch_counts()
     t0 = time.perf_counter()
-    losses = train_steps(LONG_STEPS)
+    _, losses, _ = trainer.train(epochs=1)
     torch.cuda.synchronize()
     launches = _launch_counts()
-    print(f"  {time.perf_counter() - t0:.2f} s, losses={losses}, launches={launches}")
+    print(f"  {time.perf_counter() - t0:.2f} s, train_history={losses}, launches={launches}")
     if not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"long context: losses not finite: {losses}")
-    run = _check_flash_path("long context", model, launches, LONG_STEPS, 0, LONG_BATCH,
+    run = _check_flash_path("long context", trainer, launches, LONG_STEPS, 0, LONG_BATCH,
                             ("flash_dq", "flash_dkv"))
-    flash = _flash_vs_dense(model, x, LOGIT_TOL_BF16, "long context")
+    x = torch.from_numpy(trainer.training_set.features[:LONG_BATCH]).cuda()
+    flash = _flash_vs_dense(trainer.model, x, LOGIT_TOL_BF16, "long context")
     if flash.shape != (LONG_BATCH, 6):
         raise RuntimeError(f"long context: logits of shape {tuple(flash.shape)}")
-    return run, train_steps
+    return run
 
 
 def _device_events(prof) -> list:
@@ -1055,45 +1206,132 @@ def _device_events(prof) -> list:
     return device_events(prof)
 
 
-def phase_step_profile(name: str, train, steps: int, repeats: int):
-    """``train()`` runs ``steps`` more train steps of a trained model,
-    ending on a host read of the loss: each of ``repeats`` runs timed on
-    the host clock (the steady-state step time), then one under
-    ``torch.profiler`` (where the device time goes, by kernel)."""
+# the port's kernels by their wrapper's name in LAUNCHES, from a device
+# event's (demangled) name; flash_dqkv before flash_dq
+_KERNEL_EVENT = re.compile(r"(lstm_fwd|lstm_bwd|gru_fwd|gru_bwd|flash_fwd|flash_dqkv|flash_dq"
+                           r"|flash_dkv)_\w*kernel")
+
+
+def _kernel_event_counts(events) -> dict:
+    """The port's kernels among a profile's device events, counted by
+    wrapper name."""
+    counts = {}
+    for e in events:
+        if m := _KERNEL_EVENT.search(e.key):
+            counts[m.group(1)] = counts.get(m.group(1), 0) + e.count
+    return counts
+
+
+PROFILE_ATTEMPTS = 3
+
+
+def _profile_steps(train, steps: int) -> tuple:
+    """One run of ``train()`` (``steps`` train steps) under
+    ``torch.profiler``: device ms a step (kernels, copies and sets), the
+    device events, and the launch counts of that run, which must equal the
+    profile's count of each of the port's kernels.  The profiler has been
+    seen to drop a kernel's records now and then (2 of 20 of one graph
+    epoch once on an H100, none in 16 profiles of the same epochs after
+    it): a run whose counts disagree is profiled again, up to
+    ``PROFILE_ATTEMPTS`` runs, and the phase fails if none agrees."""
     from torch.profiler import ProfilerActivity, profile
 
-    host_ms = []
-    for _ in range(repeats):
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train()
-        host_ms.append((time.perf_counter() - t0) * 1e3 / steps)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train()
-    events = _device_events(prof)
-    device_us = {e.key: e.self_device_time_total for e in events}
-    total_us = sum(device_us.values())
+        _reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            train()
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in _launch_counts().items() if v}
+        events = _device_events(prof)
+        seen = _kernel_event_counts(events)
+        if seen == launches:
+            total_us = sum(e.self_device_time_total for e in events)
+            return total_us / 1e3 / steps, events, launches
+        print(f"  profile {attempt} of {PROFILE_ATTEMPTS}: launch counts {launches}, the "
+              f"profile's kernels {seen}")
+    raise RuntimeError(f"launch counts {launches} differ from the profile's kernels {seen} "
+                       f"in {PROFILE_ATTEMPTS} profiled runs")
+
+
+def _print_top(events, steps: int):
+    total_us = sum(e.self_device_time_total for e in events)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        us = e.self_device_time_total
+        print(f"  {us / 1e3 / steps:8.3f} ms/step  {100 * us / max(total_us, 1):5.1f}%  "
+              f"{e.key[:90]}")
+
+
+def _copies(events, steps: int) -> str:
     copies = [e for e in events if "copy" in e.key.lower()]
-    print(f"step profile ({name}): {steps} steps per run; host clock per step over "
-          f"{repeats} runs: {', '.join(f'{ms:.3f}' for ms in host_ms)} ms; device time "
-          f"{total_us / 1e3 / steps:.3f} ms per step (one profiled run); device copy kernels "
-          f"{sum(e.count for e in copies) / steps:g} a step, "
-          f"{sum(e.self_device_time_total for e in copies) / 1e3 / steps:.4f} ms a step")
-    for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"  {us / 1e3 / steps:8.3f} ms/step  {100 * us / max(total_us, 1):5.1f}%  {key[:90]}")
+    return (f"device copy kernels {sum(e.count for e in copies) / steps:g} a step, "
+            f"{sum(e.self_device_time_total for e in copies) / 1e3 / steps:.4f} ms a step")
+
+
+def phase_step_profile(run: PathRun, formatter, repeats: int) -> dict:
+    """More epochs of a trained path's trainer, the per-batch (eager) loop
+    and the per-epoch graph path in turns (eager, graph, graph, eager,
+    ``repeats`` times), each timed on the host clock to a device sync,
+    then one epoch of each under ``torch.profiler``: device ms a step, the
+    card's idle share of the host's step (1 - device / host, from each
+    path's median), the launches of the profiled epoch held against the
+    profile's kernel count, and the graphs' capture times."""
+    trainer = run.trainer
+    steps = len(trainer._epoch_index_batches())
+    train = {mode: (lambda eager=(mode == "eager"): trainer._train_epoch(formatter, eager))
+             for mode in ("eager", "graph")}
+    host_ms = {"eager": [], "graph": []}
+    for _ in range(repeats):
+        for mode in ("eager", "graph", "graph", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train[mode]()
+            torch.cuda.synchronize()
+            host_ms[mode].append((time.perf_counter() - t0) * 1e3 / steps)
+    result = {"host_ms": host_ms, "capture_ms": {
+        f"{kind} {rows}": graph.capture_s * 1e3 for (kind, rows), graph in trainer.graphs.items()}}
+    print(f"step profile ({run.name}): {steps} steps an epoch; capture ms {result['capture_ms']}")
+    for mode in ("eager", "graph"):
+        device_ms, events, launches = _profile_steps(train[mode], steps)
+        median = sorted(host_ms[mode])[len(host_ms[mode]) // 2]
+        idle = 1.0 - device_ms / median
+        result[mode] = {"device_ms": device_ms, "idle": idle}
+        print(f"  {mode}: host clock per step over {2 * repeats} epochs: "
+              f"{', '.join(f'{ms:.3f}' for ms in host_ms[mode])} ms; device time "
+              f"{device_ms:.3f} ms per step (one profiled epoch); card idle {100 * idle:.1f}% of "
+              f"the median step; launches of that epoch {launches} (the profile's kernels "
+              f"agree); {_copies(events, steps)}")
+        _print_top(events, steps)
+    return result
 
 
 def phase_scan_profile(run: PathRun, formatter):
     """The same trained model's train steps on its scan path (the Python
-    loop over T, its backward by autograd), profiled once: what the
-    kernels replace on the card."""
+    loop over T, its backward by autograd) in the per-batch loop,
+    profiled once: what the kernels replace on the card.  (The graph
+    path would replay the kernel path it captured.)"""
+    from torch.profiler import ProfilerActivity, profile
+
     model = run.trainer.model
+    steps = len(run.trainer._epoch_index_batches())
     model.impl = "scan"
     try:
-        phase_step_profile(f"{run.name}, scan path", lambda: run.trainer._train_epoch(formatter),
-                           -(-len(run.trainer.training_set) // run.batch), SCAN_PROFILE_EPOCHS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.trainer._train_epoch(formatter, eager=True)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run.trainer._train_epoch(formatter, eager=True)
+            torch.cuda.synchronize()
     finally:
         model.impl = "auto"
+    events = _device_events(prof)
+    total_us = sum(e.self_device_time_total for e in events)
+    print(f"step profile ({run.name}, scan path, per-batch loop): {steps} steps; host clock "
+          f"{host_ms:.3f} ms per step; device time {total_us / 1e3 / steps:.3f} ms per step; "
+          f"{_copies(events, steps)}")
+    _print_top(events, steps)
 
 
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1586,6 +1824,7 @@ def main() -> int:
     phase_build()
     errs = phase_kernels()
     errs.update(phase_flash_kernels())
+    formatter = TrainingMessageFormatter(1)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         workdir = Path(tmp)
         write_synthetic_har_cache(workdir / "data", num_train=7352, num_test=2947, seed=0)
@@ -1597,15 +1836,11 @@ def main() -> int:
             "attention": phase_attention(workdir),
         }
         phase_distributed(workdir)
-    runs["long"], long_train = phase_long_context()
-    formatter = TrainingMessageFormatter(1)
-    for key, epochs in (("motion_lstm", PROFILE_EPOCHS), ("motion_gru", 2), ("char_gru", 2),
-                        ("char_lstm", 2), ("attention", 2)):
-        run = runs[key]
-        phase_step_profile(run.name, lambda t=run.trainer: t._train_epoch(formatter),
-                           -(-len(run.trainer.training_set) // run.batch), epochs)
+        phase_graph(workdir, formatter)
+    runs["long"] = phase_long_context()
+    for key in ("motion_lstm", "motion_gru", "char_gru", "char_lstm", "attention", "long"):
+        phase_step_profile(runs[key], formatter, PROFILE_ROUNDS)
     phase_scan_profile(runs["char_lstm"], formatter)
-    phase_step_profile("long context", lambda: long_train(LONG_STEPS), LONG_STEPS, 2)
     rows = phase_timing(runs, errs) + phase_flash_timing(runs, errs)
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -6,6 +6,9 @@ pass ``--device cpu``).  The subcommands are ``local`` and the
 data-parallel strategies ``distributed`` (DDP) and ``horovod``, one
 process a rank (``--sharded-update``, on by default, shards their Adam
 step); ``--model`` takes ``rnn``, ``char`` and ``attention``.
+``local`` trains each epoch through CUDA-graph replays of its train step
+unless DEBUG logging asks for each batch's values, and ``--fuse-run``
+replays it over the whole run (``training/base.py``).
 Flags whose machinery is not ported yet are parsed and rejected loudly
 when set to anything but their default.
 
@@ -96,7 +99,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint-format", default="gathered",
                         choices=["gathered", "sharded"], help=f"sharded is {NOT_PORTED}")
     parser.add_argument("--checkpoint-async", action="store_true", help=NOT_PORTED)
-    parser.add_argument("--fuse-run", action="store_true", help=NOT_PORTED)
+    parser.add_argument("--fuse-run", action="store_true",
+                        help="local: run the whole training as one device program (a CUDA "
+                        "graph of the train step replayed over every batch of every epoch) "
+                        "even at INFO logging; needs --no-validation, no --checkpoint-every "
+                        "and, with dropout, a batch size dividing the training set; "
+                        f"distributed and horovod: {NOT_PORTED}")
     parser.add_argument("--profile", default=None, type=Path, metavar="DIR", help=NOT_PORTED)
     parser.add_argument("--profile-steps", default=None, metavar="A:B", help=NOT_PORTED)
     parser.add_argument("--metrics", default=None, type=Path, metavar="PATH", help=NOT_PORTED)
@@ -118,7 +126,8 @@ def build_parser() -> argparse.ArgumentParser:
 def reject_unported(args):
     """Exit loudly on any flag whose machinery the port does not have yet."""
     unported = {
-        "--fuse-run": args.fuse_run,
+        "--fuse-run under distributed and horovod": (
+            args.fuse_run and args.strategy != "local"),
         "--grad-accum above 1": args.grad_accum != 1,
         "--max-bad-steps": args.max_bad_steps != 0,
         "--faults": args.faults is not None,

@@ -19,8 +19,15 @@ The formula is ``optax.adam``'s (``eps_root = 0``)::
 
 :class:`Adam` keeps ``torch.optim.Adam``'s parameter groups and
 per-parameter state (``step``, ``exp_avg``, ``exp_avg_sq``), so its
-``state_dict`` loads into ``torch.optim.Adam`` (the ``local`` trainer's)
-and the reverse: a checkpoint of any strategy resumes in any other.
+``state_dict`` loads into ``torch.optim.Adam`` and the reverse: a
+checkpoint of any strategy resumes in any other.
+
+:class:`DeviceStepAdam`, the ``local`` trainer's, keeps its step count on
+the parameters' device, so that a CUDA graph that captured its step sees
+the count of each replay in the bias corrections ``1 - b^t``, which the
+host form would freeze at their values during capture.  The trainer's
+eager loop and its graph path both step it, so the two are bitwise
+comparable by construction.
 """
 
 from __future__ import annotations
@@ -28,18 +35,29 @@ from __future__ import annotations
 import torch
 
 
-def adam_update_(params, grads, exp_avgs, exp_avg_sqs, step: int, lr: float,
+def adam_update_(params, grads, exp_avgs, exp_avg_sqs, step, lr: float,
                  beta1: float, beta2: float, eps: float) -> None:
-    """One Adam step in place on lists of same-shaped tensors (``step`` is
-    the count after this step, from 1)."""
+    """One Adam step in place on lists of same-shaped tensors.  ``step`` is
+    the count after this step, from 1: a Python int (the host form), or a
+    0-d float64 tensor on the parameters' device (the device form, whose
+    bias corrections are computed there: nothing of the step goes through
+    the host).  The device form computes them in float64, as the host
+    form's Python floats are, and rounds them to the parameters' float32
+    as the host form's division does: on the CPU both forms give the same
+    bits."""
+    if isinstance(step, torch.Tensor):
+        bias1 = [(1.0 - torch.pow(beta1, step)).float()] * len(params)
+        bias2 = [(1.0 - torch.pow(beta2, step)).float()] * len(params)
+    else:
+        bias1, bias2 = 1.0 - beta1 ** step, 1.0 - beta2 ** step
     torch._foreach_mul_(exp_avgs, beta1)
     torch._foreach_add_(exp_avgs, torch._foreach_mul(grads, 1.0 - beta1))
     torch._foreach_mul_(exp_avg_sqs, beta2)
     squares = torch._foreach_mul(grads, grads)
     torch._foreach_mul_(squares, 1.0 - beta2)
     torch._foreach_add_(exp_avg_sqs, squares)
-    updates = torch._foreach_div(exp_avgs, 1.0 - beta1 ** step)
-    denoms = torch._foreach_div(exp_avg_sqs, 1.0 - beta2 ** step)
+    updates = torch._foreach_div(exp_avgs, bias1)
+    denoms = torch._foreach_div(exp_avg_sqs, bias2)
     torch._foreach_sqrt_(denoms)
     torch._foreach_add_(denoms, eps)
     torch._foreach_div_(updates, denoms)
@@ -55,25 +73,84 @@ class Adam(torch.optim.Adam):
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8):
         super().__init__(params, lr=lr, betas=betas, eps=eps)
 
+    def _group_states(self, group) -> tuple:
+        """The group's parameters that have a gradient and their states,
+        made on first use."""
+        params = [p for p in group["params"] if p.grad is not None]
+        states = [self.state[p] for p in params]
+        for p, state in zip(params, states):
+            if not state:
+                state["step"] = torch.zeros((), dtype=torch.float32)
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        return params, states
+
+    def _update(self, group, params, states, step) -> None:
+        beta1, beta2 = group["betas"]
+        adam_update_(params, [p.grad for p in params],
+                     [state["exp_avg"] for state in states],
+                     [state["exp_avg_sq"] for state in states],
+                     step, group["lr"], beta1, beta2, group["eps"])
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("Adam.step takes no closure")
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
+            params, states = self._group_states(group)
             if not params:
                 continue
-            states = [self.state[p] for p in params]
-            for p, state in zip(params, states):
-                if not state:
-                    state["step"] = torch.zeros((), dtype=torch.float32)
-                    state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                    state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
             steps = [state["step"] for state in states]
             torch._foreach_add_(steps, 1.0)
-            beta1, beta2 = group["betas"]
-            adam_update_(params, [p.grad for p in params],
-                         [state["exp_avg"] for state in states],
-                         [state["exp_avg_sq"] for state in states],
-                         int(steps[0]), group["lr"], beta1, beta2, group["eps"])
+            self._update(group, params, states, int(steps[0]))
         return None
+
+
+class DeviceStepAdam(Adam):
+    """:class:`Adam` with the step count on the parameters' device: one
+    float64 0-d tensor, which every step adds 1 to there and
+    :func:`adam_update_` reads in its device form.  Nothing of
+    :meth:`step` reads the host, so a CUDA graph can capture it.  The
+    parameters step together (every step gives each of them a gradient).
+
+    The per-parameter ``state["step"]`` keeps ``torch.optim.Adam``'s layout,
+    a float32 CPU tensor; it is brought up to the device count (one device
+    read) when :meth:`state_dict` is taken, and the device count is set
+    from it when a ``state_dict`` is loaded."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, lr=lr, betas=betas, eps=eps)
+        self.device_steps = None  # made at the first step or load
+
+    def _steps_on(self, device) -> torch.Tensor:
+        if self.device_steps is None:
+            self.device_steps = torch.zeros((), dtype=torch.float64, device=device)
+        return self.device_steps
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adam.step takes no closure")
+        if len(self.param_groups) != 1:
+            raise ValueError("DeviceStepAdam keeps one step count: one parameter group")
+        group = self.param_groups[0]
+        params, states = self._group_states(group)
+        if params:
+            steps = self._steps_on(params[0].device)
+            steps.add_(1.0)
+            self._update(group, params, states, steps)
+        return None
+
+    def state_dict(self):
+        if self.device_steps is not None:
+            count = self.device_steps.item()
+            for state in self.state.values():
+                state["step"].fill_(count)
+        return super().state_dict()
+
+    def load_state_dict(self, state_dict):
+        super().load_state_dict(state_dict)
+        states = list(self.state.values())
+        if states:
+            device = self.param_groups[0]["params"][0].device
+            self._steps_on(device).fill_(float(states[0]["step"]))

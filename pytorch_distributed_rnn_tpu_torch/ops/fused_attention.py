@@ -41,8 +41,10 @@ kernels; ``flash_dqkv`` forms it itself.
 Each wrapper takes the kernel's plain PyTorch version (``*_plain``) only
 for CPU tensors; on CUDA tensors it launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches, so a run can show its main path went
-through the kernels.  The ring composition (``ring_flash_attention``,
-``_merge_partials``) waits for the sequence-parallel strategies.
+through the kernels; a launch captured in a CUDA graph counts at each
+replay (``utils/graphs.py:count_launch``).  The ring composition
+(``ring_flash_attention``, ``_merge_partials``) waits for the
+sequence-parallel strategies.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from pytorch_distributed_rnn_tpu_torch.utils.graphs import count_launch
 
 # kernel launches since the last reset_launch_counts(), by kernel name
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_dqkv": 0}
@@ -299,7 +303,7 @@ def _launch(name, tensors, sizes, causal, q_offset, k_offset, dtype):
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
 
 
 def _rows_shape(q) -> tuple:

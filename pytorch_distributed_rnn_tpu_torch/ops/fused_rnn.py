@@ -42,7 +42,8 @@ Neither saves any where autograd needs no backward.
 Each wrapper takes the kernel's plain PyTorch version (``*_plain``) only
 for CPU tensors; on CUDA tensors it launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches, so a run can show its main path went
-through the kernels.
+through the kernels; a launch captured in a CUDA graph counts at each
+replay (``utils/graphs.py:count_launch``).
 
 Mixed precision follows the JAX *fused* kernels: the recurrent product is
 ``h_f32 @ w`` in float32 even for bf16 weights, and the backward reads the
@@ -55,6 +56,8 @@ import ctypes
 import functools
 
 import torch
+
+from pytorch_distributed_rnn_tpu_torch.utils.graphs import count_launch
 
 # kernel launches since the last reset_launch_counts(), by kernel name
 LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0, "gru_fwd": 0, "gru_bwd": 0}
@@ -391,7 +394,7 @@ def _launch(name, fn, *args):
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
 
 
 def lstm_fwd(x_proj, h0, c0, w_hh_t, save_gates: bool = True):

@@ -28,7 +28,8 @@ def add_sub_commands(sub_parser):
     for name, trainer_class in (("local", Trainer), ("distributed", DDPTrainer),
                                 ("horovod", HorovodTrainer)):
         command = sub_parser.add_parser(name)
-        command.set_defaults(func=lambda args, cls=trainer_class: train(args, cls))
+        command.set_defaults(func=lambda args, cls=trainer_class: train(args, cls),
+                             strategy=name)
 
 
 def train(args, trainer_class):
@@ -92,6 +93,7 @@ def _run_trainer(args, trainer_class, model, datasets, **placement):
         seed=args.seed,
         checkpoint_every=args.checkpoint_every,
         keep_checkpoints=args.keep_checkpoints,
+        fuse_run=args.fuse_run,
         **placement,
     )
     if args.resume:

@@ -49,11 +49,14 @@ class SpmdTrainer(Trainer):
     ``parallel.sharded_update.ShardedUpdate``."""
 
     SYNC = "backward"
+    # the per-batch loop only: the graph path under the strategies (NCCL
+    # collectives inside a capture) is still to be ported
+    GRAPH_STEP = False
 
     def __init__(self, model, training_set, batch_size: int, learning_rate: float,
                  validation_set=None, test_set=None, checkpoint_dir=None,
                  seed: int | None = None, checkpoint_every: int = 0,
-                 keep_checkpoints: int = 0, device=None, group=None,
+                 keep_checkpoints: int = 0, fuse_run: bool = False, device=None, group=None,
                  sharded_update: bool = True):
         if group is None:
             raise ValueError(f"{type(self).__name__} needs the process group (group=)")
@@ -63,7 +66,8 @@ class SpmdTrainer(Trainer):
                          validation_set=validation_set, test_set=test_set,
                          checkpoint_dir=checkpoint_dir, seed=seed,
                          checkpoint_every=checkpoint_every,
-                         keep_checkpoints=keep_checkpoints, device=group.device)
+                         keep_checkpoints=keep_checkpoints, fuse_run=fuse_run,
+                         device=group.device)
         seed = seed if seed is not None else 0
         self.group = group
         self.rank = group.rank

@@ -2,10 +2,11 @@
 
 The counterpart of the JAX package's ``training/lm.py``.  The trainer
 turns every batch into a loss through ``_loss_and_metrics(x, y,
-generator)`` (``training/base.py``); the LM's next-token objective differs
-only there, so :func:`wrap_lm_trainer` mixes :class:`LMLossMixin` over a
-trainer class and the sampler, epoch loop, checkpoints and perf line apply
-to LM training unchanged.
+generator)`` (``training/base.py``), and the fused run through its
+weighted form; the LM's next-token objective differs only there, so
+:func:`wrap_lm_trainer` mixes :class:`LMLossMixin` over a trainer class
+and the sampler, epoch loop, checkpoints and perf line apply to LM
+training unchanged.
 """
 
 from __future__ import annotations
@@ -22,13 +23,28 @@ class LMLossMixin:
     sequence's mean next-token accuracy, so the trainer's ``correct /
     len(dataset)`` is the mean token accuracy."""
 
+    def _logits_and_targets(self, x, generator):
+        logits = self._net()(x[:, :-1], generator).float()
+        return logits, x[:, 1:].long()
+
     def _loss_and_metrics(self, x, y, generator=None):
         del y  # the targets come from the window itself
-        logits = self._net()(x[:, :-1], generator).float()
-        targets = x[:, 1:].long()
+        logits, targets = self._logits_and_targets(x, generator)
         loss = cross_entropy_loss(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
         acc = (logits.argmax(dim=-1) == targets).float().mean(dim=1)
         return loss, acc.sum()
+
+    def _weighted_loss_and_metrics(self, x, y, w, generator=None):
+        """Per-sequence weights (the fused run's zero-padded tail): the
+        weighted mean of the sequences' mean losses, the plain loss for
+        all-ones weights up to rounding."""
+        del y
+        logits, targets = self._logits_and_targets(x, generator)
+        nll = cross_entropy_loss(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
+                                 reduction="none").reshape(targets.shape)
+        loss = (nll.mean(dim=1) * w).sum() / w.sum()
+        acc = (logits.argmax(dim=-1) == targets).float().mean(dim=1)
+        return loss, (acc * (w > 0)).sum()
 
 
 _WRAPPED: dict = {}

@@ -5,6 +5,7 @@
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab tc
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab fwd --other DIR [--rounds N]
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab step --other DIR [--rounds N] [--path P]
+    python -m pytorch_distributed_rnn_tpu_torch.utils.ab step --graph [--rounds N] [--path P]
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab dp [--rounds N]
 
 Each run measures one tree (a copy of this package with a source
@@ -56,10 +57,19 @@ attention --hidden-units 128 --num-heads 4 --stacked-layer 2
 --batch-size 256 --dropout 0`` on the same windows;
 ``f``, ``--model char --hidden-units 512 --stacked-layer 2 --seq-length
 128 --batch-size 256 --dropout 0`` (the default LSTM cell) on the
-synthetic motif corpus; ``e``, the long-context classifier (dim 512, 4
-heads, depth 2, bf16, T=1024), Adam steps at batch 16 on seeded random
-windows through the model and a train-step loop (10 steps an epoch).
-Each step's device copy kernels are counted too.
+synthetic motif corpus; ``c``, the same with ``--cell gru``; ``e``, the
+long-context classifier (dim 512, 4 heads, depth 2, bf16, T=1024)
+through the local trainer, Adam at 1e-3, 10 steps of batch 16 an epoch
+on 160 seeded random windows.  Each step's device copy kernels are
+counted too.
+
+``step --graph``: a main path of this tree only, the local trainer's
+per-batch loop (eager) and its per-epoch graph path (CUDA-graph replays of
+the train step) in turns in one process: after 2 epochs (the graph path's
+captures), N rounds of eager, graph, graph, eager epochs on the host clock,
+then one epoch of each under ``torch.profiler``, so host and device ms a
+step come from the same steps of both; the card's idle share of each
+path's median step, and the graphs' capture ms.
 
 ``dp``: the data-parallel paths of this tree beside path a, in turns
 (a, g, g0, h, h0, then back): ``g`` is ``distributed`` at world 1 on
@@ -133,6 +143,8 @@ PATHS = {
     "d": (["--model", "attention", "--hidden-units", "128", "--num-heads", "4",
            "--stacked-layer", "2", "--batch-size", "256", "--dropout", "0"], 256),
     "f": (["--model", "char", "--hidden-units", "512", "--stacked-layer", "2",
+           "--seq-length", "128", "--batch-size", "256", "--dropout", "0"], 256),
+    "c": (["--model", "char", "--cell", "gru", "--hidden-units", "512", "--stacked-layer", "2",
            "--seq-length", "128", "--batch-size", "256", "--dropout", "0"], 256),
     "e": (None, 16),  # the long-context classifier, no CLI path
 }
@@ -346,34 +358,6 @@ def _time_fwd() -> dict:
     return out
 
 
-def _long_context_epoch():
-    """The long-context classifier's train step loop (path e): a function
-    that runs ``LONG_STEPS`` Adam steps, ending on a host read of the loss."""
-    import torch
-
-    models = _own("models")
-    losses = _own("ops.losses")
-    _, batch = PATHS["e"]
-    model = models.AttentionClassifier(input_dim=9, dim=LONG_DIM, depth=2, num_heads=LONG_HEADS,
-                                       output_dim=6, max_len=1024, precision="bf16",
-                                       generator=torch.Generator().manual_seed(0)).cuda()
-    optimizer = torch.optim.Adam(model.parameters(), lr=1e-3)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((batch, 1024, 9), generator=gen, device="cuda")
-    y = torch.randint(0, 6, (batch,), generator=gen, device="cuda")
-
-    def epoch():
-        model.train()
-        for _ in range(LONG_STEPS):
-            loss = losses.cross_entropy_loss(model(x), y)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            optimizer.step()
-        return float(loss)
-
-    return epoch
-
-
 def _adam_ms(trainer) -> float:
     """The device time of one Adam step of ``trainer`` alone (the grads of
     its last step; the parameters move, so measure after training)."""
@@ -415,37 +399,21 @@ def _time_step(path: str = "d") -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    port_main = _own("main")
-    har = _own("data.synthetic")
     formatter = _own("training.formatter").TrainingMessageFormatter(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     command, group = "local", None
+    flags = PATHS["a" if path in DP_PATHS else path][0]
     if path in DP_PATHS:
-        (flags, batch), sharding = PATHS["a"], DP_PATHS[path][0]
-        flags, command = [*flags, sharding], "distributed"
+        flags, command = [*flags, DP_PATHS[path][0]], "distributed"
         # the group outlives main(), which then leaves it to this process
         group = _own("parallel.collectives").init_process_group("cuda")
-    else:
-        flags, batch = PATHS[path]
     with tempfile.TemporaryDirectory(prefix="ab_step_") as tmp:
-        if path == "e":
-            epoch, steps = _long_context_epoch(), LONG_STEPS
-            for _ in range(2):
-                epoch()
-        else:
-            work = Path(tmp)
-            har.write_synthetic_har_cache(work / "data", num_train=7352, num_test=2947, seed=0)
-            os.chdir(work)  # main writes history.json into the working directory
-            # the char path makes its synthetic corpus where the path holds none
-            data = work / ("no-corpus" if path == "f" else "data")
-            trainer = port_main.main([*flags, "--dataset-path", str(data),
-                                      "--checkpoint-directory", str(work / "models"),
-                                      "--epochs", "2", "--seed", "0", command])
-            steps = len(trainer._epoch_index_batches())
+        trainer = _trained(path, Path(tmp), flags, command)
+        steps = len(trainer._epoch_index_batches())
 
-            def epoch():
-                trainer._train_epoch(formatter)
+        def epoch():
+            trainer._train_epoch(formatter)
 
         host_ms = []
         for _ in range(4):
@@ -480,6 +448,73 @@ def _time_step(path: str = "d") -> dict:
     return out
 
 
+def _long_context_trainer():
+    """Path e through the local trainer: the long-context classifier on
+    ``LONG_STEPS`` batches of 16 seeded random windows an epoch."""
+    import numpy as np
+    import torch
+
+    _, batch = PATHS["e"]
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((batch * LONG_STEPS, 1024, 9), dtype=np.float32)
+    y = rng.integers(0, 6, batch * LONG_STEPS)
+    model = _own("models").AttentionClassifier(
+        input_dim=9, dim=LONG_DIM, depth=2, num_heads=LONG_HEADS, output_dim=6, max_len=1024,
+        precision="bf16", generator=torch.Generator().manual_seed(0))
+    return _own("training").Trainer(model, _own("data").MotionDataset(x, y), batch, 1e-3,
+                                    seed=0, device="cuda")
+
+
+def _trained(path: str, work: Path, flags: list, command: str):
+    """A main path's trainer after 2 epochs (the epochs its timed ones run:
+    the graph path's captures happen here): through the CLI (``command``
+    with ``flags``) on seeded synthetic data in ``work``, or path e's."""
+    if path == "e":
+        trainer = _long_context_trainer()
+        formatter = _own("training.formatter").TrainingMessageFormatter(2)
+        for epoch in range(2):
+            trainer.sampler.set_epoch(epoch)
+            trainer._train_epoch(formatter)
+        return trainer
+    _own("data.synthetic").write_synthetic_har_cache(work / "data", num_train=7352,
+                                                     num_test=2947, seed=0)
+    os.chdir(work)  # main writes history.json into the working directory
+    # the char paths make their synthetic corpus where the path holds none
+    data = work / ("no-corpus" if path in ("c", "f") else "data")
+    return _own("main").main([*flags, "--dataset-path", str(data), "--checkpoint-directory",
+                              str(work / "models"), "--epochs", "2", "--seed", "0", command])
+
+
+def _time_graph(path: str = "d", rounds: str = "1") -> dict:
+    """A main path's local trainer with the tree's package: 2 epochs, then
+    ``rounds`` rounds of eager, graph, graph, eager epochs on the host
+    clock and one epoch of each profiled."""
+    import torch
+
+    formatter = _own("training.formatter").TrainingMessageFormatter(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="ab_graph_") as tmp:
+        trainer = _trained(path, Path(tmp), PATHS[path][0], "local")
+        steps = len(trainer._epoch_index_batches())
+        epochs = {mode: (lambda eager=(mode == "eager"): trainer._train_epoch(formatter, eager))
+                  for mode in ("eager", "graph")}
+        host_ms = {"eager": [], "graph": []}
+        for _ in range(int(rounds)):
+            for mode in ("eager", "graph", "graph", "eager"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                epochs[mode]()
+                torch.cuda.synchronize()
+                host_ms[mode].append((time.perf_counter() - t0) * 1e3 / steps)
+        device_ms = {mode: _device_ms(epochs[mode], 1) / steps for mode in epochs}
+    idle = {mode: 1.0 - device_ms[mode] / sorted(host_ms[mode])[len(host_ms[mode]) // 2]
+            for mode in epochs}
+    return {"path": path, "steps": steps, "host_ms": host_ms, "device_ms": device_ms,
+            "idle": idle, "capture_ms": {f"{kind} {rows}": g.capture_s * 1e3
+                                         for (kind, rows), g in trainer.graphs.items()}}
+
+
 def _run(root: Path, what: str, *args: str, ranks: int = 0):
     """``what(*args)`` of this file in a child process whose ``sys.path[0]``
     is ``root``; with ``ranks``, in each process of a ``torchrun`` world of
@@ -505,10 +540,13 @@ def _parse(argv: list) -> tuple:
     """``(mode, other tree or None, rounds, path)``; raises SystemExit on
     misuse."""
     usage = ("usage: ab rows | ab split | ab tc | ab fwd --other DIR [--rounds N] | "
-             "ab step --other DIR [--rounds N] [--path a|b|d|e|f] | ab dp [--rounds N]")
+             "ab step --other DIR [--rounds N] [--path a|b|c|d|e|f] | "
+             "ab step --graph [--rounds N] [--path a|b|c|d|e|f] | ab dp [--rounds N]")
     if argv in (["rows"], ["split"], ["tc"]):
         return argv[0], None, 1, None
     mode, rest = (argv[0], argv[1:]) if argv else (None, [])
+    if mode == "step" and "--graph" in rest:
+        mode, rest = "graph", [arg for arg in rest if arg != "--graph"]
     options = dict(zip(rest[::2], rest[1::2]))
     if len(rest) % 2 or len(options) != len(rest) // 2:
         raise SystemExit(usage)
@@ -517,7 +555,9 @@ def _parse(argv: list) -> tuple:
         raise SystemExit(usage)
     if mode == "dp" and not options:
         return mode, None, int(rounds), None
-    path = options.pop("--path", "d") if mode == "step" else None
+    path = options.pop("--path", "d") if mode in ("step", "graph") else None
+    if mode == "graph" and not options and path in PATHS:
+        return mode, None, int(rounds), path
     if (mode in ("step", "fwd") and "--other" in options and len(options) == 1
             and (path is None or path in PATHS)):
         return mode, Path(options["--other"]).resolve(), int(rounds), path
@@ -546,6 +586,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
+    if mode == "graph":  # both paths in turns inside one process
+        print(json.dumps(_run(PACKAGE.parent, "_time_graph", path, str(rounds))), flush=True)
+        return 0
     for i in (*range(len(runs)), *reversed(range(len(runs)))) * rounds:
         label, root, what = runs[i]
         if mode == "dp":

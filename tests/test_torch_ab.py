@@ -20,6 +20,10 @@ from pytorch_distributed_rnn_tpu_torch.utils import ab
      ("step", Path("x").resolve(), 3, "a")),
     (["step", "--other", "x", "--path", "b"], ("step", Path("x").resolve(), 1, "b")),
     (["step", "--other", "x", "--path", "e"], ("step", Path("x").resolve(), 1, "e")),
+    (["step", "--other", "x", "--path", "c"], ("step", Path("x").resolve(), 1, "c")),
+    (["step", "--graph"], ("graph", None, 1, "d")),
+    (["step", "--graph", "--path", "a", "--rounds", "3"], ("graph", None, 3, "a")),
+    (["step", "--rounds", "2", "--graph", "--path", "c"], ("graph", None, 2, "c")),
     (["fwd", "--other", "x"], ("fwd", Path("x").resolve(), 1, None)),
     (["fwd", "--rounds", "2", "--other", "x"], ("fwd", Path("x").resolve(), 2, None)),
     (["dp"], ("dp", None, 1, None)),
@@ -32,10 +36,12 @@ def test_parse(argv, want):
 @pytest.mark.parametrize("argv", [
     [], ["rows", "x"], ["step"], ["step", "--other"], ["step", "--other", "x", "--rounds"],
     ["step", "--other", "x", "--rounds", "0"], ["step", "--other", "x", "--pairs", "5"],
-    ["kernels"], ["tc", "--rounds", "2"], ["step", "--other", "x", "--path", "c"], ["gates"],
+    ["kernels"], ["tc", "--rounds", "2"], ["step", "--other", "x", "--path", "z"], ["gates"],
     ["rows", "--rounds", "2"], ["step", "--other", "x", "--other", "y"],
     ["fwd"], ["fwd", "--other", "x", "--path", "d"], ["fwd", "--rounds", "2"],
     ["dp", "--other", "x"], ["dp", "--path", "g"], ["step", "--other", "x", "--path", "g"],
+    ["step", "--graph", "--other", "x"], ["step", "--graph", "--path", "g"], ["fwd", "--graph"],
+    ["dp", "--graph"],
 ])
 def test_parse_rejects(argv):
     with pytest.raises(SystemExit):

@@ -35,6 +35,7 @@ from pytorch_distributed_rnn_tpu_torch import interop
 from pytorch_distributed_rnn_tpu_torch import main as port_main
 from pytorch_distributed_rnn_tpu_torch.data import MotionDataset, write_synthetic_har_cache
 from pytorch_distributed_rnn_tpu_torch.models import MotionModel
+from pytorch_distributed_rnn_tpu_torch.ops.adam import DeviceStepAdam
 from pytorch_distributed_rnn_tpu_torch.parallel import collectives, launch
 from pytorch_distributed_rnn_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 
@@ -393,7 +394,7 @@ def test_sharded_update_is_inert_on_local(work, data):
     (a, h_a), (b, h_b) = runs
     assert h_a == h_b
     _assert_state_equal(a.model.state_dict(), b.model.state_dict())
-    assert type(a.optimizer) is type(b.optimizer) is torch.optim.Adam
+    assert type(a.optimizer) is type(b.optimizer) is DeviceStepAdam
 
 
 # ---------------------------------------------------------------------------

@@ -219,16 +219,20 @@ def test_main_without_device_cpu_needs_cuda(cache_dir, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "flags",
-    [["--fuse-run"], ["--grad-accum", "2"], ["--max-bad-steps", "3"], ["--faults", "step:1:nan"],
-     ["--metrics", "m.jsonl"], ["--metrics-sample-every", "4"], ["--live", "0"],
-     ["--live-port-file", "p"], ["--profile", "trace"], ["--profile-steps", "1:3"],
-     ["--checkpoint-format", "sharded"], ["--checkpoint-async"], ["--remat"],
-     ["--resume", "auto"]],
+    "flags,command",
+    # --fuse-run is ported for local (tests/test_torch_graph_step.py), not
+    # for the data-parallel strategies
+    [(["--fuse-run"], "distributed"), (["--fuse-run"], "horovod"),
+     (["--grad-accum", "2"], "local"), (["--max-bad-steps", "3"], "local"),
+     (["--faults", "step:1:nan"], "local"), (["--metrics", "m.jsonl"], "local"),
+     (["--metrics-sample-every", "4"], "local"), (["--live", "0"], "local"),
+     (["--live-port-file", "p"], "local"), (["--profile", "trace"], "local"),
+     (["--profile-steps", "1:3"], "local"), (["--checkpoint-format", "sharded"], "local"),
+     (["--checkpoint-async"], "local"), (["--remat"], "local"), (["--resume", "auto"], "local")],
 )
-def test_unported_flags_are_rejected_loudly(flags, capsys):
+def test_unported_flags_are_rejected_loudly(flags, command, capsys):
     with pytest.raises(SystemExit, match="not ported yet") as exc:
-        port_main.main(["--device", "cpu", *flags, "local"])
+        port_main.main(["--device", "cpu", *flags, command])
     assert flags[0] in str(exc.value)
 
 

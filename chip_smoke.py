@@ -76,6 +76,23 @@ Phases, in order; any failure raises and the script exits nonzero:
       with ``horovod`` within 1e-5 and each world with a ``local`` run of
       the same flags within 1e-4; each rank's kernel launches are counted
       (reset before its run, read after) against the steps it took.
+   i. ``distributed-native`` over the TCP ring (``runtime/native.py``)
+      through ``torchrun`` and the CLI at path a's width with ``--dropout
+      0 --no-validation``, at world 1 and at world 2 (two ranks sharing the
+      card): bucketed at ``--bucket-mb 0.02`` (three buckets), monolithic
+      (``--no-bucketed-comm``) and replicated (``--no-sharded-update``);
+      the flavours equal bit for bit, every rank equal to rank 0, each
+      within 1e-5 of ``distributed`` at the same world and flavour, world 1
+      within 1e-4 of ``local``; j. the same strategy on path f's char LM at
+      H=512 for one epoch at world 1, bucketed at ``--bucket-mb 4`` (five
+      buckets of the 17.9 MB gradient) against monolithic bit for bit, the
+      tensor-core forward and cluster backward counted in the profile.
+      Each run is profiled: host ms and device ms a step, and each rank's
+      ``comm_wait_s``/``comm_active_s`` a step are printed, with the ring
+      library's g++ build time.  The same two ``torchrun`` worlds run the
+      toy examples on the card: ``example_ddp`` and ``example_horovod`` at
+      worlds 1 and 2, ``example_p2p`` at world 2, each printing
+      ``PARITY-OK`` (p2p: every rank's 1.0).
    Paths a-f train on the device-resident step (CUDA-graph replays of the
    train step; INFO logging), so each kernel's launches count at each
    replay.  Each of a-f checks finite losses (a-d, f: and the perf line),
@@ -1046,14 +1063,14 @@ def _dp_job(workdir: Path, name: str, flags: list) -> dict:
                      "--epochs", "2", "--seed", "0", "--dropout", "0", *flags]}
 
 
-def _dp_results(job: dict, ranks: int) -> tuple:
+def _dp_results(job: dict, ranks: int, epochs: int = 2) -> tuple:
     """Every rank's ``rank<r>.pt``, checked to hold rank 0's final
     parameters bit for bit, and rank 0's ``history.json``."""
     results = [torch.load(Path(job["dir"]) / f"rank{r}.pt", weights_only=True)
                for r in range(ranks)]
     history = json.loads((Path(job["dir"]) / "rank0" / "history.json").read_text())
     losses = history["train_history"] + history["validation_history"]
-    if len(history["train_history"]) != 2 or not all(math.isfinite(v) for v in losses):
+    if len(history["train_history"]) != epochs or not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"{job['dir']}: losses not finite: {history}")
     for rank, result in enumerate(results[1:], start=1):
         if any(not torch.equal(result["state"][k], v) for k, v in results[0]["state"].items()):
@@ -1067,22 +1084,23 @@ def _dp_results(job: dict, ranks: int) -> tuple:
     return results, history
 
 
-def _check_dp_launches(name: str, results: list, cell: str, layers: int = 2) -> dict:
+def _check_dp_launches(name: str, results: list, cell: str, layers: int = 2,
+                       evaluations: int = 3) -> dict:
     """Each rank launched its cell's kernels and no others: a forward and a
-    backward a layer a train step, and rank 0 a forward a layer for each
-    evaluation (one an epoch, then the test set).  Returns rank 0's
-    launches a train step."""
+    backward a layer a train step, and rank 0 a forward a layer for each of
+    its ``evaluations`` (one an epoch, then the test set).  Returns rank
+    0's launches a train step."""
     fwd, bwd = f"{cell}_fwd", f"{cell}_bwd"
     for rank, result in enumerate(results):
         launches, steps = result["launches"], result["steps"]
         for kernel, count in launches.items():
             if (kernel in (fwd, bwd)) != (count > 0):
                 raise RuntimeError(f"{name}: rank {rank} launched {kernel} {count} times")
-        evaluations = 3 if rank == 0 else 0
-        if not launches[fwd] - evaluations * layers == launches[bwd] == steps * layers:
+        evals = evaluations if rank == 0 else 0
+        if not launches[fwd] - evals * layers == launches[bwd] == steps * layers:
             raise RuntimeError(f"{name}: rank {rank} launches {launches} over {steps} steps")
     steps = results[0]["steps"]
-    return {fwd: (results[0]["launches"][fwd] - 3 * layers) / steps,
+    return {fwd: (results[0]["launches"][fwd] - evaluations * layers) / steps,
             bwd: results[0]["launches"][bwd] / steps}
 
 
@@ -1154,7 +1172,183 @@ def phase_distributed(workdir: Path) -> dict:
                 final(h["horovod", "no-sharded-update"]), DP_TOL_FLAVOURS)
     _dp_compare("h distributed vs local", final(h["distributed", "sharded-update"]), local,
                 DP_TOL_LOCAL)
-    return per_step
+    return {"local": local, "g sharded": final(g["sharded"]),
+            "g replicated": final(g["replicated"]),
+            "h sharded": final(h["distributed", "sharded-update"]),
+            "h replicated": final(h["distributed", "no-sharded-update"])}
+
+
+NATIVE_BUCKET_MB = 0.02  # path i: three buckets of the motion model's 14,150 parameters
+NATIVE_CHAR_BUCKET_MB = 4.0  # path j: five buckets of the char LM's 17.9 MB gradient
+NATIVE_FLAVOURS = {"bucketed": ["--bucket-mb", str(NATIVE_BUCKET_MB)],
+                   "monolithic": ["--no-bucketed-comm"], "replicated": ["--no-sharded-update"]}
+NATIVE_CHAR_FLAVOURS = {"bucketed": ["--bucket-mb", str(NATIVE_CHAR_BUCKET_MB)],
+                        "monolithic": ["--no-bucketed-comm"]}
+NATIVE_CHAR_KERNELS = ("lstm_fwd_tc_kernel", "lstm_bwd_cluster_kernel")  # at H=512, float32
+EXAMPLES = {1: ("ddp", "horovod"), 2: ("ddp", "horovod", "p2p")}
+
+
+def _native_jobs(workdir: Path, world: int) -> dict:
+    """A torchrun world's jobs for ``phase_native``, each run on a ring port
+    of its own: path i's flavours (and path j's at world 1) once as they
+    run, for the host clock, the comm times and the checks, then once under
+    the profiler, for device time; each path after a one-epoch warm-up run
+    (monolithic) that takes the first-use costs of the process and of the
+    model's shapes out of the measured runs; then the examples."""
+    from pytorch_distributed_rnn_tpu_torch.utils.worlds import free_ports
+
+    jobs = {}
+    paths = {"i": NATIVE_FLAVOURS, **({"j": NATIVE_CHAR_FLAVOURS} if world == 1 else {})}
+    for path, flavours in paths.items():
+        runs = [("warm", ""), *((name, profiled) for profiled in ("", " profiled")
+                                for name in flavours)]
+        for name, profiled in runs:
+            flags = ["--no-bucketed-comm", "--epochs", "1"] if name == "warm" else flavours[name]
+            key = f"{path} {name}{profiled}"
+            if path == "i":
+                jobs[key] = _dp_job(workdir, f"i{world}-{name}{profiled.strip()}",
+                                    ["--no-validation", *flags, "distributed-native"])
+            else:
+                jobs[key] = {"dir": str(workdir / "dp" / f"j-{name}{profiled.strip()}"),
+                             "argv": [*GRAPH_PATHS["f"], "--dataset-path",
+                                      str(workdir / "no-corpus"), "--checkpoint-directory",
+                                      "models", "--epochs", "1", "--seed", "0",
+                                      "--no-validation", *flags, "distributed-native"]}
+            jobs[key]["profile"] = bool(profiled)
+    for job, port in zip(jobs.values(), free_ports(len(jobs))):
+        job["env"] = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    for example in EXAMPLES[world]:
+        jobs[f"example {example}"] = {
+            "dir": str(workdir / "examples" / f"w{world}-{example}"),
+            "module": f"pytorch_distributed_rnn_tpu_torch.examples.example_{example}",
+            "argv": ["--device", "cuda"]}
+    return jobs
+
+
+def _native_line(name: str, run: tuple, profiled: tuple) -> dict:
+    """A flavour's numbers: rank 0's host ms a step (the perf line's
+    training duration over its steps) and every rank's ``comm_wait_s``/
+    ``comm_active_s`` a step, from the run as it runs; rank 0's device ms a
+    step (kernels, copies and sets) from its profiled twin, which must end
+    with the same parameters bit for bit."""
+    _dp_compare(f"{name}: profiled vs not", (profiled[0][0]["state"], profiled[1]),
+                (run[0][0]["state"], run[1]), 0)
+    results = run[0]
+    steps = results[0]["steps"]
+    (perf,) = [m for m in results[0]["log"] if "Training Duration" in m]
+    host_ms = float(perf.rsplit(" ", 1)[1]) * 1e3 / steps
+    device_ms = profiled[0][0]["device_ms"]
+    comm = [np.asarray(r["comm"]).mean(axis=0) for r in results]
+    print(f"  {name}: host {host_ms:.3f} ms a step, device {device_ms:.3f} ms a step, {steps} "
+          f"steps (runs {results[0]['wall']:.2f} s, profiled {profiled[0][0]['wall']:.2f} s); "
+          "comm_wait_s / comm_active_s a step: "
+          + ", ".join(f"rank {r} {w:.6f} / {a:.6f}" for r, (w, a) in enumerate(comm)))
+    return {"host_ms": host_ms, "device_ms": device_ms,
+            "comm_wait_s": [float(w) for w, _ in comm],
+            "comm_active_s": [float(a) for _, a in comm]}
+
+
+def _check_examples(jobs: dict, world: int):
+    for example in EXAMPLES[world]:
+        job = jobs[f"example {example}"]
+        outs = [torch.load(Path(job["dir"]) / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+        want = "has data  1.0" if example == "p2p" else "PARITY-OK"
+        if not all(want in out["stdout"] for out in outs):
+            raise RuntimeError(f"example {example} at world {world} printed "
+                               f"{[out['stdout'][-300:] for out in outs]}")
+        last = [out["stdout"].strip().splitlines()[-1] for out in outs]
+        print(f"  example_{example} at world {world}: {last}")
+
+
+def phase_native(workdir: Path, dp_finals: dict) -> dict:
+    """``distributed-native`` over the TCP ring through ``torchrun`` and the
+    CLI.  Path i: path a's width (2 x 32 LSTM, batch 1440, 2 epochs,
+    ``--dropout 0``, ``--no-validation``) at world 1 and at world 2 (two
+    ranks sharing the card), bucketed (``--bucket-mb 0.02``: three
+    buckets), monolithic and replicated; path j: the char LM at H=512
+    (path f's flags) for one epoch at world 1, bucketed at ``--bucket-mb
+    4`` and monolithic.  Checks: each rank's launches against its steps,
+    every rank equal to rank 0 and the flavours equal to each other bit for
+    bit, path i within 1e-5 of ``distributed`` (same world and flavour) and
+    world 1 within 1e-4 of ``local``, path j's H=512 kernels in the
+    profile.  Then the examples: ``example_ddp`` and ``example_horovod`` at
+    worlds 1 and 2, ``example_p2p`` at world 2, in the same worlds."""
+    from pytorch_distributed_rnn_tpu_torch.parallel.bucketing import plan_buckets
+    from pytorch_distributed_rnn_tpu_torch.runtime import native
+
+    print("main path: distributed-native (i: motion LSTM at worlds 1 and 2; j: char LM H=512)")
+    t0 = time.perf_counter()
+    native.build_native_library()
+    build_s = native.BUILD_SECONDS[-1] if native.BUILD_SECONDS else None
+    print(f"  ring library: {native.library_path().relative_to(ROOT)}, g++ build "
+          f"{'(built already)' if build_s is None else f'{build_s:.2f} s'}")
+    lines = {}
+    for world in (1, 2):
+        jobs = _native_jobs(workdir, world)
+        wall, _ = _torchrun(world, list(jobs.values()), workdir, f"native{world}")
+        print(f"  world {world}: {len(jobs)} jobs in {wall:.2f} s (one torchrun)")
+        runs = {}
+        for key in NATIVE_FLAVOURS:
+            results, history = runs[key] = _dp_results(jobs[f"i {key}"], world)
+            _check_dp_launches(f"i{world} {key}", results, "lstm", evaluations=0)
+            lines[f"i{world} {key}"] = _native_line(
+                f"i world {world} {key}", runs[key],
+                _dp_results(jobs[f"i {key} profiled"], world))
+        size = sum(v.numel() for v in runs["bucketed"][0][0]["state"].values())
+        buckets = plan_buckets(size, world, 4, NATIVE_BUCKET_MB).num_buckets
+        print(f"  i world {world}: {size} parameters, {buckets} buckets at --bucket-mb "
+              f"{NATIVE_BUCKET_MB}")
+        if buckets < 3:
+            raise RuntimeError(f"i world {world}: {buckets} buckets, fewer than 3")
+
+        def final(key):
+            results, history = runs[key]
+            return results[0]["state"], history
+
+        for key in ("bucketed", "replicated"):
+            _dp_compare(f"i{world}: {key} vs monolithic", final(key), final("monolithic"), 0)
+        suffix = "g" if world == 1 else "h"
+        for key in NATIVE_FLAVOURS:
+            reference = dp_finals[f"{suffix} {'replicated' if key == 'replicated' else 'sharded'}"]
+            state, history = final(key)
+            err = _state_err(state, reference[0])
+            print(f"  i{world} {key} vs distributed: params max_abs_err={err:.3e}, "
+                  f"tol={DP_TOL_FLAVOURS:g}")
+            if err > DP_TOL_FLAVOURS:
+                raise RuntimeError(f"i{world} {key}: disagrees with distributed")
+            if world == 1:  # the train loss is the rank's own mean: comparable at world 1
+                _dp_compare(f"i1 {key} vs distributed (train history)",
+                            (state, {"train_history": history["train_history"],
+                                     "validation_history": []}),
+                            (reference[0], {"train_history": reference[1]["train_history"],
+                                            "validation_history": []}), DP_TOL_FLAVOURS)
+        if world == 1:
+            err = _state_err(final("bucketed")[0], dp_finals["local"][0])
+            print(f"  i1 vs local: params max_abs_err={err:.3e}, tol={DP_TOL_LOCAL:g}")
+            if err > DP_TOL_LOCAL:
+                raise RuntimeError("i1: disagrees with local")
+            j = {key: _dp_results(jobs[f"j {key}"], 1, epochs=1) for key in NATIVE_CHAR_FLAVOURS}
+            for key, run in j.items():
+                _check_dp_launches(f"j {key}", run[0], "lstm", evaluations=0)
+                profiled = _dp_results(jobs[f"j {key} profiled"], 1, epochs=1)
+                lines[f"j {key}"] = _native_line(f"j {key}", run, profiled)
+                kernels, launches = profiled[0][0]["kernels"], profiled[0][0]["launches"]
+                for kernel, wrapper in zip(NATIVE_CHAR_KERNELS, ("lstm_fwd", "lstm_bwd")):
+                    seen = sum(n for k, n in kernels.items() if kernel in k)
+                    if seen != launches[wrapper]:
+                        raise RuntimeError(f"j {key}: {kernel} {seen} times in the profile, "
+                                           f"{launches[wrapper]} launches")
+            size = sum(v.numel() for v in j["bucketed"][0][0]["state"].values())
+            print(f"  j: {size} parameters ({size * 4 / 1e6:.1f} MB of float32 gradient), "
+                  f"{plan_buckets(size, 1, 4, NATIVE_CHAR_BUCKET_MB).num_buckets} buckets at "
+                  f"--bucket-mb {NATIVE_CHAR_BUCKET_MB}; "
+                  f"{NATIVE_CHAR_KERNELS} counted in the profile")
+            _dp_compare("j: bucketed vs monolithic", (j["bucketed"][0][0]["state"], j["bucketed"][1]),
+                        (j["monolithic"][0][0]["state"], j["monolithic"][1]), 0)
+        _check_examples(jobs, world)
+    print(f"  distributed-native phase: {time.perf_counter() - t0:.1f} s")
+    return {"ring_build_s": build_s, "lines": lines}
 
 
 def _long_context_trainer(fuse_run: bool = False):
@@ -1835,7 +2029,7 @@ def main() -> int:
             "char_lstm": phase_char(workdir, "lstm"),
             "attention": phase_attention(workdir),
         }
-        phase_distributed(workdir)
+        phase_native(workdir, phase_distributed(workdir))
         phase_graph(workdir, formatter)
     runs["long"] = phase_long_context()
     for key in ("motion_lstm", "motion_gru", "char_gru", "char_lstm", "attention", "long"):

@@ -3,9 +3,12 @@
 The flag surface of the JAX package's ``main.py``, plus ``--device
 {cuda,cpu}`` (default ``cuda``; without a card the run fails and says to
 pass ``--device cpu``).  The subcommands are ``local`` and the
-data-parallel strategies ``distributed`` (DDP) and ``horovod``, one
-process a rank (``--sharded-update``, on by default, shards their Adam
-step); ``--model`` takes ``rnn``, ``char`` and ``attention``.
+data-parallel strategies, one process a rank: ``distributed`` (DDP) and
+``horovod`` over ``torch.distributed``, and ``distributed-native`` over
+the framework's C++ TCP ring (``--bucketed-comm`` and ``--bucket-mb``
+bucket its gradient traffic); ``--sharded-update``, on by default, shards
+the Adam step of all three.  ``--model`` takes ``rnn``, ``char`` and
+``attention``.
 ``local`` trains each epoch through CUDA-graph replays of its train step
 unless DEBUG logging asks for each batch's values, and ``--fuse-run``
 replays it over the whole run (``training/base.py``).
@@ -16,6 +19,11 @@ Run:
   python -m pytorch_distributed_rnn_tpu_torch.main --dataset-path data local
   python -m torch.distributed.run --standalone --nproc-per-node 2 \
       -m pytorch_distributed_rnn_tpu_torch.main --dataset-path data distributed
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m pytorch_distributed_rnn_tpu_torch.main --dataset-path data distributed-native
+  MASTER_ADDR=127.0.0.1 MASTER_PORT=29500 WORLD_SIZE=2 RANK=0 \
+      python -m pytorch_distributed_rnn_tpu_torch.main --dataset-path data distributed-native
+      (and RANK=1 in a second shell: the ring's own rendezvous, no torchrun)
   python -m pytorch_distributed_rnn_tpu_torch.main --model char --cell gru \
       --hidden-units 512 --seq-length 128 --batch-size 256 --dropout 0 local
   python -m pytorch_distributed_rnn_tpu_torch.main --model attention \
@@ -85,13 +93,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--grad-accum", default=1, type=int, metavar="K",
                         help=f"values above 1 are {NOT_PORTED}")
     parser.add_argument("--sharded-update", default=True, action=argparse.BooleanOptionalAction,
-                        help="distributed and horovod: reduce-scatter the gradient, "
-                        "step Adam on each rank's 1/world slice, all-gather the "
-                        "parameters (default on); inert on local")
+                        help="distributed, horovod and distributed-native: reduce-scatter "
+                        "the gradient, step Adam on each rank's 1/world slice, all-gather "
+                        "the parameters (default on); inert on local")
     parser.add_argument("--bucketed-comm", default=True, action=argparse.BooleanOptionalAction,
-                        help="distributed-native only; inert on local")
+                        help="distributed-native with --sharded-update: split the ring's "
+                        "reduce-scatter and all-gather into --bucket-mb buckets that "
+                        "overlap the Adam steps (default on); inert elsewhere")
     parser.add_argument("--bucket-mb", default=25.0, type=float, metavar="MB",
-                        help="distributed-native only; inert on local")
+                        help="distributed-native: the wire size of a bucket (default 25, "
+                        "DDP's bucket_cap_mb); inert elsewhere")
     parser.add_argument("--precision", default="f32", choices=["f32", "bf16"],
                         help="bf16: bfloat16 recurrence or encoder blocks, float32 "
                         "parameters and head")
@@ -104,7 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "graph of the train step replayed over every batch of every epoch) "
                         "even at INFO logging; needs --no-validation, no --checkpoint-every "
                         "and, with dropout, a batch size dividing the training set; "
-                        f"distributed and horovod: {NOT_PORTED}")
+                        f"distributed and horovod: {NOT_PORTED}; distributed-native: "
+                        "rejected (the host handles every batch)")
     parser.add_argument("--profile", default=None, type=Path, metavar="DIR", help=NOT_PORTED)
     parser.add_argument("--profile-steps", default=None, metavar="A:B", help=NOT_PORTED)
     parser.add_argument("--metrics", default=None, type=Path, metavar="PATH", help=NOT_PORTED)
@@ -124,10 +136,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def reject_unported(args):
-    """Exit loudly on any flag whose machinery the port does not have yet."""
+    """Exit loudly on any flag whose machinery the port does not have yet,
+    and on the flags ``distributed-native`` rejects, with the JAX trainer's
+    reasons."""
+    if args.strategy == "distributed-native":
+        from pytorch_distributed_rnn_tpu_torch.training import native_ddp
+
+        rejected = {native_ddp.FUSE_RUN_REJECTED: args.fuse_run,
+                    native_ddp.CHECKPOINT_ASYNC_REJECTED: args.checkpoint_async,
+                    native_ddp.CHECKPOINT_SHARDED_REJECTED: args.checkpoint_format != "gathered"}
+        reasons = [reason for reason, on in rejected.items() if on]
+        if reasons:
+            raise SystemExit("; ".join(reasons))
     unported = {
         "--fuse-run under distributed and horovod": (
-            args.fuse_run and args.strategy != "local"),
+            args.fuse_run and args.strategy in ("distributed", "horovod")),
         "--grad-accum above 1": args.grad_accum != 1,
         "--max-bad-steps": args.max_bad_steps != 0,
         "--faults": args.faults is not None,

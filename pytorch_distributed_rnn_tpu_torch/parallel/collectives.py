@@ -129,6 +129,15 @@ class World:
         dist.broadcast(wire, src=src)
         return flat if wire is flat else flat.copy_(wire)
 
+    def send(self, tensor: torch.Tensor, dst: int) -> None:
+        dist.send(self._to_wire(tensor, "p2p"), dst)
+
+    def recv_(self, tensor: torch.Tensor, src: int) -> torch.Tensor:
+        """``tensor`` overwritten with what rank ``src`` sends."""
+        wire = self._host(tensor, "p2p") if self.host_staged else tensor
+        dist.recv(wire, src)
+        return tensor if wire is tensor else tensor.copy_(wire)
+
     def barrier(self):
         if self.backend == "nccl":
             dist.barrier(device_ids=[self.device.index])

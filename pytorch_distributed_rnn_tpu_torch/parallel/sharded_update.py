@@ -1,9 +1,8 @@
 """Cross-replica sharded weight update (PAPERS.md 2004.13336).
 
-The counterpart of the JAX package's ``parallel/sharded_update.py``, its
-SPMD and process-per-rank parts (the bucket plan of the native ring is not
-ported).  Instead of allreducing the whole gradient and running the whole
-Adam step on every rank, each rank
+The counterpart of the JAX package's ``parallel/sharded_update.py``.
+Instead of allreducing the whole gradient and running the whole Adam step
+on every rank, each rank
 
 1. reduce-scatters the flat gradient, prescaled by 1/world as DDP's
    reducer prescales (``World.reduce_scatter_mean``),
@@ -23,6 +22,16 @@ strategy.
 Because the reduce-scatter's slice has the bits of the allreduce of the
 same buffer, and Adam's result for an element does not depend on where the
 element sits, the sharded update equals the replicated one bit for bit.
+
+:meth:`ShardedUpdate.step` runs that schedule over a ``torch.distributed``
+``World``.  The TCP ring of ``distributed-native``
+(``training/native_ddp.py``) runs its own schedule, in buckets
+(:meth:`ShardedUpdate.bucket_plan`, ``parallel/bucketing.py``) or whole,
+and hands the reduced gradient and this rank's parameters to
+:meth:`ShardedUpdate.update_` as flat tensors: a bucket is a ``[lo, hi)``
+range of the shard, stepped on ``[lo:hi]`` views of the one flat
+``exp_avg``/``exp_avg_sq`` shard.  Adam is elementwise, so any bucketing
+gives the bits of the whole-shard step, and the state keeps one layout.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from pytorch_distributed_rnn_tpu_torch.ops.adam import adam_update_
+from pytorch_distributed_rnn_tpu_torch.parallel.bucketing import plan_buckets
 from pytorch_distributed_rnn_tpu_torch.parallel.collectives import padded_size
 
 
@@ -39,7 +49,9 @@ class ShardedUpdate:
     ``load_state_dict``).  ``optimizer`` (an ``ops.adam.Adam``) supplies
     the parameters and hyperparameters and is never stepped itself.
     ``group`` (a ``collectives.World``) is needed only to step and to
-    gather the state; the layout methods work without it."""
+    gather the state (the TCP ring's trainer passes an object with
+    ``all_gather`` alone, and steps through :meth:`update_`); the layout
+    methods work without it."""
 
     def __init__(self, optimizer, world_size: int, rank: int = 0, group=None):
         if len(optimizer.param_groups) != 1:
@@ -91,15 +103,30 @@ class ShardedUpdate:
 
     @torch.no_grad()
     def step(self):
-        group = self.optimizer.param_groups[0]
-        beta1, beta2 = group["betas"]
         g_shard = self.group.reduce_scatter_mean(self.ravel([p.grad for p in self.params]))
         p_shard = self.shard_slice(self.ravel(self.params), self.rank)
         self.steps += 1
-        adam_update_([p_shard], [g_shard], [self.exp_avg], [self.exp_avg_sq], self.steps,
-                     group["lr"], beta1, beta2, group["eps"])
+        self.update_(p_shard, g_shard)
         fresh = self.group.all_gather(p_shard)
         torch._foreach_copy_(self.params, self.unravel(fresh))
+
+    def bucket_plan(self, bucket_mb: float):
+        """The buckets of this rank's shard range for wire vectors of at
+        most ``bucket_mb`` MB in the parameters' dtype."""
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        return plan_buckets(self.size, self.world, itemsize, bucket_mb)
+
+    @torch.no_grad()
+    def update_(self, p_sub: torch.Tensor, g_sub: torch.Tensor, lo: int = 0) -> None:
+        """Adam in place on ``p_sub``, the elements ``[lo, lo + len)`` of
+        this rank's parameter shard, with their averaged gradient ``g_sub``
+        and the same range of the moments, at the current step count (the
+        caller adds 1 to ``steps`` once a step, before its first update)."""
+        group = self.optimizer.param_groups[0]
+        beta1, beta2 = group["betas"]
+        hi = lo + p_sub.numel()
+        adam_update_([p_sub], [g_sub], [self.exp_avg[lo:hi]], [self.exp_avg_sq[lo:hi]],
+                     self.steps, group["lr"], beta1, beta2, group["eps"])
 
     # -- layout bijection (checkpoints stay unsharded) ----------------------------
 

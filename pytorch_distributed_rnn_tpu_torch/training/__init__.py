@@ -1,11 +1,15 @@
-"""Trainer registry: the ``local``, ``distributed`` and ``horovod``
-subcommands and the shared run tail, the counterparts of the JAX package's
-``training/__init__.py`` ``add_sub_commands``/``train``/``_run_trainer``.
+"""Trainer registry: the ``local``, ``distributed``, ``horovod`` and
+``distributed-native`` subcommands and the shared run tail, the
+counterparts of the JAX package's ``training/__init__.py``
+``add_sub_commands``/``train``/``_run_trainer``.
 
 ``distributed`` and ``horovod`` run one process a rank: start them with
 ``torchrun`` (``python -m torch.distributed.run --nproc-per-node W -m
-pytorch_distributed_rnn_tpu_torch.main ... distributed``); without a
-launcher they run as a world of 1.
+pytorch_distributed_rnn_tpu_torch.main ... distributed``).
+``distributed-native`` runs one process a rank over the TCP ring
+(``training/native_ddp.py``): any launcher that sets ``MASTER_ADDR``/
+``MASTER_PORT``/``RANK``/``WORLD_SIZE`` (``torchrun`` does, or
+``native_ddp.launch_world``).  Without a launcher each runs as a world of 1.
 """
 
 from __future__ import annotations
@@ -19,9 +23,10 @@ from pytorch_distributed_rnn_tpu_torch.training.distributed import (
     HorovodTrainer,
     SpmdTrainer,
 )
+from pytorch_distributed_rnn_tpu_torch.training.native_ddp import NativeDDPTrainer
 
-__all__ = ["DDPTrainer", "HorovodTrainer", "SpmdTrainer", "Trainer", "add_sub_commands",
-           "train"]
+__all__ = ["DDPTrainer", "HorovodTrainer", "NativeDDPTrainer", "SpmdTrainer", "Trainer",
+           "add_sub_commands", "train"]
 
 
 def add_sub_commands(sub_parser):
@@ -30,6 +35,10 @@ def add_sub_commands(sub_parser):
         command = sub_parser.add_parser(name)
         command.set_defaults(func=lambda args, cls=trainer_class: train(args, cls),
                              strategy=name)
+    from pytorch_distributed_rnn_tpu_torch.training import native_ddp
+
+    sub_parser.add_parser("distributed-native").set_defaults(func=native_ddp.execute,
+                                                             strategy="distributed-native")
 
 
 def train(args, trainer_class):
@@ -47,19 +56,24 @@ def train(args, trainer_class):
     try:
         if group.device.type == "cuda":
             collectives.build_kernels_once(group)
-        return _train(args, trainer_class, group)
+        return _train(args, trainer_class, group, device=group.device, group=group,
+                      sharded_update=args.sharded_update)
     finally:
         collectives.destroy(group)
 
 
-def _train(args, trainer_class, group=None):
+def _train(args, trainer_class, ranks=None, **placement):
+    """The datasets, the model and the run.  ``ranks`` (anything with
+    ``rank`` and ``barrier()``: a process group, or the ring) orders the
+    data preparation; ``placement`` holds the trainer's device and its
+    strategy's arguments (the device of ``--device`` without them)."""
     from pytorch_distributed_rnn_tpu_torch.training import families
 
-    if group is not None and group.rank != 0:
-        group.barrier()  # rank 0 may write the data cache first
+    if ranks is not None and ranks.rank != 0:
+        ranks.barrier()  # rank 0 may write the data cache first
     datasets = families.load_datasets(args)
-    if group is not None and group.rank == 0:
-        group.barrier()
+    if ranks is not None and ranks.rank == 0:
+        ranks.barrier()
     training_set, validation_set, test_set = datasets
     logging.info(f"Training set of size {len(training_set)}")
     if args.no_validation:
@@ -68,10 +82,7 @@ def _train(args, trainer_class, group=None):
         logging.info(f"Validation set of size {len(validation_set)}")
         logging.info(f"Test set of size {len(test_set)}")
     model = families.build_model(args, training_set)
-    placement = {"device": args.device}
-    if group is not None:
-        placement = {"device": group.device, "group": group,
-                     "sharded_update": args.sharded_update}
+    placement = placement or {"device": args.device}
     return _run_trainer(args, families.wrap_trainer(args, trainer_class), model,
                         (training_set, validation_set, test_set), **placement)
 
@@ -79,8 +90,8 @@ def _train(args, trainer_class, group=None):
 def _run_trainer(args, trainer_class, model, datasets, **placement):
     """Construct, optionally resume, train, and (rank 0) dump
     ``history.json`` into the working directory.  ``placement`` holds the
-    device, and a data-parallel strategy's process group and
-    ``sharded_update``."""
+    device, and a data-parallel strategy's process group or ring and its
+    options."""
     training_set, validation_set, test_set = datasets
     trainer = trainer_class(
         model=model,

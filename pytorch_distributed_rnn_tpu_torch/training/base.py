@@ -406,7 +406,7 @@ class Trainer:
             loss, correct = self._loss_and_metrics(x, y, self.dropout_generator)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
-            self.optimizer.step()
+            self._optimizer_step()
             total_loss += loss.detach()
             total_correct = total_correct + correct.detach()
             if log_progress:
@@ -420,6 +420,12 @@ class Trainer:
         n = len(self.training_set)
         loss_sum, correct_sum = self._epoch_sums(total_loss, total_correct)
         return loss_sum / n, correct_sum / n
+
+    def _optimizer_step(self) -> None:
+        """The update of the per-batch loop, after the backward: the
+        optimizer's step here; a strategy that moves the gradients itself
+        (``distributed-native``) runs its schedule."""
+        self.optimizer.step()
 
     def _epoch_sums(self, total_loss, total_correct) -> tuple[float, float]:
         """The epoch's sum of batch-mean losses and its ``correct`` sum."""
@@ -453,7 +459,7 @@ class Trainer:
             return
         # every rank takes the optimizer state (a collective where it is
         # sharded); rank 0 writes
-        opt_state = self.optimizer.state_dict()
+        opt_state = self._checkpoint_opt_state()
         if self.rank != 0:
             return
         save_checkpoint(
@@ -461,6 +467,11 @@ class Trainer:
         )
         if not best and self.keep_checkpoints:
             rotate_checkpoints(self.checkpoint_dir, self.keep_checkpoints)
+
+    def _checkpoint_opt_state(self) -> dict:
+        """The optimizer state a checkpoint holds, ``torch.optim.Adam``'s
+        unsharded layout."""
+        return self.optimizer.state_dict()
 
     def resume_from(self, checkpoint_path):
         """Restore model and optimizer state from a checkpoint file; the

@@ -47,3 +47,25 @@ def test_port_imports_with_jax_blocked():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("relative", [
+    "runtime/__init__.py", "runtime/native.py", "examples/__init__.py",
+    "examples/example_single.py", "examples/example_ddp.py", "examples/example_horovod.py",
+    "examples/example_p2p.py", "models/toy.py", "training/native_ddp.py",
+    "parallel/bucketing.py", "utils/worlds.py",
+])
+def test_new_modules_are_checked(relative):
+    assert PORT / relative in FILES
+
+
+def test_ring_library_builds_under_build_from_the_ports_own_source():
+    from pytorch_distributed_rnn_tpu_torch.runtime import native
+
+    assert native.SOURCE == PORT / "runtime" / "csrc" / "collectives.cpp"
+    assert native.library_path().is_relative_to(ROOT / "build" / "torch_runtime")
+    assert native.library_path().name == "libpdrnn_collectives.so"
+    # a verbatim copy: the same wire format and accumulation order as the
+    # JAX package's ring
+    jax_source = ROOT / "pytorch_distributed_rnn_tpu" / "runtime" / "csrc" / "collectives.cpp"
+    assert native.SOURCE.read_bytes() == jax_source.read_bytes()

@@ -252,7 +252,10 @@ def test_other_model_families_exit(cache_dir, family):
 
 def test_only_local_is_a_subcommand():
     """The strategies not ported yet are not subcommands (``local``,
-    ``distributed`` and ``horovod`` are)."""
-    for command in ("fsdp", "distributed-native", "mesh", "parameter-server"):
+    ``distributed``, ``horovod`` and ``distributed-native`` are)."""
+    for command in ("fsdp", "mesh", "parameter-server"):
         with pytest.raises(SystemExit):
             port_main.main(["--device", "cpu", command])
+    parser = port_main.build_parser()
+    for command in ("local", "distributed", "horovod", "distributed-native"):
+        assert parser.parse_args([command]).strategy == command

@@ -93,6 +93,25 @@ Phases, in order; any failure raises and the script exits nonzero:
       toy examples on the card: ``example_ddp`` and ``example_horovod`` at
       worlds 1 and 2, ``example_p2p`` at world 2, each printing
       ``PARITY-OK`` (p2p: every rank's 1.0).
+   k. serving (``phase_serving``, the smoke's last phase, after phase 6):
+      path f's trained checkpoint through the serving CLI's loader, an engine of 8
+      slots (prompt buckets 16-128, 128 new tokens at most) whose prefill
+      and decode step are CUDA graphs captured at warm-up, 32 mixed
+      requests (prompts of 1-128 tokens from the char test windows, 1-128
+      new tokens, temperatures 0 / 0.7 / 1.0): every request's tokens equal
+      its single-request ``generate`` on the card (a greedy near tie below
+      ``LOGIT_TOL`` is reported and allowed), captures 4 + 1 + 1 and none
+      added, no RNN or flash kernel launched; the largest first-step logit
+      difference against ``generate``; the decode step's host ms, device ms
+      and idle share over 200 replays, each bucket's prefill and capture
+      ms; 16 greedy requests through 8 slots against 1 slot (tokens/s must
+      exceed 1.3x); the CLI server as a subprocess driven by the CLI load
+      generator (64 Poisson requests at 20/s, 0 errors, exit 0 on SIGTERM),
+      then one ``loadgen --spawn-server`` drill. l. the same steps but the
+      timing, TCP and throughput on path c's char GRU (16 requests); m. an
+      attention LM at path e's widths (dim 512, 4 heads, depth 2, max_len
+      512) from a seed, written as a port checkpoint, 16 requests, and its
+      decode step's timing.
    Paths a-f train on the device-resident step (CUDA-graph replays of the
    train step; INFO logging), so each kernel's launches count at each
    replay.  Each of a-f checks finite losses (a-d, f: and the perf line),
@@ -149,6 +168,7 @@ import logging
 import math
 import os
 import re
+import shlex
 import subprocess
 import sys
 import tempfile
@@ -888,6 +908,323 @@ def phase_attention(workdir: Path) -> PathRun:
     if flash.shape != (64, 6):
         raise RuntimeError(f"attention: logits of shape {tuple(flash.shape)}")
     return run
+
+
+# ---------------------------------------------------------------------------
+# serving (paths k, l, m)
+
+SERVE_SLOTS = 8
+SERVE_BUCKETS = "16,32,64,128"
+SERVE_MAX_NEW = 128
+SERVE_TIMING_REPLAYS = 200
+SERVE_PREFILL_REPLAYS = 20
+SERVE_BATCH_GAIN = 1.3  # batched tokens/s over serial (JAX tests/test_serving.py:165)
+SERVE_THROUGHPUT_REQUESTS, SERVE_THROUGHPUT_TOKENS = 16, 32
+SERVE_TCP = ["--requests", "64", "--rate", "20", "--prompt-len-min", "2",
+             "--prompt-len-max", "64", "--new-tokens-min", "16", "--new-tokens-max", "128",
+             "--temperature", "0.8", "--sampled-fraction", "0.5", "--seed", "0"]
+SERVE_DRILL = ["--requests", "32", "--rate", "20", "--prompt-len-max", "64",
+               "--new-tokens-max", "64", "--seed", "1"]
+SERVE_PROCESS_TIMEOUT = 300
+ATTN_LM_ARGS = ["--model", "attention", "--hidden-units", "512", "--num-heads", "4",
+                "--stacked-layer", "2", "--max-len", "512"]
+
+
+def _serve_args(name: str, checkpoint: Path) -> list:
+    """The serve CLI's model flags of path ``name``."""
+    if name == "m":
+        return ["--checkpoint", str(checkpoint), *ATTN_LM_ARGS]
+    cell = "gru" if name == "l" else "lstm"
+    return ["--checkpoint", str(checkpoint), "--model", "char", "--cell", cell,
+            "--hidden-units", str(CHAR_HIDDEN), "--stacked-layer", "2"]
+
+
+def _serve_engine(model, slots: int = SERVE_SLOTS, buckets: str = SERVE_BUCKETS):
+    from pytorch_distributed_rnn_tpu_torch.serving.adapters import adapter_for
+    from pytorch_distributed_rnn_tpu_torch.serving.buckets import BucketSpec
+    from pytorch_distributed_rnn_tpu_torch.serving.engine import ServingEngine
+
+    return ServingEngine(adapter_for(model), num_slots=slots,
+                         bucket_spec=BucketSpec.parse(buckets), max_new_tokens=SERVE_MAX_NEW)
+
+
+def _serve_requests(windows: np.ndarray, n: int, seed: int) -> list:
+    """``n`` mixed requests: prompts of 1-128 tokens cut from ``windows``,
+    1-128 new tokens, temperatures 0 / 0.7 / 1.0 in turn, distinct seeds."""
+    from pytorch_distributed_rnn_tpu_torch.serving.scheduler import ServeRequest
+
+    rng = np.random.RandomState(seed)
+    requests = []
+    for i in range(n):
+        row = windows[i % len(windows)]
+        length = int(rng.randint(1, 129))
+        start = int(rng.randint(0, len(row) - length + 1))
+        requests.append(ServeRequest(
+            prompt=[int(t) for t in row[start:start + length]],
+            max_new_tokens=int(rng.randint(1, SERVE_MAX_NEW + 1)),
+            temperature=(0.0, 0.7, 1.0)[i % 3], seed=seed * 1000 + i, id=str(i)))
+    return requests
+
+
+def _generate_first_logits(model, prompt, length: int):
+    """The logits ``generate`` draws its first token from (its prefill)."""
+    from pytorch_distributed_rnn_tpu_torch.models.attention_lm import attention_prefill
+    from pytorch_distributed_rnn_tpu_torch.ops.rnn import head_logits, stacked_rnn
+
+    with torch.no_grad():
+        if hasattr(model, "rnn"):
+            outputs, _ = stacked_rnn(list(model.rnn), model.embed[prompt.long()], model.cell,
+                                     impl=model.impl)
+            return head_logits(model.head, outputs[:, -1, :])
+        return attention_prefill(model, prompt, prompt.shape[1] + length)[2][:, -1]
+
+
+def _check_served_tokens(name: str, model, requests: list, first_logits: dict, device) -> dict:
+    """Every request's tokens against its single-request ``generate`` on
+    the same device: a differing token fails unless greedy at a near tie
+    (top-2 logit gap below ``LOGIT_TOL`` at the first differing step)."""
+    worst, ties, tokens = 0.0, [], 0
+    for r in requests:
+        prompt = torch.tensor([r.prompt], device=device)
+        generator = torch.Generator(device=device).manual_seed(r.seed)
+        out = model.generate(prompt, r.max_new_tokens, generator=generator,
+                             temperature=r.temperature)
+        want = out[0, len(r.prompt):].tolist()
+        if r.status != "done" or len(r.tokens) != r.max_new_tokens:
+            raise RuntimeError(f"{name}: request {r.id} ended {r.status}: {r.error}")
+        worst = max(worst, _max_err(first_logits[r.seed],
+                                    _generate_first_logits(model, prompt, r.max_new_tokens)[0]))
+        tokens += len(want)
+        if r.tokens == want:
+            continue
+        step = next(i for i, (a, b) in enumerate(zip(r.tokens, want)) if a != b)
+        with torch.no_grad():
+            logits = model(out[:, :-1])[0, len(r.prompt) - 1 + step]
+        gap = _top2_gap(logits).item()
+        print(f"  {name}: request {r.id} (temperature {r.temperature}) differs from generate "
+              f"at step {step}; top-2 logit gap there {gap:.3e}")
+        if r.temperature != 0.0 or gap >= LOGIT_TOL:
+            raise RuntimeError(f"{name}: request {r.id} diverged from its single-request "
+                               "generate")
+        ties.append((r.id, step, gap))
+    print(f"  {name}: {len(requests)} requests, {tokens} tokens equal to generate's "
+          f"(near greedy ties: {ties}); largest first-step logit difference, batched prefill vs "
+          f"generate: {worst:.3e}")
+    return {"first_logit_max_abs_diff": worst, "near_ties": ties, "tokens": tokens}
+
+
+def _serve_timing(name: str, engine) -> dict:
+    """The decode step (replay + the (tok, ok) copy) over
+    ``SERVE_TIMING_REPLAYS`` replays: host ms after a sync, device ms
+    under ``torch.profiler`` (kernels, copies and sets), idle share; each
+    bucket's prefill ms (a full-bucket prompt through the engine's
+    prefill: its copies and the replay) and capture ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        engine._program(("step",), engine._step_body)
+        engine.out.cpu()
+
+    with torch.no_grad():
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_TIMING_REPLAYS):
+            step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / SERVE_TIMING_REPLAYS
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(SERVE_TIMING_REPLAYS):
+                step()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3 / SERVE_TIMING_REPLAYS
+        prefill = {}
+        for bucket in engine.buckets.prompt_buckets:
+            prompt = [1] * bucket
+            engine._prefill(prompt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SERVE_PREFILL_REPLAYS):
+                engine._prefill(prompt)
+            torch.cuda.synchronize()
+            prefill[bucket] = {
+                "ms": (time.perf_counter() - t0) * 1e3 / SERVE_PREFILL_REPLAYS,
+                "capture_ms": engine.graphs[("prefill", bucket)].capture_s * 1e3}
+    step_capture_ms = engine.graphs[("step",)].capture_s * 1e3
+    kernels = sum(e.count for e in events) / SERVE_TIMING_REPLAYS
+    result = {"step_host_ms": host_ms, "step_device_ms": device_ms,
+              "idle": 1.0 - device_ms / host_ms, "step_capture_ms": step_capture_ms,
+              "device_events_a_step": kernels, "prefill": prefill}
+    print(f"  {name}: decode step at {engine.batcher.num_slots} slots over "
+          f"{SERVE_TIMING_REPLAYS} replays: host {host_ms:.4f} ms, device {device_ms:.4f} ms "
+          f"({kernels:g} device events), card idle {100 * result['idle']:.1f}%; capture "
+          f"{step_capture_ms:.1f} ms")
+    for bucket, t in prefill.items():
+        print(f"  {name}: prefill bucket {bucket}: {t['ms']:.4f} ms a call (host clock), "
+              f"capture {t['capture_ms']:.1f} ms")
+    _print_top(events, SERVE_TIMING_REPLAYS)
+    return result
+
+
+def _throughput(model, windows: np.ndarray, slots: int) -> float:
+    """Tokens/s of 16 greedy requests (prompts of 2-15 tokens, 32 new
+    tokens each) through ``slots`` slots, warm-up excluded."""
+    from pytorch_distributed_rnn_tpu_torch.serving.scheduler import ServeRequest
+
+    rng = np.random.RandomState(7)
+    engine = _serve_engine(model, slots=slots, buckets="16")
+    engine.warmup()
+    requests = []
+    for i in range(SERVE_THROUGHPUT_REQUESTS):
+        length = int(rng.randint(2, 16))
+        requests.append(ServeRequest(prompt=[int(t) for t in windows[i, :length]],
+                                     max_new_tokens=SERVE_THROUGHPUT_TOKENS, id=str(i)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in requests:
+        engine.submit(r)
+    engine.drain()
+    elapsed = time.perf_counter() - t0
+    if not all(r.status == "done" for r in requests):
+        raise RuntimeError(f"throughput run at {slots} slots: requests failed")
+    return sum(len(r.tokens) for r in requests) / elapsed
+
+
+def _serve_subprocess(args: list, timeout: int = SERVE_PROCESS_TIMEOUT):
+    return subprocess.run([sys.executable, "-m", "pytorch_distributed_rnn_tpu_torch.serving",
+                           *args], cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+
+
+def _serve_over_tcp(workdir: Path, serve_args: list) -> dict:
+    """The CLI server as a subprocess, driven by the CLI load generator
+    (``--connect``), stopped with SIGTERM; then one ``--spawn-server``
+    drill.  Errors must be 0 and the server must exit 0 both times."""
+    from pytorch_distributed_rnn_tpu_torch.serving.drill import spawn_server
+
+    report_path = workdir / "serve-report.json"
+    t0 = time.perf_counter()
+    with spawn_server([*serve_args, "--slots", str(SERVE_SLOTS)],
+                      ready_timeout_s=SERVE_PROCESS_TIMEOUT) as (host, port, proc):
+        ready_s = time.perf_counter() - t0
+        load = _serve_subprocess(["loadgen", "--connect", f"{host}:{port}", *SERVE_TCP,
+                                  "--report", str(report_path)])
+    print(load.stdout.strip())
+    report = json.loads(report_path.read_text())
+    print(f"  tcp: server ready in {ready_s:.1f} s; loadgen exit {load.returncode}; "
+          f"{report['tokens_per_s']:.1f} tokens/s, ttft ms p50 {report['ttft_ms']['p50']} p95 "
+          f"{report['ttft_ms']['p95']}, latency ms p50 {report['latency_ms']['p50']} p95 "
+          f"{report['latency_ms']['p95']}, shed {report['shed']}, errors {report['errors']}; "
+          f"server exit on SIGTERM {proc.returncode}")
+    if report["errors"] != 0 or report["done"] + report["shed"] != report["requests"]:
+        raise RuntimeError(f"tcp: {report['errors']} errors: {report['error_samples']}"
+                           f"\n{load.stderr[-4000:]}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"tcp: the server exited {proc.returncode} on SIGTERM")
+    drill_path = workdir / "serve-drill.json"
+    drill = _serve_subprocess(["loadgen", "--spawn-server", shlex.join(serve_args), *SERVE_DRILL,
+                               "--report", str(drill_path)])
+    drill_report = json.loads(drill_path.read_text()) if drill_path.exists() else None
+    print(drill.stdout.strip())
+    if drill_report is None or drill_report["errors"] != 0 or drill_report["server_exit"] != 0:
+        raise RuntimeError(f"drill failed (exit {drill.returncode}):\n{drill.stderr[-4000:]}")
+    return {"report": {k: report[k] for k in ("requests", "done", "shed", "errors", "wall_s",
+                                              "tokens", "tokens_per_s", "latency_ms",
+                                              "ttft_ms", "queue_ms")},
+            "loadgen_exit": load.returncode, "ready_s": ready_s,
+            "drill": {k: drill_report[k] for k in ("done", "shed", "errors", "tokens_per_s",
+                                                   "server_exit")}}
+
+
+def _serve_path(name: str, serve_args: list, windows: np.ndarray, n_requests: int,
+                seed: int) -> tuple:
+    """Steps 1-4 of a serving path: the CLI's loader, an engine of 8 slots
+    warmed up, ``n_requests`` mixed requests, drained; tokens against
+    ``generate``, captures 4 + 1 + 1 and none added, no kernel launched."""
+    from pytorch_distributed_rnn_tpu_torch.serving import cli
+
+    _reset_launch_counts()
+    model, _ = cli.load_served_model(cli.build_serve_parser().parse_args(serve_args))
+    engine = _serve_engine(model)
+    t0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    snapshot = engine.retrace_snapshot()
+    want = {"prefill": len(SERVE_BUCKETS.split(",")), "step": 1, "join": 1}
+    if snapshot != want:
+        raise RuntimeError(f"{name}: captures after warm-up {snapshot}, not {want}")
+    first_logits = {}
+    join = engine._join
+
+    def spy(slot, seq_state, seq_logits, length, temperature, seed):
+        first_logits[seed] = seq_logits[0].clone()
+        join(slot, seq_state, seq_logits, length, temperature, seed)
+
+    engine._join = spy
+    requests = _serve_requests(windows, n_requests, seed)
+    t0 = time.perf_counter()
+    for r in requests:
+        if not engine.submit(r):
+            raise RuntimeError(f"{name}: request {r.id} refused: {r.error}")
+    engine.drain()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    added = engine.retraces_since(snapshot)
+    if added:
+        raise RuntimeError(f"{name}: the request stream captured {added}")
+    served = sum(len(r.tokens) for r in requests)
+    print(f"  {name}: warm-up (captures {snapshot}) {warmup_s:.2f} s; {n_requests} requests, "
+          f"{served} tokens in {serve_s:.3f} s ({served / serve_s:.1f} tokens/s); no capture "
+          "after warm-up")
+    check = _check_served_tokens(name, model, requests, first_logits, model.embed.device)
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    if launches:
+        raise RuntimeError(f"{name}: serving launched the port's kernels: {launches}")
+    print(f"  {name}: no RNN or flash kernel launched (counts all 0)")
+    return model, engine, {"warmup_s": warmup_s, "serve_s": serve_s, "tokens": served, **check}
+
+
+def phase_serving(workdir: Path, runs: dict) -> dict:
+    """Paths k, l, m: the port's serving on the card, from path f's and
+    c's trained checkpoints and a seeded attention LM at path e's widths."""
+    from pytorch_distributed_rnn_tpu_torch.models import AttentionLM
+    from pytorch_distributed_rnn_tpu_torch.training.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    windows = runs["char_lstm"].trainer.test_set.features
+    results = {}
+
+    print("serving path k: char LSTM, H=512, 2 layers (path f's checkpoint)")
+    k_args = _serve_args("k", workdir / "models-char-lstm")
+    model, engine, results["k"] = _serve_path("k", k_args, windows, 32, seed=1)
+    results["k"]["timing"] = _serve_timing("k", engine)
+    del engine
+    serial = _throughput(model, windows, 1)
+    batched = _throughput(model, windows, SERVE_SLOTS)
+    print(f"  k: {SERVE_THROUGHPUT_REQUESTS} greedy requests x {SERVE_THROUGHPUT_TOKENS} tokens: "
+          f"{batched:.1f} tokens/s at {SERVE_SLOTS} slots, {serial:.1f} at 1 slot "
+          f"({batched / serial:.2f}x; must exceed {SERVE_BATCH_GAIN}x)")
+    if batched <= SERVE_BATCH_GAIN * serial:
+        raise RuntimeError("k: continuous batching did not beat serial decode")
+    results["k"]["throughput"] = {"batched": batched, "serial": serial}
+    del model
+    results["k"]["tcp"] = _serve_over_tcp(workdir, k_args)
+
+    print("serving path l: char GRU, H=512, 2 layers (path c's checkpoint)")
+    _, _, results["l"] = _serve_path("l", _serve_args("l", workdir / "models-char-gru"),
+                                     windows, 16, seed=2)
+
+    print("serving path m: attention LM, dim 512, 4 heads, depth 2, max_len 512 (seeded)")
+    lm = AttentionLM(vocab_size=256, dim=512, depth=2, num_heads=4, max_len=512,
+                     generator=torch.Generator().manual_seed(0))
+    save_checkpoint(workdir / "models-attention-lm", 0, lm.state_dict(), {}, 0.0)
+    _, engine, results["m"] = _serve_path("m", _serve_args("m", workdir / "models-attention-lm"),
+                                          windows, 16, seed=3)
+    results["m"]["timing"] = _serve_timing("m", engine)
+    results["seconds"] = time.perf_counter() - t0
+    print(f"serving phase: {results['seconds']:.1f} s")
+    print("serving: " + json.dumps(results))
+    return results
 
 
 FUSE_RTOL = 1e-5  # a --fuse-run history against the per-epoch path's (tests/test_training.py)
@@ -2031,11 +2368,14 @@ def main() -> int:
         }
         phase_native(workdir, phase_distributed(workdir))
         phase_graph(workdir, formatter)
-    runs["long"] = phase_long_context()
-    for key in ("motion_lstm", "motion_gru", "char_gru", "char_lstm", "attention", "long"):
-        phase_step_profile(runs[key], formatter, PROFILE_ROUNDS)
-    phase_scan_profile(runs["char_lstm"], formatter)
-    rows = phase_timing(runs, errs) + phase_flash_timing(runs, errs)
+        runs["long"] = phase_long_context()
+        for key in ("motion_lstm", "motion_gru", "char_gru", "char_lstm", "attention", "long"):
+            phase_step_profile(runs[key], formatter, PROFILE_ROUNDS)
+        phase_scan_profile(runs["char_lstm"], formatter)
+        rows = phase_timing(runs, errs) + phase_flash_timing(runs, errs)
+        # last: with this phase before the step profiles (one chip run), the
+        # first step profile missed one kernel record in all three attempts
+        phase_serving(workdir, runs)
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,11 @@ load with :class:`CheckpointCorruptError`.
 
 The sections hold the port's own serialisation, ``torch.save`` of the
 state dicts (loaded with ``weights_only=True``), so they are not
-interchangeable with the JAX package's flax-msgpack sections.
+interchangeable with the JAX package's flax-msgpack sections: a
+JAX-written file passes the framing checks and then fails to load with
+:class:`CheckpointCorruptError` (cross-framework checkpoints are ROADMAP
+A6).  The serving loaders (:func:`load_model_params`,
+:func:`find_latest_checkpoint`) read the model section alone.
 """
 
 from __future__ import annotations
@@ -112,18 +116,75 @@ def _read_sections(path):
     return header, model_bytes, opt_bytes
 
 
+def _load_section(path, blob: bytes):
+    try:
+        return torch.load(io.BytesIO(blob), map_location="cpu", weights_only=True)
+    except Exception as exc:
+        raise CheckpointCorruptError(
+            f"{path}: sections verified but failed to deserialize as torch.save "
+            f"state ({exc}); a checkpoint written by the JAX package holds "
+            "flax-msgpack sections, which the port does not read yet (ROADMAP A6, "
+            "cross-framework checkpoints)"
+        ) from exc
+
+
 def load_checkpoint(path):
     """``(model_state, opt_state, meta)`` from ``path``, tensors on the
     CPU; raises :class:`CheckpointCorruptError` for a damaged file."""
     header, model_bytes, opt_bytes = _read_sections(path)
-    try:
-        model_state = torch.load(io.BytesIO(model_bytes), map_location="cpu", weights_only=True)
-        opt_state = torch.load(io.BytesIO(opt_bytes), map_location="cpu", weights_only=True)
-    except Exception as exc:
-        raise CheckpointCorruptError(
-            f"{path}: sections verified but failed to deserialize ({exc})"
-        ) from exc
+    model_state = _load_section(path, model_bytes)
+    opt_state = _load_section(path, opt_bytes)
     return model_state, opt_state, {"epoch": header["epoch"], "loss": header["loss"]}
+
+
+def load_model_params(path, model):
+    """Load the model section of ``path`` into ``model`` (an
+    ``nn.Module``) without deserializing the optimizer section; returns
+    ``meta``.  Every section is still length- and CRC-verified, so a
+    corrupt optimizer section fails the load: a checkpoint is intact or
+    rejected, never half-trusted.  A state dict that does not fit the
+    module raises :class:`CheckpointCorruptError` naming the file."""
+    header, model_bytes, _ = _read_sections(path)
+    state = _load_section(path, model_bytes)
+    try:
+        model.load_state_dict(state)
+    except (RuntimeError, TypeError, AttributeError) as exc:
+        raise CheckpointCorruptError(
+            f"{path}: model section verified but does not fit the given model ({exc})"
+        ) from exc
+    return {"epoch": header["epoch"], "loss": header["loss"]}
+
+
+def checkpoint_candidates(checkpoint_dir) -> list[Path]:
+    """Checkpoints under ``checkpoint_dir``, newest first: epoch files by
+    their epoch (descending), then ``best-model.ckpt`` last (the best
+    validation state, not the furthest progress)."""
+    checkpoint_dir = Path(checkpoint_dir)
+    if not checkpoint_dir.is_dir():
+        return []
+    epochs = []
+    for entry in checkpoint_dir.iterdir():
+        m = _EPOCH_CKPT_RE.match(entry.name)
+        if m:
+            epochs.append((int(m.group(1)), entry))
+    out = [p for _, p in sorted(epochs, key=lambda t: t[0], reverse=True)]
+    best = checkpoint_dir / "best-model.ckpt"
+    if best.exists():
+        out.append(best)
+    return out
+
+
+def find_latest_checkpoint(checkpoint_dir) -> Path | None:
+    """The newest checkpoint that passes structural verification, or
+    ``None``; corrupt or truncated files are skipped (and logged)."""
+    for path in checkpoint_candidates(checkpoint_dir):
+        try:
+            _read_sections(path)
+        except CheckpointCorruptError as exc:
+            log.warning(f"find_latest_checkpoint: skipping {path}: {exc}")
+            continue
+        return path
+    return None
 
 
 def rotate_checkpoints(checkpoint_dir, keep_last: int) -> list[Path]:

@@ -1,7 +1,8 @@
 """The port's toy-model examples (``pytorch_distributed_rnn_tpu_torch/
 examples/``) against the JAX package's (``examples/``).
 
-``example_single`` runs in process from JAX's parameters and draws.
+``example_single`` runs in process from JAX's parameters and draws, and
+``example_generate`` from JAX's initial char LM on the same stream.
 ``example_ddp`` and ``example_horovod`` run at world 1 in process and at
 world 2 in one spawned gloo world (``parallel/launch.py``), from JAX's
 ``ToyModel().init(PRNGKey(0))`` weights, against JAX's ``run`` on a
@@ -18,7 +19,12 @@ import pytest
 import torch
 
 from pytorch_distributed_rnn_tpu_torch import interop
-from pytorch_distributed_rnn_tpu_torch.examples import example_ddp, example_horovod, example_single
+from pytorch_distributed_rnn_tpu_torch.examples import (
+    example_ddp,
+    example_generate,
+    example_horovod,
+    example_single,
+)
 from pytorch_distributed_rnn_tpu_torch.models import ToyModel
 from pytorch_distributed_rnn_tpu_torch.parallel import launch
 
@@ -154,3 +160,26 @@ def test_toy_model_takes_jax_weights_by_name():
     np.testing.assert_allclose(model(torch.from_numpy(x)).detach().numpy(), want, rtol=1e-6,
                                atol=1e-6)
     assert sorted(model.state_dict()) == ["net1.bias", "net1.weight", "net2.bias", "net2.weight"]
+
+
+def test_example_generate_matches_jax(monkeypatch):
+    """300 Adam steps of the 1-layer char LM from JAX's initial weights on
+    the same successor stream: the final loss JAX's example prints (4
+    decimals), and greedy decoding reproduces the successor chain."""
+    import examples.example_generate as jax_generate
+    from pytorch_distributed_rnn_tpu.models import CharRNN as JaxCharRNN
+
+    jax_printed, port_printed = [], []
+    monkeypatch.setattr(jax_generate, "print", jax_printed.append, raising=False)
+    jax_generate.main()
+    params = JaxCharRNN(vocab_size=example_generate.VOCAB, embed_dim=16, hidden_dim=64,
+                        layer_dim=1, impl="scan").init(jax.random.PRNGKey(example_generate.SEED))
+    monkeypatch.setattr(example_generate, "print", port_printed.append, raising=False)
+    result = example_generate.run(
+        "cpu", interop.jax_params_to_state_dict(jax.tree.map(np.array, params)))
+    want_loss = float(jax_printed[0].rsplit(" ", 1)[1])
+    assert result["loss"] == pytest.approx(want_loss, abs=1e-4)
+    assert port_printed[1:3] == jax_printed[1:3]  # the greedy decode and the chain
+    assert port_printed[-1] == jax_printed[-1] == "generation ok"
+    assert len(result["sampled"]) == 10 and all(0 <= t < example_generate.VOCAB
+                                                for t in result["sampled"])

@@ -54,6 +54,11 @@ def test_port_imports_with_jax_blocked():
     "examples/example_single.py", "examples/example_ddp.py", "examples/example_horovod.py",
     "examples/example_p2p.py", "models/toy.py", "training/native_ddp.py",
     "parallel/bucketing.py", "utils/worlds.py",
+    "serving/__init__.py", "serving/__main__.py", "serving/adapters.py", "serving/buckets.py",
+    "serving/cli.py", "serving/drill.py", "serving/engine.py", "serving/loadgen.py",
+    "serving/protocol.py", "serving/scheduler.py", "serving/server.py", "obs/__init__.py",
+    "obs/live.py", "obs/summary.py", "obs/tracectx.py", "models/attention_lm.py",
+    "examples/example_generate.py",
 ])
 def test_new_modules_are_checked(relative):
     assert PORT / relative in FILES

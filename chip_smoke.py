@@ -93,6 +93,28 @@ Phases, in order; any failure raises and the script exits nonzero:
       toy examples on the card: ``example_ddp`` and ``example_horovod`` at
       worlds 1 and 2, ``example_p2p`` at world 2, each printing
       ``PARITY-OK`` (p2p: every rank's 1.0).
+   n. ``parameter-server`` (``phase_ps``, after phase 6, before
+      ``phase_serving``; it compares against ``phase_native``'s finals)
+      through the CLI, every rank on the one card: the motion LSTM at path a's
+      width (``--dropout 0 --no-validation``, 2 epochs): sync at world 2
+      (one worker) within 1e-4 of the ``local`` run of phase g, plain and
+      profiled (the same bits); sync at world 3 bit for bit equal to path
+      i's world-2 ``--no-sharded-update`` parameters; async at world 3 in
+      spawn mode (the CLI without ``--rank``): it completes with finite
+      losses and the master's updates equal the workers' steps; ``--cell
+      gru`` sync at world 2 within 1e-4 of a ``local`` run.  o. the char
+      LSTM at path f's flags for one epoch, sync at world 2, plain and
+      profiled: worker 1's per-batch losses finite and falling, the
+      profile's LSTM kernels ``lstm_fwd_tc_kernel`` and
+      ``lstm_bwd_cluster_kernel`` and no other.  A world runs in rank mode: worker 1 in this process (its
+      launch counts reset before and read after), the master and the other
+      workers as CLI processes.  Every worker launches its cell's forward
+      and backward once a layer a step and nothing else; in sync mode
+      every rank ends on the master's parameters (the sha256 of their
+      bytes).  Printed: worker host, exchange (push until the reply's
+      copies are queued) and device ms a step, the master's update ms
+      (H2D, Adam, D2H), the flat vector's bytes.  A failed rank fails the
+      phase.
    k. serving (``phase_serving``, the smoke's last phase, after phase 6):
       path f's trained checkpoint through the serving CLI's loader, an engine of 8
       slots (prompt buckets 16-128, 128 new tokens at most) whose prefill
@@ -105,7 +127,11 @@ Phases, in order; any failure raises and the script exits nonzero:
       difference against ``generate``; the decode step's host ms, device ms
       and idle share over 200 replays, each bucket's prefill and capture
       ms; 16 greedy requests through 8 slots against 1 slot (tokens/s must
-      exceed 1.3x); the CLI server as a subprocess driven by the CLI load
+      exceed 1.3x); the 200 replays and the 16 requests again beside a
+      thread spinning in Python, with the Python->torch calls a decode
+      step counted (``serving/engine.py:TorchCalls``: at most 4, the
+      replay and the result copy included) and every token held against
+      ``generate``; the CLI server as a subprocess driven by the CLI load
       generator (64 Poisson requests at 20/s, 0 errors, exit 0 on SIGTERM),
       then one ``loadgen --spawn-server`` drill. l. the same steps but the
       timing, TCP and throughput on path c's char GRU (16 requests); m. an
@@ -163,15 +189,18 @@ Prints a ``{"kernels": [...]}`` line and ends with
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
 import os
 import re
 import shlex
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -919,6 +948,7 @@ SERVE_MAX_NEW = 128
 SERVE_TIMING_REPLAYS = 200
 SERVE_PREFILL_REPLAYS = 20
 SERVE_BATCH_GAIN = 1.3  # batched tokens/s over serial (JAX tests/test_serving.py:165)
+SERVE_STEP_CALLS = 4  # Python->torch calls a decode step on the card, the replay and copy included
 SERVE_THROUGHPUT_REQUESTS, SERVE_THROUGHPUT_TOKENS = 16, 32
 SERVE_TCP = ["--requests", "64", "--rate", "20", "--prompt-len-min", "2",
              "--prompt-len-max", "64", "--new-tokens-min", "16", "--new-tokens-max", "128",
@@ -1021,18 +1051,28 @@ def _serve_timing(name: str, engine) -> dict:
     prefill: its copies and the replay) and capture ms."""
     from torch.profiler import ProfilerActivity, profile
 
-    def step():
-        engine._program(("step",), engine._step_body)
-        engine.out.cpu()
+    from pytorch_distributed_rnn_tpu_torch.serving.engine import TorchCalls
 
-    with torch.no_grad():
-        step()
+    def step():
+        engine._advance([])
+
+    def host_ms_a_step():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(SERVE_TIMING_REPLAYS):
             step()
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / SERVE_TIMING_REPLAYS
+        return (time.perf_counter() - t0) * 1e3 / SERVE_TIMING_REPLAYS
+
+    with torch.no_grad():
+        step()
+        host_ms = host_ms_a_step()
+        with _Spinner():
+            spin_host_ms = host_ms_a_step()
+        with TorchCalls(engine) as calls:
+            for _ in range(SERVE_TIMING_REPLAYS):
+                step()
+        calls_a_step = {k: v / SERVE_TIMING_REPLAYS for k, v in calls.counts.items()}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(SERVE_TIMING_REPLAYS):
                 step()
@@ -1053,13 +1093,20 @@ def _serve_timing(name: str, engine) -> dict:
                 "capture_ms": engine.graphs[("prefill", bucket)].capture_s * 1e3}
     step_capture_ms = engine.graphs[("step",)].capture_s * 1e3
     kernels = sum(e.count for e in events) / SERVE_TIMING_REPLAYS
-    result = {"step_host_ms": host_ms, "step_device_ms": device_ms,
+    result = {"step_host_ms": host_ms, "step_host_ms_spinner": spin_host_ms,
+              "step_calls": calls_a_step, "step_device_ms": device_ms,
               "idle": 1.0 - device_ms / host_ms, "step_capture_ms": step_capture_ms,
               "device_events_a_step": kernels, "prefill": prefill}
     print(f"  {name}: decode step at {engine.batcher.num_slots} slots over "
           f"{SERVE_TIMING_REPLAYS} replays: host {host_ms:.4f} ms, device {device_ms:.4f} ms "
           f"({kernels:g} device events), card idle {100 * result['idle']:.1f}%; capture "
           f"{step_capture_ms:.1f} ms")
+    total = sum(calls_a_step.values())
+    print(f"  {name}: decode step beside a thread spinning in Python: host {spin_host_ms:.4f} "
+          f"ms (alone {host_ms:.4f}); Python->torch calls a step {calls_a_step} = {total:g} "
+          f"(at most {SERVE_STEP_CALLS})")
+    if total > SERVE_STEP_CALLS:
+        raise RuntimeError(f"{name}: {total:g} Python->torch calls a decode step")
     for bucket, t in prefill.items():
         print(f"  {name}: prefill bucket {bucket}: {t['ms']:.4f} ms a call (host clock), "
               f"capture {t['capture_ms']:.1f} ms")
@@ -1067,9 +1114,35 @@ def _serve_timing(name: str, engine) -> dict:
     return result
 
 
-def _throughput(model, windows: np.ndarray, slots: int) -> float:
+class _Spinner:
+    """A thread that runs Python and never blocks, and touches nothing of
+    the engine, while the block runs: it takes the interpreter lock from
+    the engine thread at each Python->torch call for up to a switch
+    interval."""
+
+    def __enter__(self):
+        self.stop = threading.Event()
+
+        def spin():
+            n = 0
+            while not self.stop.is_set():
+                n += 1
+
+        self.thread = threading.Thread(target=spin, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=10)
+
+
+def _throughput(model, windows: np.ndarray, slots: int, spin: bool = False) -> dict:
     """Tokens/s of 16 greedy requests (prompts of 2-15 tokens, 32 new
-    tokens each) through ``slots`` slots, warm-up excluded."""
+    tokens each) through ``slots`` slots, warm-up excluded; with ``spin``
+    beside a spinning thread, the engine's Python->torch calls counted by
+    phase and every request's tokens held against its ``generate``."""
+    from pytorch_distributed_rnn_tpu_torch.serving.engine import TorchCalls
     from pytorch_distributed_rnn_tpu_torch.serving.scheduler import ServeRequest
 
     rng = np.random.RandomState(7)
@@ -1081,14 +1154,31 @@ def _throughput(model, windows: np.ndarray, slots: int) -> float:
         requests.append(ServeRequest(prompt=[int(t) for t in windows[i, :length]],
                                      max_new_tokens=SERVE_THROUGHPUT_TOKENS, id=str(i)))
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for r in requests:
-        engine.submit(r)
-    engine.drain()
-    elapsed = time.perf_counter() - t0
+    with _Spinner() if spin else contextlib.nullcontext(), torch.no_grad(), \
+            TorchCalls(engine) as calls:
+        t0 = time.perf_counter()
+        for r in requests:
+            engine.submit(r)
+        engine.drain()
+        elapsed = time.perf_counter() - t0
     if not all(r.status == "done" for r in requests):
         raise RuntimeError(f"throughput run at {slots} slots: requests failed")
-    return sum(len(r.tokens) for r in requests) / elapsed
+    steps = engine.stats()["steps"]
+    result = {"tokens_per_s": sum(len(r.tokens) for r in requests) / elapsed,
+              "steps": steps, "calls": dict(calls.counts)}
+    if spin:
+        device = model.embed.device
+        for r in requests:
+            want = model.generate(torch.tensor([r.prompt], device=device),
+                                  r.max_new_tokens, temperature=0.0)[0, len(r.prompt):].tolist()
+            if r.tokens != want:
+                raise RuntimeError(f"request {r.id} beside the spinner diverged from generate")
+        per_step = sum(calls.counts[k] for k in ("draw", "step", "result")) / steps
+        if per_step > SERVE_STEP_CALLS:
+            raise RuntimeError(f"{per_step:g} Python->torch calls a decode step")
+        result["calls_a_step"] = per_step
+        result["calls_a_join"] = calls.counts["join"] / len(requests)
+    return result
 
 
 def _serve_subprocess(args: list, timeout: int = SERVE_PROCESS_TIMEOUT):
@@ -1199,14 +1289,20 @@ def phase_serving(workdir: Path, runs: dict) -> dict:
     model, engine, results["k"] = _serve_path("k", k_args, windows, 32, seed=1)
     results["k"]["timing"] = _serve_timing("k", engine)
     del engine
-    serial = _throughput(model, windows, 1)
-    batched = _throughput(model, windows, SERVE_SLOTS)
+    serial = _throughput(model, windows, 1)["tokens_per_s"]
+    batched = _throughput(model, windows, SERVE_SLOTS)["tokens_per_s"]
     print(f"  k: {SERVE_THROUGHPUT_REQUESTS} greedy requests x {SERVE_THROUGHPUT_TOKENS} tokens: "
           f"{batched:.1f} tokens/s at {SERVE_SLOTS} slots, {serial:.1f} at 1 slot "
           f"({batched / serial:.2f}x; must exceed {SERVE_BATCH_GAIN}x)")
     if batched <= SERVE_BATCH_GAIN * serial:
         raise RuntimeError("k: continuous batching did not beat serial decode")
-    results["k"]["throughput"] = {"batched": batched, "serial": serial}
+    spun = _throughput(model, windows, SERVE_SLOTS, spin=True)
+    print(f"  k: the same {SERVE_THROUGHPUT_REQUESTS} requests at {SERVE_SLOTS} slots beside a "
+          f"thread spinning in Python: {spun['tokens_per_s']:.1f} tokens/s (alone "
+          f"{batched:.1f}), {spun['steps']} steps, Python->torch calls {spun['calls']}: "
+          f"{spun['calls_a_step']:g} a decode step (at most {SERVE_STEP_CALLS}), "
+          f"{spun['calls_a_join']:g} a join; every token equal to generate's")
+    results["k"]["throughput"] = {"batched": batched, "serial": serial, "spinner": spun}
     del model
     results["k"]["tcp"] = _serve_over_tcp(workdir, k_args)
 
@@ -1620,7 +1716,7 @@ def phase_native(workdir: Path, dp_finals: dict) -> dict:
     build_s = native.BUILD_SECONDS[-1] if native.BUILD_SECONDS else None
     print(f"  ring library: {native.library_path().relative_to(ROOT)}, g++ build "
           f"{'(built already)' if build_s is None else f'{build_s:.2f} s'}")
-    lines = {}
+    lines, finals = {}, {}
     for world in (1, 2):
         jobs = _native_jobs(workdir, world)
         wall, _ = _torchrun(world, list(jobs.values()), workdir, f"native{world}")
@@ -1642,6 +1738,8 @@ def phase_native(workdir: Path, dp_finals: dict) -> dict:
         def final(key):
             results, history = runs[key]
             return results[0]["state"], history
+
+        finals.update({f"i{world} {key}": final(key) for key in NATIVE_FLAVOURS})
 
         for key in ("bucketed", "replicated"):
             _dp_compare(f"i{world}: {key} vs monolithic", final(key), final("monolithic"), 0)
@@ -1685,7 +1783,253 @@ def phase_native(workdir: Path, dp_finals: dict) -> dict:
                         (j["monolithic"][0][0]["state"], j["monolithic"][1]), 0)
         _check_examples(jobs, world)
     print(f"  distributed-native phase: {time.perf_counter() - t0:.1f} s")
-    return {"ring_build_s": build_s, "lines": lines}
+    return {"ring_build_s": build_s, "lines": lines, "finals": finals}
+
+
+PS_FLAGS = ["--epochs", "2", "--seed", "0", "--dropout", "0", "--no-validation"]  # path a's width
+PS_TOL_LOCAL = 1e-4  # a parameter-server run's final parameters against local's (PERF.md §2)
+PS_TIMEOUT = 300
+_MS = r"([\d.]+) / ([\d.]+)"  # mean / median after the first (param_server/runner.py)
+PS_MASTER = re.compile(rf"ps master: (\d+) updates \((\w+)\); update ms a call, mean / median "
+                       rf"after the first: h2d {_MS}, adam {_MS}, d2h {_MS}, total {_MS}; flat "
+                       r"vector (\d+) bytes")
+PS_WORKER = re.compile(rf"ps worker (\d+): (\d+) steps in \S+ s; ms a step, mean / median after "
+                       rf"the first: host {_MS}, exchange {_MS}; launches (\{{.*\}})")
+PS_DIGEST = re.compile(r"(\d+): parameters: (\S+) sha256 (\w+)")
+
+
+def _ps_check_launches(name: str, launches: dict, steps: int, cell: str, layers: int = 2):
+    """A worker launched its cell's forward and backward once a layer a
+    step and nothing else."""
+    want = {f"{cell}_fwd": steps * layers, f"{cell}_bwd": steps * layers}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise RuntimeError(f"{name}: launches {got} over {steps} steps, not {want}")
+
+
+def _ps_world(workdir: Path, name: str, flags: list, world: int, mode: str,
+              profile: bool = False, cell: str = "lstm") -> dict:
+    """One ``parameter-server`` world through the CLI in rank mode on the
+    card: rank 1 in this process (its launch counts reset just before it
+    and read just after, under ``torch.profiler`` with ``profile``), the
+    master and the other workers as CLI processes with ``--rank`` set.  A
+    failed rank fails the phase.  Checks every worker's launches against
+    its steps and, in sync mode, that every rank ends on the master's
+    parameters bit for bit (the sha256 of their bytes)."""
+    from pytorch_distributed_rnn_tpu_torch import main as port_main
+    from pytorch_distributed_rnn_tpu_torch.param_server.runner import (
+        flat_parameters,
+        parameters_line,
+        step_times,
+    )
+    from pytorch_distributed_rnn_tpu_torch.parallel import launch
+    from pytorch_distributed_rnn_tpu_torch.utils.worlds import free_ports
+
+    (port,) = free_ports(1)
+    cwd = workdir / "ps" / name
+    cwd.mkdir(parents=True)
+    argv = [*flags, "parameter-server", "--world-size", str(world), "--ps-mode", mode,
+            "--master-port", str(port)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    procs = {rank: subprocess.Popen(
+        [sys.executable, "-m", "pytorch_distributed_rnn_tpu_torch.main", *argv, "--rank",
+         str(rank)], cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(world) if rank != 1}
+    capture = _Capture()
+    capture.setLevel(logging.DEBUG)
+    logging.getLogger().addHandler(capture)
+    sigterm = signal.getsignal(signal.SIGTERM)  # the worker installs its drain handler
+    level = logging.getLogger().level  # the worker sets the CLI's --log
+    here = os.getcwd()
+    os.chdir(cwd)
+    device_ms = kernels = None
+    try:
+        _reset_launch_counts()
+        one = [*argv, "--rank", "1"]
+        if profile:
+            trainer, device_us, kernels = launch._profiled(lambda: port_main.main(one),
+                                                           torch.device("cuda"))
+        else:
+            trainer = port_main.main(one)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        outs = {rank: proc.communicate(timeout=PS_TIMEOUT) for rank, proc in procs.items()}
+    finally:
+        os.chdir(here)
+        signal.signal(signal.SIGTERM, sigterm)
+        logging.getLogger().removeHandler(capture)
+        logging.getLogger().setLevel(level)
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    failed = {rank: proc.returncode for rank, proc in procs.items() if proc.returncode != 0}
+    if failed:
+        for rank in failed:
+            print(f"  {name} rank {rank} stderr:\n{outs[rank][1][-4000:]}")
+        raise RuntimeError(f"{name}: parameter-server ranks failed: {failed}")
+    steps = len(trainer.exchange_log)
+    _ps_check_launches(f"{name} worker 1", launches, steps, cell)
+    times = step_times(trainer)
+    workers = {1: {"steps": steps}}
+    for part in ("host", "exchange"):
+        seconds = times[part]
+        workers[1][f"{part}_ms"] = 1e3 * float(np.mean(seconds))
+        workers[1][f"{part}_ms_median"] = 1e3 * float(np.median(seconds[1:] or seconds))
+    digests = {1: parameters_line(1, flat_parameters(trainer.model)).rsplit(" ", 1)[1]}
+    master = None
+    for rank, (_, err) in outs.items():
+        for m in PS_WORKER.finditer(err):
+            workers[int(m[1])] = _ps_worker_line(m)
+            _ps_check_launches(f"{name} worker {m[1]}", json.loads(m[7]), int(m[2]), cell)
+        for m in PS_DIGEST.finditer(err):
+            digests[int(m[1])] = m[3]
+        for m in PS_MASTER.finditer(err):
+            master = _ps_master_line(m)
+    if master is None or sorted(workers) != list(range(1, world)) or len(digests) != world:
+        raise RuntimeError(f"{name}: summary lines missing: master {master}, workers "
+                           f"{sorted(workers)}, digests {sorted(digests)}")
+    if mode == "sync" and len(set(digests.values())) != 1:
+        raise RuntimeError(f"{name}: the ranks end on different parameters: {digests}")
+    history = json.loads((cwd / "history.json").read_text())["train_history"]
+    if not all(math.isfinite(v) for v in history):
+        raise RuntimeError(f"{name}: losses not finite: {history}")
+    if profile:
+        device_ms = device_us / 1e3 / steps
+    run = {"workers": workers, "master": master, "history": history, "device_ms": device_ms,
+           "kernels": kernels, "launches": launches, "log": capture.messages,
+           "state": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}}
+    print(f"  {name}: world {world} {mode}: {steps} steps a worker, history {history}; ms a "
+          "step, mean / median after the first: "
+          + "; ".join(f"worker {r} host {w['host_ms']:.3f} / {w['host_ms_median']:.3f}, exchange "
+                      f"{w['exchange_ms']:.3f} / {w['exchange_ms_median']:.3f}"
+                      for r, w in sorted(workers.items()))
+          + (f"; worker 1 device {device_ms:.3f} ms a step (profiled)" if profile else "")
+          + f"; master {master['updates']} updates, update ms a call "
+          + ", ".join(f"{part} {master[f'{part}_ms']:.4f} / {master[f'{part}_ms_median']:.4f}"
+                      for part in ("h2d", "adam", "d2h", "update"))
+          + f"; flat vector {master['flat_bytes']} bytes; launches {launches}")
+    return run
+
+
+def _ps_worker_line(m) -> dict:
+    return {"steps": int(m[2]), "host_ms": float(m[3]), "host_ms_median": float(m[4]),
+            "exchange_ms": float(m[5]), "exchange_ms_median": float(m[6])}
+
+
+def _ps_master_line(m) -> dict:
+    line = {"updates": int(m[1]), "flat_bytes": int(m[11])}
+    for i, part in enumerate(("h2d", "adam", "d2h", "update")):
+        line[f"{part}_ms"], line[f"{part}_ms_median"] = float(m[3 + 2 * i]), float(m[4 + 2 * i])
+    return line
+
+
+def phase_ps(workdir: Path, dp_finals: dict, native_finals: dict) -> dict:
+    """``parameter-server`` through the CLI on the card, every rank on the
+    one card.  n: the motion LSTM at path a's width (batch 1440, 2 epochs,
+    ``--dropout 0 --no-validation``): n.1 sync at world 2 (one worker)
+    against ``local`` within 1e-4, plain and profiled (the same bits);
+    n.2 sync at world 3 against phase i's world-2 ``distributed-native
+    --no-sharded-update`` bit for bit; n.3 async at world 3 in spawn mode
+    (the CLI without ``--rank``): it completes, finite losses, the master's
+    updates equal the workers' steps; n.4 ``--cell gru`` sync at world 2
+    against ``local`` within 1e-4.  o: the char LSTM at path f's flags,
+    one epoch, sync at world 2, plain and profiled: finite falling
+    per-batch losses, ``lstm_fwd_tc_kernel`` and
+    ``lstm_bwd_cluster_kernel`` once a layer a step."""
+    from pytorch_distributed_rnn_tpu_torch.utils.worlds import free_ports
+
+    print("main path: parameter-server (n: motion LSTM/GRU at path a's width; o: char LM H=512)")
+    t0 = time.perf_counter()
+    data = ["--dataset-path", str(workdir / "data")]
+    runs = {}
+
+    runs["n1"] = _ps_world(workdir, "n1", [*data, *PS_FLAGS], 2, "sync")
+    runs["n1 profiled"] = _ps_world(workdir, "n1-profiled", [*data, *PS_FLAGS], 2, "sync",
+                                    profile=True)
+    _dp_compare("n.1: profiled vs not", (runs["n1 profiled"]["state"], {
+        "train_history": runs["n1 profiled"]["history"], "validation_history": []}),
+        (runs["n1"]["state"], {"train_history": runs["n1"]["history"],
+                               "validation_history": []}), 0)
+    err = _state_err(runs["n1"]["state"], dp_finals["local"][0])
+    print(f"  n.1 vs local: params max_abs_err={err:.3e}, tol={PS_TOL_LOCAL:g}")
+    if err > PS_TOL_LOCAL:
+        raise RuntimeError("n.1: disagrees with local")
+
+    runs["n2"] = _ps_world(workdir, "n2", [*data, *PS_FLAGS], 3, "sync")
+    ring_state, ring_history = native_finals["i2 replicated"]
+    err = _state_err(runs["n2"]["state"], ring_state)
+    same = all(torch.equal(runs["n2"]["state"][k], v.cpu()) for k, v in ring_state.items())
+    print(f"  n.2 (sync, 2 workers) vs i world 2 --no-sharded-update: "
+          f"{'bit for bit' if same else f'params max_abs_err={err:.3e}'}; train history "
+          f"{runs['n2']['history']} vs {ring_history['train_history']}")
+    if not same:
+        raise RuntimeError("n.2: the parameter server's sync update differs from the ring's")
+
+    print("  n.3: async at world 3 in spawn mode (the CLI without --rank)")
+    spawn_dir = workdir / "ps" / "n3"
+    spawn_dir.mkdir(parents=True)
+    (port,) = free_ports(1)
+    t_spawn = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pytorch_distributed_rnn_tpu_torch.main",
+                           *data, *PS_FLAGS, "parameter-server", "--world-size", "3",
+                           "--ps-mode", "async", "--master-port", str(port)],
+                          cwd=spawn_dir, capture_output=True, text=True, timeout=PS_TIMEOUT,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    spawn_s = time.perf_counter() - t_spawn
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:])
+        raise RuntimeError(f"n.3: the spawn-mode world exited {proc.returncode}")
+    master = PS_MASTER.search(proc.stderr)
+    workers = {int(m[1]): _ps_worker_line(m) for m in PS_WORKER.finditer(proc.stderr)}
+    history = json.loads((spawn_dir / "history.json").read_text())["train_history"]
+    if master is None or sorted(workers) != [1, 2]:
+        raise RuntimeError(f"n.3: summary lines missing:\n{proc.stderr[-4000:]}")
+    master = _ps_master_line(master)
+    for m in PS_WORKER.finditer(proc.stderr):
+        _ps_check_launches(f"n.3 worker {m[1]}", json.loads(m[7]), int(m[2]), "lstm")
+    if master["updates"] != sum(w["steps"] for w in workers.values()):
+        raise RuntimeError(f"n.3: {master['updates']} updates for {workers}")
+    if not all(math.isfinite(v) for v in history):
+        raise RuntimeError(f"n.3: losses not finite: {history}")
+    runs["n3"] = {"master": master, "history": history, "workers": workers, "wall_s": spawn_s}
+    print(f"  n.3: exit 0 in {spawn_s:.1f} s; {master['updates']} updates = "
+          f"{' + '.join(str(w['steps']) for w in workers.values())} worker steps; history "
+          f"{history}; workers {workers}; master {master}")
+
+    trainer, _, _, _ = _drive(workdir, _dp_job(workdir, "local-gru", ["--cell", "gru",
+                                                                      "local"])["argv"])
+    local_gru = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    runs["n4"] = _ps_world(workdir, "n4", [*data, *PS_FLAGS, "--cell", "gru"], 2, "sync",
+                           cell="gru")
+    err = _state_err(runs["n4"]["state"], local_gru)
+    print(f"  n.4 (--cell gru) vs local: params max_abs_err={err:.3e}, tol={PS_TOL_LOCAL:g}")
+    if err > PS_TOL_LOCAL:
+        raise RuntimeError("n.4: disagrees with local")
+
+    char = [*GRAPH_PATHS["f"], "--dataset-path", str(workdir / "no-corpus"), "--epochs", "1",
+            "--seed", "0", "--no-validation"]
+    runs["o"] = _ps_world(workdir, "o", [*char, "--log", "DEBUG"], 2, "sync")
+    losses = [float(m[1]) for m in (re.search(r"Loss: (\S+)", line) for line in runs["o"]["log"]
+                                    if "Train Batch" in line) if m]
+    print(f"  o: per-batch losses of worker 1 {losses}")
+    if not losses or not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        raise RuntimeError(f"o: the char LM's losses do not fall: {losses}")
+    runs["o profiled"] = _ps_world(workdir, "o-profiled", char, 2, "sync", profile=True)
+    # which kernels ran comes from the profile, how often from the counts
+    # (checked once a layer a step): a profile may drop a record
+    rnn = {m[1] for k in runs["o profiled"]["kernels"]
+           if (m := re.search(r"\b(lstm_(?:fwd|bwd)\w*)", k))}
+    if rnn != set(NATIVE_CHAR_KERNELS):
+        raise RuntimeError(f"o: the profile's LSTM kernels {rnn}, not {NATIVE_CHAR_KERNELS}")
+    print(f"  o: the profile's LSTM kernels {sorted(rnn)}, once a layer a step")
+    summary = {name: {k: v for k, v in run.items() if k not in ("state", "log", "kernels")}
+               for name, run in runs.items()}
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"  parameter-server phase: {summary['seconds']:.1f} s")
+    print("parameter-server: " + json.dumps(summary))
+    return summary
 
 
 def _long_context_trainer(fuse_run: bool = False):
@@ -2366,15 +2710,18 @@ def main() -> int:
             "char_lstm": phase_char(workdir, "lstm"),
             "attention": phase_attention(workdir),
         }
-        phase_native(workdir, phase_distributed(workdir))
+        dp_finals = phase_distributed(workdir)
+        native = phase_native(workdir, dp_finals)
         phase_graph(workdir, formatter)
         runs["long"] = phase_long_context()
         for key in ("motion_lstm", "motion_gru", "char_gru", "char_lstm", "attention", "long"):
             phase_step_profile(runs[key], formatter, PROFILE_ROUNDS)
         phase_scan_profile(runs["char_lstm"], formatter)
         rows = phase_timing(runs, errs) + phase_flash_timing(runs, errs)
-        # last: with this phase before the step profiles (one chip run), the
-        # first step profile missed one kernel record in all three attempts
+        # after the step profiles, as serving: with a phase that profiled in
+        # this process before them, a step profile missed one kernel record in
+        # all three attempts (serving once, this phase once)
+        phase_ps(workdir, dp_finals, native["finals"])
         phase_serving(workdir, runs)
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

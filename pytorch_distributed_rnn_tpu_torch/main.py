@@ -139,6 +139,10 @@ def reject_unported(args):
     """Exit loudly on any flag whose machinery the port does not have yet,
     and on the flags ``distributed-native`` rejects, with the JAX trainer's
     reasons."""
+    if args.strategy == "parameter-server":
+        from pytorch_distributed_rnn_tpu_torch import param_server
+
+        param_server.reject_unported(args)
     if args.strategy == "distributed-native":
         from pytorch_distributed_rnn_tpu_torch.training import native_ddp
 
@@ -171,7 +175,9 @@ def reject_unported(args):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    args.argv = argv  # what a spawned world's ranks run again
     reject_unported(args)
     resolve_device(args.device)
     return args.func(args)

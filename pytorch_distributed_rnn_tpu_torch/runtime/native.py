@@ -217,8 +217,14 @@ class Communicator:
         self._check(self._lib.pdrnn_send(self._handle, dst, data.data_ptr(),
                                          data.numel() * data.element_size()), "send")
 
-    def recv(self, src: int, shape, dtype=torch.float32) -> torch.Tensor:
-        out = torch.empty(shape, dtype=dtype)
+    def recv(self, src: int, shape, dtype=torch.float32, out=None) -> torch.Tensor:
+        """``shape`` elements of ``dtype`` from ``src``, into ``out`` (a
+        contiguous CPU tensor of that many elements and that dtype, e.g.
+        a reused pinned buffer) when given."""
+        if out is None:
+            out = torch.empty(shape, dtype=dtype)
+        else:
+            out = _output(out, int(np.prod(shape)), torch.empty(0, dtype=dtype), "recv")
         self._check(self._lib.pdrnn_recv(self._handle, src, out.data_ptr(),
                                          out.numel() * out.element_size()), "recv")
         return out

@@ -4,48 +4,66 @@ source, which come with the port's telemetry).
 
 The engine owns a fixed batch of ``num_slots`` decode slots whose device
 state is allocated once: the adapter's slot state (RNN carries or KV
-caches), ``logits (S, V)`` float32, and ``pos``, ``temps``, ``sampled``
-and the ``(tok, ok)`` output row, each ``(S,)``.  Nothing the programs
-read is ever rebound: a join writes one slot in place, a recovery zeroes
-the buffers in place.  Its device programs are the JAX engine's jitted
-ones as CUDA graphs:
+caches), ``logits (S, V)`` float32, the sampling noise ``noise (S, V)``,
+``pos``, ``temps`` and the ``(tok, ok)`` output row, each ``(S,)``, and
+one sequence's prefill result.  Nothing the programs read is ever
+rebound: a join writes one slot in place, a recovery zeroes the buffers
+in place.  Its device programs are the JAX engine's jitted ones:
 
 - ``prefill``: one request's bucket-padded prompt -> its sequence state
-  and last-step logits; one graph a prompt bucket;
+  and last-step logits, written into the sequence buffers; one program a
+  prompt bucket;
+- ``join``: the sequence buffers written into the request's slot, with
+  its position and temperature; one program;
 - ``step``: every slot one token - the sampled or greedy token from the
   current logits (``decode_step_program`` in JAX), the adapter's decode
-  step, the ``ok`` flags; one graph;
-- ``join``: the prefilled sequence written into its slot, eager (a few
-  copies), counted once when it first runs.
+  step, the ``ok`` flags; one program.
 
-On ``cuda`` the first use of a program runs its body eagerly on a side
-stream (the capture's warm-up and a real call) and then captures it
-(``utils/graphs.py:CountedGraph``); later uses replay.  :meth:`warmup`
-makes those first uses for every bucket before serving.  On ``cpu`` the
-same bodies run eagerly.  ``retrace_snapshot``/``retraces_since`` keep
-the JAX names and count captures (``cpu``: first runs of each program
-and shape): after warm-up ``{"prefill": len(buckets), "step": 1, "join":
-1}``, and no request mix adds one.
+A program's inputs are all device buffers: a join's prompt, length, slot
+and temperature go through one float64 staging row (on the card a
+pinned host row copied up with one call).  On ``cuda`` the first use of a
+program runs its body eagerly on a side stream (the capture's warm-up
+and a real call) and then captures it (``utils/graphs.py:CountedGraph``);
+later uses replay.  On ``cpu`` the first use traces the body
+(``torch.jit.trace``, which runs it) and later uses call the trace.
+Either way a program is one Python->torch call: an eager body gives the
+interpreter lock up at each of its torch calls, and a thread that never
+blocks then holds it for a switch interval (5 ms) each time, which
+starves the engine.  :meth:`warmup` makes every first use before
+serving.  ``retrace_snapshot``/``retraces_since`` keep the JAX names and
+count captures (``cpu``: traces): after warm-up ``{"prefill":
+len(buckets), "step": 1, "join": 1}``, and no request mix adds one.
 
 Sampling follows ``CharRNN.generate`` at batch 1: a slot at temperature 0
-takes the argmax (inside the step graph); a slot at temperature T > 0
-draws ``torch.multinomial(softmax(logits[s:s+1] / T), 1, generator=g_s)``
-before the replay, from its own generator seeded with the request's seed
-at join.  So a request served in the batch gets the tokens of its
-single-request ``generate`` (the logits of a batched product and a
-single-row one may differ in the last bits).  Only the engine thread
-touches the device; ``submit`` and ``stats`` are host-only.
+takes the argmax; a slot at temperature T > 0 takes ``torch.multinomial(
+softmax(logits[s:s+1] / T), 1, generator=g_s)``, from its own generator
+seeded with the request's seed at join.  For one sample ``multinomial``
+is ``argmax(probs / q)`` with ``q`` drawn by ``exponential_`` from the
+generator, and the engine computes that form: on the card the draws run
+inside the step graph, with every slot's generator registered with it
+(``multinomial`` itself synchronises with the host and cannot be
+captured); on the CPU one scripted call draws the sampled slots' rows of
+``noise`` before the step.  So a request served in the batch gets the
+tokens of its single-request ``generate`` (the logits of a batched
+product and a single-row one may differ in the last bits).  Only the
+engine thread touches the device; ``submit`` and ``stats`` are
+host-only.  :class:`TorchCalls` counts the engine's Python->torch calls
+by phase.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
 import threading
 import time
-from collections import deque
+import warnings
+from collections import Counter, deque
 
-import numpy as np
 import torch
+from torch import nn
+from torch.overrides import TorchFunctionMode
 
 from pytorch_distributed_rnn_tpu_torch.obs.live import (
     RATE_HORIZON_S,
@@ -66,6 +84,11 @@ _IDLE_WAIT_S = 0.05
 _REQUEST_WINDOW = 4096
 _DEPTH_WINDOW = 16384
 
+def _no_grad():
+    """Autograd off, where it is on: entering and leaving ``no_grad`` are
+    torch calls, which a loop already without autograd need not make."""
+    return torch.no_grad() if torch.is_grad_enabled() else contextlib.nullcontext()
+
 
 def _flat(state) -> list:
     """A slot state's tensors in a fixed order (dict keys sorted, lists and
@@ -74,6 +97,73 @@ def _flat(state) -> list:
         return [state]
     items = [state[key] for key in sorted(state)] if isinstance(state, dict) else state
     return [t for item in items for t in _flat(item)]
+
+
+def _unflat(template, leaves):
+    """``template``'s structure holding ``leaves`` (an iterator over
+    :func:`_flat`'s order)."""
+    if isinstance(template, torch.Tensor):
+        return next(leaves)
+    if isinstance(template, dict):
+        return {key: _unflat(template[key], leaves) for key in sorted(template)}
+    return type(template)(_unflat(item, leaves) for item in template)
+
+
+class _Traced(nn.Module):
+    """A program body with the model as a submodule, so that a trace reads
+    the parameters as attributes rather than freezing them as constants."""
+
+    def __init__(self, model, body):
+        super().__init__()
+        self.model = model
+        self.body = body
+
+    def forward(self, *args):
+        return self.body(*args)
+
+
+@functools.cache
+def _scripted_draw():
+    """The CPU's draws as one scripted call: row ``slots[i]`` of ``noise``
+    drawn by ``exponential_`` from ``generators[i]``."""
+
+    def draw(noise: torch.Tensor, slots: list[int], generators: list[torch.Generator]):
+        for i in range(len(slots)):
+            noise[slots[i]].exponential_(1.0, generator=generators[i])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return torch.jit.script(draw)
+
+
+class TorchCalls(TorchFunctionMode):
+    """Counts the Python->torch calls an engine makes while the mode is on
+    (on the engine's thread), by the engine's phase (``join``, ``draw``,
+    ``step``, ``result``): every torch function and tensor method the
+    mode sees, and every program run (a graph replay, a traced program,
+    the CPU's scripted draw), which the engine reports because they run
+    past the mode.  Each such call may give the interpreter lock up and
+    take it back."""
+
+    def __init__(self, engine):
+        super().__init__()
+        self.engine = engine
+        self.counts = Counter()
+
+    def __enter__(self):
+        self.engine._calls = self
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self.engine._calls = None
+        return super().__exit__(*exc)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.counts[self.engine._phase] += 1
+        return func(*args, **(kwargs or {}))
+
+    def program(self) -> None:
+        self.counts[self.engine._phase] += 1
 
 
 class ServingEngine:
@@ -101,12 +191,13 @@ class ServingEngine:
         self._closed = False
         self.device = next(adapter.model.parameters()).device
 
-        # captures (cpu: first runs) a program; retraces_since() reads them
+        # captures (cpu: traces) a program; retraces_since() reads them
         self._trace_counts = {"prefill": 0, "step": 0, "join": 0}
-        self.graphs: dict = {}  # ("prefill", bucket) | ("step",) -> CountedGraph
-        self._graph_out: dict = {}
-        self._ran: set = set()
+        self.graphs: dict = {}  # ("prefill", bucket) | ("join",) | ("step",) -> CountedGraph
+        self._traced: dict = {}  # the same keys -> the CPU's traced programs
         self._capture_stream = None
+        self._phase = "join"  # what the engine thread is doing, for TorchCalls
+        self._calls = None  # the TorchCalls counting now, if any
         self._alloc_buffers()
 
         self._steps = 0
@@ -129,111 +220,205 @@ class ServingEngine:
 
     def _alloc_buffers(self):
         slots, device = self.batcher.num_slots, self.device
+        vocab = self.adapter.vocab_size
         self.state = self.adapter.state_template(slots)
-        self.logits = torch.zeros((slots, self.adapter.vocab_size), device=device)
+        self.logits = torch.zeros((slots, vocab), device=device)
+        self.noise = torch.ones((slots, vocab), device=device)
         self.pos = torch.zeros((slots,), dtype=torch.long, device=device)
         self.temps = torch.zeros((slots,), device=device)
-        self.sampled = torch.zeros((slots,), dtype=torch.long, device=device)
         self.out = torch.zeros((2, slots), dtype=torch.long, device=device)  # (tok, ok)
-        self._prompts = {b: torch.zeros((1, b), dtype=torch.long, device=device)
-                         for b in self.buckets.prompt_buckets}
-        self._length = torch.zeros((1,), dtype=torch.long, device=device)
+        self.seq_state = self.adapter.state_template(1)
+        self.seq_logits = torch.zeros((1, vocab), device=device)
+        # the staging row: prompt tokens (padded to the largest bucket),
+        # then the join's length, slot and temperature
+        self._meta = self.buckets.max_prompt_len
+        width = self._meta + 3
+        self._stage = torch.zeros((1, width), dtype=torch.float64, device=device)
+        self._stage_host = (torch.zeros((1, width), dtype=torch.float64, pin_memory=True)
+                            if device.type == "cuda" else self._stage)
+        self._stage_np = self._stage_host.numpy()
+        self._staged = None  # the (slot, length, temperature) on the device's row
         self._generators = [torch.Generator(device=device) for _ in range(slots)]
+        self._args = {
+            "prefill": (self._stage, *_flat(self.seq_state), self.seq_logits),
+            "join": (self._stage, *_flat(self.state), *_flat(self.seq_state), self.logits,
+                     self.seq_logits, self.pos, self.temps),
+            "step": (*_flat(self.state), self.logits, self.noise, self.pos, self.temps,
+                     self.out),
+        }
 
     def _zero_buffers(self):
-        for buf in (*_flat(self.state), self.logits, self.pos, self.temps, self.sampled,
-                    self.out):
+        for buf in (*_flat(self.state), *_flat(self.seq_state), self.logits, self.seq_logits,
+                    self.pos, self.temps, self.out):
             buf.zero_()
+        self.noise.fill_(1.0)
 
     # -- programs ------------------------------------------------------------
 
     def _program(self, key: tuple, body):
-        """Run program ``key``: replay its graph, or on first use run
-        ``body`` eagerly on the capture stream and capture it; on the CPU
-        run ``body``.  Returns the outputs of this run."""
+        """Run program ``key`` on its buffers (``_args[key[0]]``): replay
+        its graph, or on first use run ``body`` eagerly on the capture
+        stream and capture it; on the CPU call its trace, or on first use
+        trace ``body`` (which runs it).  Returns the program's output
+        buffer."""
+        args = self._args[key[0]]
+        if self._calls is not None:
+            self._calls.program()
         if self.device.type != "cuda":
-            if key not in self._ran:
-                self._ran.add(key)
-                self._trace_counts[key[0]] += 1
-            return body()
+            traced = self._traced.get(key)
+            if traced is not None:
+                # the traced ops as they are: no profiling run and no
+                # optimising pass on the first calls (this thread only)
+                with torch.jit.optimized_execution(False):
+                    return traced(*args)
+            with warnings.catch_warnings():
+                # a trace that read a tensor's value on the host would
+                # replay that value: refuse it
+                warnings.simplefilter("error", torch.jit.TracerWarning)
+                warnings.simplefilter("ignore", DeprecationWarning)
+                traced = torch.jit.trace(_Traced(self.adapter.model, body), args,
+                                         check_trace=False)
+            self._traced[key] = traced
+            self._trace_counts[key[0]] += 1
+            return args[-1]
         graph = self.graphs.get(key)
         if graph is not None:
             graph.replay()
-            return self._graph_out[key]
+            return args[-1]
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
         stream = self._capture_stream
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            out = body()
+            out = body(*args)
         torch.cuda.current_stream(self.device).wait_stream(stream)
-        graph = CountedGraph()
-        self._graph_out[key] = graph.capture(body, stream)
+        graph = CountedGraph(self._generators if key[0] == "step" else ())
+        graph.capture(lambda: body(*args), stream)
         self.graphs[key] = graph
         self._trace_counts[key[0]] += 1
         return out
 
-    def _prefill(self, prompt: list) -> tuple:
-        """One prompt through its bucket's prefill: ``(seq_state,
-        logits (1, V))``."""
-        padded = torch.from_numpy(self.buckets.pad(prompt).astype(np.int64))
-        buf = self._prompts[padded.shape[1]]
-        buf.copy_(padded)
-        self._length.fill_(len(prompt))
-        return self._program(("prefill", buf.shape[1]),
-                             lambda: self.adapter.prefill(buf, self._length))
+    def _stage_meta(self, slot: int, length: int, temperature: float) -> None:
+        self._stage_np[0, self._meta:] = (length, slot, temperature)
+
+    def _upload(self) -> None:
+        """The staging row on the device (the card: one synchronous copy,
+        after which the host row may be rewritten)."""
+        if self._stage_host is not self._stage:
+            self._stage.copy_(self._stage_host)
+
+    def _prefill(self, prompt: list, slot: int = 0, temperature: float = 0.0) -> tuple:
+        """One prompt through its bucket's prefill, staged with the join
+        it is for: ``(seq_state, seq_logits (1, V))``, the sequence
+        buffers."""
+        padded = self.buckets.pad(prompt)
+        bucket = padded.shape[1]
+        self._stage_np[0, :bucket] = padded[0]
+        self._stage_meta(slot, len(prompt), temperature)
+        self._upload()
+        self._staged = (slot, len(prompt), temperature)
+        M = self._meta
+
+        def body(stage, *bufs):
+            seq_bufs, seq_logits = bufs[:-1], bufs[-1]
+            seq_state, logits = self.adapter.prefill(stage[:, :bucket].long(),
+                                                     stage[0, M:M + 1].long())
+            for buf, new in zip(seq_bufs, _flat(seq_state)):
+                buf.copy_(new)
+            seq_logits.copy_(logits)
+            return seq_logits
+
+        self._program(("prefill", bucket), body)
+        return self.seq_state, self.seq_logits
 
     def _join(self, slot: int, seq_state, seq_logits, length: int, temperature: float,
               seed: int):
-        """Write a prefilled sequence into ``slot`` in place."""
-        if ("join",) not in self._ran:
-            self._ran.add(("join",))
-            self._trace_counts["join"] += 1
-        for buf, one in zip(_flat(self.state), _flat(seq_state)):
-            buf[slot].copy_(one[0])
-        self.logits[slot].copy_(seq_logits[0])
-        self.pos[slot] = length
-        self.temps[slot] = temperature
+        """Write the prefilled sequence (the sequence buffers
+        ``seq_state``, ``seq_logits``) into ``slot`` in place, and seed the
+        slot's generator."""
+        if self._staged != (slot, length, temperature):
+            self._stage_meta(slot, length, temperature)
+            self._upload()
+            self._staged = (slot, length, temperature)
+        leaves = len(_flat(self.state))
+        M = self._meta
+
+        def body(stage, *bufs):
+            state_bufs, seq_bufs = bufs[:leaves], bufs[leaves:2 * leaves]
+            logits, seq_logits, pos, temps = bufs[2 * leaves:]
+            at = stage[0, M + 1:M + 2].long()
+            for buf, one in zip(state_bufs, seq_bufs):
+                buf.index_copy_(0, at, one)
+            logits.index_copy_(0, at, seq_logits)
+            pos.index_copy_(0, at, stage[0, M:M + 1].long())
+            temps.index_copy_(0, at, stage[0, M + 2:M + 3].float())
+            return temps
+
+        self._program(("join",), body)
         self._generators[slot].manual_seed(seed)
 
-    def _step_body(self):
-        """Every slot one token: the token from the current logits (the
-        argmax, or at temperature > 0 the host's draw in ``sampled``), the
-        adapter's step, the ``ok`` flags (current and new logits finite);
-        results written into the static buffers."""
-        tok = torch.where(self.temps > 0, self.sampled, self.logits.argmax(dim=-1))
-        new_state, new_logits = self.adapter.step(self.state, tok, self.pos)
-        ok = torch.isfinite(self.logits).all(dim=-1) & torch.isfinite(new_logits).all(dim=-1)
-        for buf, new in zip(_flat(self.state), _flat(new_state)):
+    def _step_body(self, *bufs):
+        """Every slot one token: the draw (on the card: every slot's noise
+        row from its generator), the token from the current logits (the
+        argmax, or at temperature > 0 ``argmax(softmax(logits / T) /
+        noise)``), the adapter's step, the ``ok`` flags (current and new
+        logits finite); results written into the static buffers.
+        Non-finite logits (which fail the request through ``ok``) are
+        zeroed for the draw so that it sees a valid distribution; on
+        finite logits that is the identity."""
+        leaves = len(bufs) - 5
+        logits, noise, pos, temps, out = bufs[leaves:]
+        state = _unflat(self.state, iter(bufs[:leaves]))
+        cuda = logits.is_cuda
+        if cuda:
+            for s, generator in enumerate(self._generators):
+                noise[s:s + 1].exponential_(1.0, generator=generator)
+        safe = torch.nan_to_num(logits, nan=0.0, posinf=0.0, neginf=0.0)
+        temperature = torch.where(temps > 0, temps, 1.0)[:, None]
+        # generate divides by a Python float: the card multiplies by its
+        # float32 reciprocal there, the CPU divides
+        scaled = safe * temperature.reciprocal() if cuda else safe / temperature
+        drawn = (torch.softmax(scaled, dim=-1) / noise).argmax(dim=-1)
+        tok = torch.where(temps > 0, drawn, logits.argmax(dim=-1))
+        new_state, new_logits = self.adapter.step(state, tok, pos)
+        ok = torch.isfinite(logits).all(dim=-1) & torch.isfinite(new_logits).all(dim=-1)
+        for buf, new in zip(bufs[:leaves], _flat(new_state)):
             if new is not buf:
                 buf.copy_(new)
-        self.logits.copy_(new_logits)
-        self.pos.add_(1)
-        self.out[0].copy_(tok)
-        self.out[1].copy_(ok)
+        logits.copy_(new_logits)
+        pos.add_(1)
+        out[0].copy_(tok)
+        out[1].copy_(ok)
+        return out
 
-    def _draw(self, slot: int, temperature: float):
-        """``generate``'s draw at batch 1 from slot ``slot``'s logits into
-        ``sampled``.  Non-finite logits (which fail the request through
-        the step's ``ok`` flag) are zeroed first so that multinomial sees a
-        valid distribution; on finite logits that is the identity."""
-        logits = torch.nan_to_num(self.logits[slot:slot + 1], nan=0.0, posinf=0.0, neginf=0.0)
-        probs = torch.softmax(logits / temperature, dim=-1)
-        draw = torch.multinomial(probs, 1, generator=self._generators[slot])
-        self.sampled[slot:slot + 1].copy_(draw[:, 0])
+    def _advance(self, sampled: list) -> list:
+        """One decode step of every slot; ``sampled`` the slots at
+        temperature > 0.  Returns ``[toks, ok]`` on the host."""
+        if sampled and self.device.type != "cuda":
+            self._phase = "draw"
+            if self._calls is not None:
+                self._calls.program()
+            with torch.jit.optimized_execution(False):
+                _scripted_draw()(self.noise, sampled, [self._generators[s] for s in sampled])
+        self._phase = "step"
+        self._program(("step",), self._step_body)
+        self._phase = "result"
+        return self.out.tolist()  # one copy: serving needs the values
 
     @torch.no_grad()
     def warmup(self):
         """Make the first use of every program the serve loop can need (one
-        prefill a prompt bucket, the join, the step, a draw), so that
-        serving captures nothing; then blank the slots."""
-        for bucket in self.buckets.prompt_buckets:
-            seq_state, logits = self._prefill([0] * bucket)
-            self._join(0, seq_state, logits, bucket, 0.0, 0)
-        self._program(("step",), self._step_body)
-        self._draw(0, 1.0)  # the sampling kernels' first launch, too
-        self.out.cpu()
+        prefill a prompt bucket, the join, the step, the CPU's draw), so
+        that serving captures nothing, and a second (on the CPU the first
+        call of a trace makes its execution plan); then blank the
+        slots."""
+        for _ in range(2):
+            for bucket in self.buckets.prompt_buckets:
+                seq_state, logits = self._prefill([0] * bucket)
+                self._join(0, seq_state, logits, bucket, 0.0, 0)
+            self._advance([0])
         self._zero_buffers()
+        self._phase = "join"
 
     # -- capture accounting --------------------------------------------------
 
@@ -241,7 +426,7 @@ class ServingEngine:
         return dict(self._trace_counts)
 
     def retraces_since(self, snapshot: dict) -> dict:
-        """Programs captured (cpu: first run) since ``snapshot`` (empty
+        """Programs captured (cpu: traced) since ``snapshot`` (empty
         dict = none)."""
         return {
             name: count - snapshot.get(name, 0)
@@ -289,12 +474,17 @@ class ServingEngine:
 
     # -- serve loop (one thread) ---------------------------------------------
 
-    @torch.no_grad()
     def run_step(self, wait_s: float = _IDLE_WAIT_S) -> bool:
         """One scheduler iteration: join waiting requests into free slots,
         advance the batch one decode step, deliver tokens and retire
         finished sequences.  Blocks up to ``wait_s`` for work when idle;
-        returns whether a decode step ran."""
+        returns whether a decode step ran.  Runs without autograd
+        (``serve_forever`` and ``drain`` turn it off once for their whole
+        loop rather than twice a step)."""
+        with _no_grad():
+            return self._run_step(wait_s)
+
+    def _run_step(self, wait_s: float) -> bool:
         with self._work:
             if not self.batcher.has_work:
                 self._work.wait(timeout=wait_s)
@@ -308,11 +498,8 @@ class ServingEngine:
 
         with self._stats_lock:
             self._steps += 1
-        for slot, request in active:
-            if request.temperature > 0:
-                self._draw(slot, request.temperature)
-        self._program(("step",), self._step_body)
-        toks, ok = self.out.cpu().tolist()  # one copy: serving needs the values
+        toks, ok = self._advance([slot for slot, request in active if request.temperature > 0])
+        self._phase = "join"
         with self._stats_lock:
             self._queue_depths.append(self.batcher.queue_depth)
 
@@ -334,7 +521,7 @@ class ServingEngine:
 
     def _do_join(self, slot: int, request: ServeRequest):
         request.service_tm = time.perf_counter()
-        seq_state, logits = self._prefill(request.prompt)
+        seq_state, logits = self._prefill(request.prompt, slot, request.temperature)
         self._join(slot, seq_state, logits, len(request.prompt), request.temperature,
                    request.seed)
         request.prefill_done_tm = time.perf_counter()
@@ -375,13 +562,14 @@ class ServingEngine:
         touches the device."""
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
-        while not stop_event.is_set():
-            try:
-                self.run_step()
-            except Exception:
-                log.exception("serving: decode loop error; failing the in-flight batch and "
-                              "continuing")
-                self._recover()
+        with _no_grad():
+            while not stop_event.is_set():
+                try:
+                    self.run_step()
+                except Exception:
+                    log.exception("serving: decode loop error; failing the in-flight batch "
+                                  "and continuing")
+                    self._recover()
 
     def _recover(self):
         """Fail every active request and zero the batch state in place (a
@@ -397,8 +585,9 @@ class ServingEngine:
 
     def drain(self):
         """Run until queue and slots are empty (tests, shutdown)."""
-        while self.batcher.has_work:
-            self.run_step(wait_s=0.0)
+        with _no_grad():
+            while self.batcher.has_work:
+                self.run_step(wait_s=0.0)
 
     # -- shutdown / stats ----------------------------------------------------
 

@@ -1,6 +1,6 @@
-"""Trainer registry: the ``local``, ``distributed``, ``horovod`` and
-``distributed-native`` subcommands and the shared run tail, the
-counterparts of the JAX package's ``training/__init__.py``
+"""Trainer registry: the ``local``, ``distributed``, ``horovod``,
+``distributed-native`` and ``parameter-server`` subcommands and the shared
+run tail, the counterparts of the JAX package's ``training/__init__.py``
 ``add_sub_commands``/``train``/``_run_trainer``.
 
 ``distributed`` and ``horovod`` run one process a rank: start them with
@@ -10,6 +10,8 @@ pytorch_distributed_rnn_tpu_torch.main ... distributed``).
 (``training/native_ddp.py``): any launcher that sets ``MASTER_ADDR``/
 ``MASTER_PORT``/``RANK``/``WORLD_SIZE`` (``torchrun`` does, or
 ``native_ddp.launch_world``).  Without a launcher each runs as a world of 1.
+``parameter-server`` (``param_server/``) spawns its own world, or runs one
+role a process with ``--rank``.
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ def add_sub_commands(sub_parser):
 
     sub_parser.add_parser("distributed-native").set_defaults(func=native_ddp.execute,
                                                              strategy="distributed-native")
+    from pytorch_distributed_rnn_tpu_torch import param_server
+
+    param_server.add_sub_command(sub_parser)
 
 
 def train(args, trainer_class):

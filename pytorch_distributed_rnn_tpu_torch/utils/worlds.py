@@ -29,12 +29,16 @@ def free_ports(count: int) -> list[int]:
             s.close()
 
 
-def spawn_world(rank_cmds, *, timeout: float = 600.0, cwd=None):
+def spawn_world(rank_cmds, *, timeout: float | None = 600.0, cwd=None, capture: bool = True,
+                check: bool = True):
     """Run one process per ``(argv, env)`` of ``rank_cmds``; returns
-    ``[(returncode, stdout, stderr)]`` in rank order, and raises if a rank
-    fails or outlives ``timeout`` seconds (it is then killed)."""
-    procs = [subprocess.Popen(argv, env=env, cwd=cwd, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
+    ``[(returncode, stdout, stderr)]`` in rank order (the outputs None
+    where ``capture`` is off: the ranks then write to this process's
+    streams).  With ``check`` it raises if a rank fails; it always raises
+    if one outlives ``timeout`` seconds (None: no limit; it is then
+    killed)."""
+    pipe = subprocess.PIPE if capture else None
+    procs = [subprocess.Popen(argv, env=env, cwd=cwd, stdout=pipe, stderr=pipe, text=True)
              for argv, env in rank_cmds]
     results = [None] * len(procs)
     errors = [None] * len(procs)
@@ -54,9 +58,9 @@ def spawn_world(rank_cmds, *, timeout: float = 600.0, cwd=None):
         t.start()
     for t in threads:
         t.join()
-    failed = [(rank, res[2][-2000:]) for rank, res in enumerate(results)
+    failed = [(rank, (res[2] or "")[-2000:]) for rank, res in enumerate(results)
               if res is not None and res[0] != 0]
-    if failed:
+    if failed and check:
         raise RuntimeError(f"world ranks failed: {failed}")
     timed_out = [rank for rank, e in enumerate(errors) if e is not None]
     if timed_out:

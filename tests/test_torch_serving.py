@@ -11,7 +11,9 @@ and sampled, with its first-step logits within 1e-5 of ``generate``'s;
 staggered joins; no program run for the first time after warm-up (the
 CPU form of "no capture"); rejections; the context budget; a non-finite
 logit failing only its request; ``close`` and ``_recover``; ``stats``
-under a running loop."""
+polled with no pause under a running loop, alone and beside a thread
+spinning in Python; the Python->torch calls of a decode step and a join
+(``TorchCalls``), pinned."""
 
 import threading
 import time
@@ -34,7 +36,7 @@ from pytorch_distributed_rnn_tpu_torch import interop
 from pytorch_distributed_rnn_tpu_torch.models import AttentionLM, CharRNN
 from pytorch_distributed_rnn_tpu_torch.serving.adapters import adapter_for, masked_rnn_prefill
 from pytorch_distributed_rnn_tpu_torch.serving.buckets import BucketSpec
-from pytorch_distributed_rnn_tpu_torch.serving.engine import ServingEngine, _flat
+from pytorch_distributed_rnn_tpu_torch.serving.engine import ServingEngine, TorchCalls, _flat
 from pytorch_distributed_rnn_tpu_torch.serving.scheduler import ServeRequest
 from pytorch_distributed_rnn_tpu_torch.training.checkpoint import (
     CheckpointCorruptError,
@@ -372,14 +374,26 @@ def test_recover_fails_in_flight_requests_and_serves_on():
 # threads: submit and stats while the engine loop runs
 
 
-def test_stats_is_safe_while_the_engine_appends():
-    """stats() from other threads while the engine thread appends: never
-    raises, and every request submitted from another thread completes with
-    its reference tokens."""
+def _serve_from_threads(spin: bool):
+    """10 mixed requests submitted from a thread to an engine loop thread
+    through 2 slots of the char GRU, ``stats()`` polled with no pause
+    meanwhile (the reference test's loop, ``tests/test_serving.py``) and,
+    with ``spin``, a thread beside them that never blocks and touches no
+    engine lock: every request completes within 60 s with its reference
+    tokens."""
     _, _, model = _pair("char-gru")
     engine = make_engine(model, num_slots=2, max_queue=64)
     engine.warmup()
     stop = threading.Event()
+    spinner = None
+    if spin:
+        def spin_loop():
+            n = 0
+            while not stop.is_set():
+                n += 1
+
+        spinner = threading.Thread(target=spin_loop, daemon=True)
+        spinner.start()
     loop = threading.Thread(target=engine.serve_forever, args=(stop,), daemon=True)
     loop.start()
     requests = mixed_requests(10, np.random.RandomState(12))
@@ -388,16 +402,66 @@ def test_stats_is_safe_while_the_engine_appends():
     submitter.start()
     deadline = time.perf_counter() + 60.0
     while engine.stats()["requests"] < len(requests) and time.perf_counter() < deadline:
-        # a thread spinning in Python takes the interpreter lock from the
-        # engine thread at each of its torch calls; a connection thread
-        # waits on its socket instead, which this sleep stands for
-        time.sleep(0.001)
+        pass
     stop.set()
     loop.join(timeout=10.0)
     submitter.join(timeout=10.0)
+    if spinner is not None:
+        spinner.join(timeout=10.0)
     assert not loop.is_alive() and not submitter.is_alive()
     stats = engine.stats()
     assert stats["requests"] == len(requests) and stats["tokens_out"] == sum(
         r.max_new_tokens for r in requests)
     assert stats["latency_s_p95"] >= stats["latency_s_p50"] > 0
+    assert_matches_reference(model, requests)
+
+
+def test_stats_is_safe_while_the_engine_appends():
+    """stats() from other threads while the engine thread appends: never
+    raises, and every request submitted from another thread completes with
+    its reference tokens, while the polling thread spins in Python."""
+    _serve_from_threads(spin=False)
+
+
+def test_engine_keeps_serving_beside_a_spinning_thread():
+    """The same beside a second thread spinning in Python: the engine's
+    few calls a step each wait out one switch interval at most."""
+    _serve_from_threads(spin=True)
+
+
+# ---------------------------------------------------------------------------
+# Python->torch calls: a busy thread costs the engine one switch interval
+# (5 ms) at each, so a step and a join make a fixed few
+
+STEP_CALLS = {"draw": 1, "step": 1, "result": 1}  # draw only where a slot samples
+JOIN_CALLS = 2  # the prefill and the join programs
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_python_torch_calls_a_step_and_a_join_are_pinned(family):
+    """Counted by ``TorchCalls`` (the mode's calls plus the programs):
+    each decode step makes one traced step call, one result copy and, when
+    a slot samples, one scripted draw; each join makes two calls (the
+    prefill and the join programs) whatever the bucket; nothing else."""
+    _, _, model = _pair(family)
+    engine = make_engine(model, num_slots=2)
+    engine.warmup()
+    requests = mixed_requests(6, np.random.RandomState(21))
+    for r in requests:
+        assert engine.submit(r)
+    steps = 0
+    with torch.no_grad(), TorchCalls(engine) as calls:
+        while engine.batcher.has_work:
+            before = dict(calls.counts)
+            waiting = [r for r in requests if r.service_tm is None]
+            tokens = [len(r.tokens) for r in requests]
+            steps += engine.run_step(wait_s=0.0)
+            joined = sum(r.service_tm is not None for r in waiting)
+            decoded = [r for r, n in zip(requests, tokens) if len(r.tokens) > n]
+            want = {"join": JOIN_CALLS * joined, "step": STEP_CALLS["step"],
+                    "result": STEP_CALLS["result"],
+                    "draw": STEP_CALLS["draw"] * any(r.temperature > 0 for r in decoded)}
+            made = {k: v - before.get(k, 0) for k, v in calls.counts.items()}
+            assert {k: v for k, v in made.items() if v} == {k: v for k, v in want.items() if v}
+    assert steps > 0 and all(r.service_tm is not None for r in requests)
     assert_matches_reference(model, requests)

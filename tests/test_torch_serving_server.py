@@ -395,3 +395,37 @@ def test_cuda_engine_matches_generate(cuda_device, trained_checkpoint):
     assert engine.retraces_since(snapshot) == {}
     for spec, r in zip(specs, requests):
         assert r.status == "done" and r.tokens == reference(model, spec), r.id
+
+
+@pytest.mark.cuda
+def test_cuda_engine_calls_a_step_and_a_join(cuda_device, trained_checkpoint):
+    """On the card a decode step is one replay and one result copy, the
+    draws inside the step graph (at most 4 Python->torch calls); a join is
+    the staging row's copy and two replays.  Counted by ``TorchCalls``
+    over 8 mixed requests through 4 slots, whose tokens equal
+    ``generate``'s on the card."""
+    from pytorch_distributed_rnn_tpu_torch.serving.engine import TorchCalls
+
+    _, trained = trained_checkpoint
+    model = make_model()
+    model.load_state_dict(trained.state_dict())
+    model = model.to(cuda_device).eval()
+    engine = ServingEngine(adapter_for(model), num_slots=4, bucket_spec=BucketSpec((8, 16)),
+                           max_new_tokens=16)
+    engine.warmup()
+    gen = torch.Generator().manual_seed(2)
+    specs = [{"prompt": torch.randint(0, 256, (2 + i,), generator=gen).tolist(),
+              "max_new_tokens": 6 + i, "temperature": [0.0, 0.7, 1.0][i % 3],
+              "seed": 200 + i} for i in range(8)]
+    requests = [ServeRequest(id=str(i), **spec) for i, spec in enumerate(specs)]
+    for r in requests:
+        assert engine.submit(r), r.error
+    steps = 0
+    with torch.no_grad(), TorchCalls(engine) as calls:
+        while engine.batcher.has_work:
+            steps += engine.run_step(wait_s=0.0)
+    assert steps > 0
+    assert dict(calls.counts) == {"join": 3 * len(requests), "step": steps, "result": steps}
+    assert calls.counts["step"] + calls.counts["result"] <= 4 * steps
+    for spec, r in zip(specs, requests):
+        assert r.status == "done" and r.tokens == reference(model, spec), r.id

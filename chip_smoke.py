@@ -115,6 +115,29 @@ Phases, in order; any failure raises and the script exits nonzero:
       copies are queued) and device ms a step, the master's update ms
       (H2D, Adam, D2H), the flat vector's bytes.  A failed rank fails the
       phase.
+   p. the resilience and memory flags (``phase_resilience``, after
+      ``phase_ps``, before ``phase_serving``) on the existing kernels: p.1
+      path a with and without ``--max-bad-steps 2`` (3 epochs, the graph
+      path): the same parameters and Adam state bit for bit, each run's
+      device ms a step; p.2 ``--faults step:3:nan,step:4:nan`` skips 2 steps
+      (the parameters after step 4 are those after step 2) and a third NaN
+      in a row raises ``NonFiniteAbort``; p.3 path a at dropout 0.1 with
+      validation and ``--checkpoint-every 1``, killed by ``--faults
+      epoch:2:kill`` in a CLI process (exit -9), its newest checkpoint
+      truncated, then ``--resume auto`` (falls back to epoch 1): parameters,
+      Adam state and the last validation loss bit for bit the uninterrupted
+      run's; p.4 path f plain, ``--remat``, ``--grad-accum 4`` and both, two
+      epochs each (the second profiled): peak memory, device ms and RNN
+      launches a step (remat: 2 forwards a layer; accum: 4 of each), remat
+      == plain and both == accum bit for bit, accum's loss within 1e-5, and
+      path d at dropout 0.1 with ``--remat`` bit for bit; p.5
+      ``distributed-native`` at world 2 on the card (``native_ddp.
+      launch_world(..., device="cuda")``, path i's bucketed sharded update)
+      with ``--faults step:3:nan@1 --max-bad-steps 2``: both ranks skip,
+      the same parity line, and with ``net:delay:5`` the same bits and the
+      host and ring time a step beside 5 ms times the ring's sends;
+      ``distributed`` at world 1 on NCCL against ``local`` with the same
+      schedule.
    k. serving (``phase_serving``, the smoke's last phase, after phase 6):
       path f's trained checkpoint through the serving CLI's loader, an engine of 8
       slots (prompt buckets 16-128, 128 new tokens at most) whose prefill
@@ -1049,7 +1072,6 @@ def _serve_timing(name: str, engine) -> dict:
     under ``torch.profiler`` (kernels, copies and sets), idle share; each
     bucket's prefill ms (a full-bucket prompt through the engine's
     prefill: its copies and the replay) and capture ms."""
-    from torch.profiler import ProfilerActivity, profile
 
     from pytorch_distributed_rnn_tpu_torch.serving.engine import TorchCalls
 
@@ -1073,7 +1095,7 @@ def _serve_timing(name: str, engine) -> dict:
             for _ in range(SERVE_TIMING_REPLAYS):
                 step()
         calls_a_step = {k: v / SERVE_TIMING_REPLAYS for k, v in calls.counts.items()}
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with _device_profile() as prof:
             for _ in range(SERVE_TIMING_REPLAYS):
                 step()
             torch.cuda.synchronize()
@@ -2032,6 +2054,321 @@ def phase_ps(workdir: Path, dp_finals: dict, native_finals: dict) -> dict:
     return summary
 
 
+# phase p: the resilience and memory flags on the existing kernels
+RESILIENCE_ACCUM_RTOL = 1e-5  # --grad-accum 4 against the single shot (float reassociation)
+NET_DELAY_MS = 5.0  # p.5's net:delay, a sleep before every send of the ring
+# the ring's sends a step of path i's bucketed sharded update at world 2
+# under the guard (runtime/csrc/collectives.cpp: a reduce-scatter sends
+# world - 1 ring steps and one rotation hop, an all-gather world - 1 ring
+# steps, an allreduce 2 (world - 1)): 3 buckets x (2 + 1), and the verdict's
+# allreduce of one element, 2
+RING_SENDS_A_STEP = 3 * (2 + 1) + 2
+P_TIMEOUT = 600
+_PARITY = re.compile(r"(\d+): parameters: (\S+)")
+_PERF = re.compile(r"(\d+): Memory Usage: \S+, Training Duration: (\S+)")
+_RING = re.compile(r"(\d+): ring: (\d+) updates, comm_wait_s (\S+), comm_active_s (\S+)")
+
+
+def _flat(trainer) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in trainer.model.parameters()]).clone()
+
+
+def _p_guard(workdir: Path, formatter) -> dict:
+    """p.1: path a with and without ``--max-bad-steps 2``, the same bits and
+    each run's device ms a step; p.2: NaN steps 3 and 4 skipped (the
+    parameters after step 4 are those after step 2), a third in a row
+    aborts."""
+    from pytorch_distributed_rnn_tpu_torch.resilience import NonFiniteAbort
+
+    out = {}
+    trainers = {name: _cli_trainer(workdir, _graph_argv(workdir, "a", extra), epochs=2)
+                for name, extra in (("plain", []), ("guarded", ["--max-bad-steps", "2"]))}
+    _same_bits("p.1 guarded vs plain", trainers["plain"], trainers["guarded"])
+    # a third epoch of graph replays, unprofiled: a profile that drops a
+    # kernel record trains its epoch again, so no bits are read after one
+    for trainer in trainers.values():
+        trainer._train_epoch(formatter, eager=False)
+    _same_bits("p.1 guarded vs plain, after the third epoch", trainers["plain"],
+               trainers["guarded"])
+    if trainers["guarded"].optimizer.nonfinite.read() != (0, 0):
+        raise RuntimeError("p.1: the guard counted a skip on finite steps")
+    steps = len(trainers["plain"]._epoch_index_batches())
+    for name, trainer in trainers.items():
+        ms, _, launches = _profile_steps(lambda t=trainer: t._train_epoch(formatter, eager=False),
+                                         steps)
+        out[f"{name}_device_ms"] = ms
+    print(f"  p.1 path a, 3 epochs on the graph path: --max-bad-steps 2 gives the plain run's "
+          f"parameters and Adam state bit for bit; device ms a step plain "
+          f"{out['plain_device_ms']:.4f}, guarded {out['guarded_device_ms']:.4f} (+"
+          f"{out['guarded_device_ms'] - out['plain_device_ms']:.4f}); launches of the guarded "
+          f"epoch {launches}")
+    del trainers
+
+    trainer = _cli_trainer(workdir, _graph_argv(workdir, "a", [
+        "--faults", "step:3:nan,step:4:nan", "--max-bad-steps", "2"]))
+    snapshots = []
+    step = trainer._optimizer_step
+
+    def recorded():
+        step()
+        snapshots.append(_flat(trainer))
+
+    trainer._optimizer_step = recorded
+    trainer.train(epochs=2)
+    consecutive, total = trainer.optimizer.nonfinite.read()
+    if (trainer.guard.total_skipped, total) != (2, 2) or trainer._faults.fired != {"nan": 2}:
+        raise RuntimeError(f"p.2: skipped {trainer.guard.total_skipped} / counted {total}, "
+                           f"fired {trainer._faults.fired}")
+    if not torch.equal(snapshots[4], snapshots[2]) or torch.equal(snapshots[2], snapshots[1]):
+        raise RuntimeError("p.2: the parameters after step 4 are not those after step 2")
+    if not torch.isfinite(snapshots[-1]).all():
+        raise RuntimeError("p.2: parameters not finite")
+    print(f"  p.2 --faults step:3:nan,step:4:nan --max-bad-steps 2: {total} skipped steps "
+          f"(consecutive now {consecutive}), the parameters after step 4 equal those after "
+          f"step 2 bit for bit, {len(snapshots)} steps, Adam's count "
+          f"{float(trainer.optimizer.device_steps):g}")
+    out["p2_skipped"] = total
+    del trainer
+    try:
+        _cli_trainer(workdir, _graph_argv(workdir, "a", [
+            "--faults", "step:3:nan,step:4:nan,step:5:nan", "--max-bad-steps", "2"]), epochs=2)
+    except NonFiniteAbort as exc:
+        print(f"  p.2 step:3:nan,step:4:nan,step:5:nan: NonFiniteAbort: {exc}")
+        out["abort"] = str(exc)
+    else:
+        raise RuntimeError("p.2: three NaN steps in a row did not abort")
+    return out
+
+
+def _p_resume(workdir: Path) -> dict:
+    """p.3: path a at the CLI's dropout 0.1, validation on, 3 epochs,
+    ``--checkpoint-every 1``: killed by ``epoch:2:kill`` (exit -9), its
+    newest checkpoint truncated, run again with ``--resume auto``: the
+    uninterrupted run's parameters and last validation loss bit for bit."""
+    from pytorch_distributed_rnn_tpu_torch import main as port_main
+    from pytorch_distributed_rnn_tpu_torch.training.checkpoint import checkpoint_candidates
+
+    root = workdir / "p3"
+    base = ["--dataset-path", str(workdir / "data"), "--epochs", "3", "--seed", "0",
+            "--checkpoint-every", "1"]
+    runs = {}
+    for name in ("reference", "killed", "resumed"):
+        (root / name).mkdir(parents=True)
+    reference = _cli_trainer(root / "reference", [
+        *base, "--checkpoint-directory", str(root / "models-ref"), "local"], epochs=3)
+    runs["reference"] = json.loads((root / "reference" / "history.json").read_text())
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pytorch_distributed_rnn_tpu_torch.main", *base,
+                           "--checkpoint-directory", str(root / "models"), "--faults",
+                           "epoch:2:kill", "local"], cwd=root / "killed", env=env,
+                          capture_output=True, text=True, timeout=P_TIMEOUT)
+    if proc.returncode != -9:
+        print(proc.stderr[-4000:])
+        raise RuntimeError(f"p.3: the killed run exited {proc.returncode}, not -9")
+    newest, *older = checkpoint_candidates(root / "models")
+    if newest.name != "checkpoint-epoch-2.ckpt":
+        raise RuntimeError(f"p.3: checkpoints after the kill {[newest, *older]}")
+    newest.write_bytes(newest.read_bytes()[:1000])
+    capture = _Capture()
+    logging.getLogger().addHandler(capture)
+    here = os.getcwd()
+    os.chdir(root / "resumed")
+    try:
+        resumed = port_main.main([*base, "--checkpoint-directory", str(root / "models"),
+                                  "--resume", "auto", "local"])
+    finally:
+        os.chdir(here)
+        logging.getLogger().removeHandler(capture)
+    runs["resumed"] = json.loads((root / "resumed" / "history.json").read_text())
+    fallback = [m for m in capture.messages if "skipping corrupt checkpoint" in m]
+    restored = [m for m in capture.messages if "auto-resume: restored" in m]
+    if not fallback or not restored or "checkpoint-epoch-1.ckpt" not in restored[0]:
+        raise RuntimeError(f"p.3: no fallback past the truncated checkpoint: {restored}")
+    _same_bits("p.3 resumed vs uninterrupted", reference, resumed)
+    ref_valid, valid = runs["reference"]["validation_history"], runs["resumed"]["validation_history"]
+    if valid != ref_valid[1:]:
+        raise RuntimeError(f"p.3: validation losses {valid} against {ref_valid}")
+    print(f"  p.3 killed at epoch 2 (exit -9, {time.perf_counter() - t0:.1f} s with its start), "
+          f"checkpoint-epoch-2 truncated: --resume auto logged '{fallback[0][:80]}...', "
+          f"restored epoch 1, trained epochs 1-2; parameters and Adam state equal the "
+          f"uninterrupted run's bit for bit, last validation loss {valid[-1]!r} == "
+          f"{ref_valid[-1]!r}")
+    return {"validation": valid[-1]}
+
+
+def _p_memory(workdir: Path, formatter) -> dict:
+    """p.4: path f (char LSTM, H=512, T=128, batch 256) plain, ``--remat``,
+    ``--grad-accum 4`` and both, two epochs each on the graph path and
+    then a profiled one: the peak memory of the first, device ms and
+    kernel launches a step of the profiled one; after the second, remat ==
+    plain and both == accum bit for bit, accum within
+    ``RESILIENCE_ACCUM_RTOL`` of plain.  Then path d
+    (attention, flash f32) at dropout 0.1 with and without ``--remat``, bit
+    for bit."""
+    import gc
+
+    levers = {"plain": [], "remat": ["--remat"], "accum": ["--grad-accum", "4"],
+              "both": ["--remat", "--grad-accum", "4"]}
+    out, finals = {}, {}
+    for name, extra in levers.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = _cli_trainer(workdir, _graph_argv(workdir, "f", extra), epochs=1)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        # the second epoch, unprofiled, gives the bits compared: a profile
+        # that drops a kernel record trains its epoch again
+        trainer._train_epoch(formatter, eager=False)
+        finals[name] = _flat(trainer).cpu()
+        steps = len(trainer._epoch_index_batches())
+        device_ms, _, launches = _profile_steps(
+            lambda t=trainer: t._train_epoch(formatter, eager=False), steps)
+        history = json.loads((workdir / "history.json").read_text())["train_history"]
+        per_step = {k: v / steps for k, v in launches.items()}
+        out[name] = {"peak_mib": peak / 2**20, "device_ms": device_ms, "launches": per_step,
+                     "loss": history[0]}
+        print(f"  p.4 path f {name}: peak {peak / 2**20:.1f} MiB over the first epoch (max "
+              f"allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB); device "
+              f"{device_ms:.3f} ms a step; launches a step {per_step}")
+        del trainer
+    layers = 2
+    want = {"plain": (1, 1), "remat": (2, 1), "accum": (4, 4), "both": (8, 4)}
+    for name, (fwd, bwd) in want.items():
+        got = out[name]["launches"]
+        if got.get("lstm_fwd") != fwd * layers or got.get("lstm_bwd") != bwd * layers:
+            raise RuntimeError(f"p.4 {name}: launches a step {got}, not {fwd} forward and {bwd} "
+                               "backward a layer")
+    if not torch.equal(finals["remat"], finals["plain"]):
+        raise RuntimeError("p.4: --remat does not give the plain run's bits")
+    if not torch.equal(finals["both"], finals["accum"]):
+        raise RuntimeError("p.4: --remat --grad-accum 4 does not give --grad-accum 4's bits")
+    rel = abs(out["accum"]["loss"] - out["plain"]["loss"]) / abs(out["plain"]["loss"])
+    err = float((finals["accum"] - finals["plain"]).abs().max())
+    if rel > RESILIENCE_ACCUM_RTOL:
+        raise RuntimeError(f"p.4: --grad-accum 4's loss {out['accum']['loss']} against "
+                           f"{out['plain']['loss']}")
+    print(f"  p.4 bits: remat == plain, both == accum; accum's first-epoch loss within "
+          f"{rel:.2e} of plain's (bar {RESILIENCE_ACCUM_RTOL:g}), parameters within {err:.3e}")
+    out["accum_rel"] = rel
+
+    trainers = {name: _cli_trainer(workdir, _graph_argv(workdir, "d", ["--dropout", "0.1",
+                                                                      *extra]), epochs=1)
+                for name, extra in (("plain", []), ("remat", ["--remat"]))}
+    _same_bits("p.4 path d --remat vs plain at dropout 0.1", trainers["plain"],
+               trainers["remat"])
+    print("  p.4 path d (attention, flash f32) at dropout 0.1: --remat gives the plain run's "
+          "parameters and Adam state bit for bit")
+    return out
+
+
+def _native_p5(workdir: Path, name: str, faults: str) -> dict:
+    """Path i's bucketed sharded update at world 2 on the card, each rank a
+    CLI process (``native_ddp.launch_world``), with ``--faults FAULTS
+    --max-bad-steps 2``: each rank's skip, parity line and host ms a step,
+    and rank 0's final parameters (its checkpoint of epoch 2)."""
+    from pytorch_distributed_rnn_tpu_torch.training import native_ddp
+    from pytorch_distributed_rnn_tpu_torch.training.checkpoint import load_checkpoint
+
+    cwd = workdir / "p5" / name
+    cwd.mkdir(parents=True)
+    argv = ["--dataset-path", str(workdir / "data"), "--epochs", "2", "--seed", "0",
+            "--dropout", "0", "--no-validation", "--bucket-mb", str(NATIVE_BUCKET_MB),
+            "--checkpoint-every", "2", "--checkpoint-directory", "models",
+            "--faults", faults, "--max-bad-steps", "2"]
+    t0 = time.perf_counter()
+    results = native_ddp.launch_world(2, argv, device="cuda", cwd=cwd, timeout=P_TIMEOUT)
+    wall = time.perf_counter() - t0
+    ranks = {}
+    for rank, (_, _, err) in enumerate(results):
+        skipped = [line for line in err.splitlines() if "skipped 1 step(s)" in line]
+        parity = {int(r): v for r, v in _PARITY.findall(err)}
+        perf = {int(r): float(v) for r, v in _PERF.findall(err)}
+        ring = {int(m[0]): (int(m[1]), float(m[2]), float(m[3])) for m in _RING.findall(err)}
+        if len(skipped) != 1 or rank not in parity or rank not in perf or rank not in ring:
+            print(err[-4000:])
+            raise RuntimeError(f"p.5 {name} rank {rank}: skips {skipped}, parity {parity}")
+        ranks[rank] = {"parity": parity[rank], "duration_s": perf[rank],
+                       "comm_wait_ms": 1e3 * ring[rank][1], "comm_active_ms": 1e3 * ring[rank][2]}
+    if ranks[0]["parity"] != ranks[1]["parity"]:
+        raise RuntimeError(f"p.5 {name}: rank parity lines differ: {ranks}")
+    steps = 2 * 5  # 3264 rows a rank: 4 batches of 720 and one of 384 an epoch
+    state, _, _ = load_checkpoint(cwd / "models" / "checkpoint-epoch-2.ckpt")
+    host_ms = [r["duration_s"] * 1e3 / steps for r in ranks.values()]
+    wait_ms = [r["comm_wait_ms"] for r in ranks.values()]
+    print(f"  p.5 {name} (--faults {faults}): both ranks skipped step 3, parity lines "
+          f"{ranks[0]['parity']} on both; host ms a step (training duration / {steps}) rank 0 "
+          f"{host_ms[0]:.3f}, rank 1 {host_ms[1]:.3f}; the ring's comm_wait ms an update "
+          f"{wait_ms[0]:.3f} / {wait_ms[1]:.3f}, comm_active ms "
+          f"{ranks[0]['comm_active_ms']:.3f} / {ranks[1]['comm_active_ms']:.3f}; world "
+          f"{wall:.1f} s")
+    return {"host_ms": host_ms, "comm_wait_ms": wait_ms, "state": state,
+            "parity": ranks[0]["parity"]}
+
+
+def _p_data_parallel(workdir: Path) -> dict:
+    """p.5: NaN on rank 1's step 3 under ``distributed-native`` at world 2
+    (bucketed, sharded), plain and with ``net:delay``; ``distributed`` at
+    world 1 on NCCL (in this process) against ``local`` with the same
+    NaN schedule."""
+    out = {}
+    runs = {name: _native_p5(workdir, name, faults) for name, faults in (
+        ("nan", "step:3:nan@1"), ("delay", f"step:3:nan@1,net:delay:{NET_DELAY_MS:g}"))}
+    for key, value in runs["nan"]["state"].items():
+        if not torch.equal(value, runs["delay"]["state"][key]):
+            raise RuntimeError(f"p.5: net:delay changed parameter {key}")
+    rise = [d - n for d, n in zip(runs["delay"]["host_ms"], runs["nan"]["host_ms"])]
+    wait_rise = [d - n for d, n in zip(runs["delay"]["comm_wait_ms"], runs["nan"]["comm_wait_ms"])]
+    expected = NET_DELAY_MS * RING_SENDS_A_STEP
+    print(f"  p.5 net:delay:{NET_DELAY_MS:g}: the same parameters bit for bit; host ms a step "
+          f"rose by {rise[0]:.3f} (rank 0) and {rise[1]:.3f} (rank 1), the ring's comm_wait "
+          f"ms an update by {wait_rise[0]:.3f} and {wait_rise[1]:.3f}, against "
+          f"{NET_DELAY_MS:g} ms x {RING_SENDS_A_STEP} ring sends a step = {expected:g} ms")
+    out["native"] = {name: {k: v for k, v in run.items() if k != "state"}
+                     for name, run in runs.items()}
+    out["delay_rise_ms"] = rise
+    out["delay_wait_rise_ms"] = wait_rise
+
+    flags = ["--no-validation", "--dropout", "0", "--faults", "step:3:nan",
+             "--max-bad-steps", "2"]
+    local = _cli_trainer(workdir, _graph_argv(workdir, "a", flags), epochs=2)
+    world1 = _cli_trainer(workdir, [*_graph_argv(workdir, "a", flags)[:-1], "distributed"],
+                          epochs=2)
+    if world1.guard.total_skipped != 1 or local.guard.total_skipped != 1:
+        raise RuntimeError(f"p.5: distributed skipped {world1.guard.total_skipped}, local "
+                           f"{local.guard.total_skipped}")
+    err = max(float((a - b).abs().max()) for a, b in zip(local.model.state_dict().values(),
+                                                         world1.model.state_dict().values()))
+    if err > DP_TOL_LOCAL:
+        raise RuntimeError(f"p.5: distributed at world 1 against local: {err}")
+    print(f"  p.5 distributed at world 1 on {world1.group.backend}: 1 skip; parameters against "
+          f"local's same run max abs err {err:.3e} ({'bit for bit' if err == 0 else 'bar'} "
+          f"{DP_TOL_LOCAL:g})")
+    out["world1_err"] = err
+    return out
+
+
+def phase_resilience(workdir: Path, formatter) -> dict:
+    """Phase p, the resilience and memory flags on the existing kernels:
+    p.1 the guard on finite steps (path a), p.2 NaN steps skipped and the
+    abort past K, p.3 a kill and ``--resume auto`` past a truncated
+    checkpoint (path a at dropout 0.1), p.4 ``--remat`` and ``--grad-accum``
+    at path f's width (and ``--remat`` on path d), p.5 the faults over data
+    parallel."""
+    print("phase p: --max-bad-steps, --faults, --resume auto, --grad-accum, --remat")
+    t0 = time.perf_counter()
+    out = {"guard": _p_guard(workdir, formatter), "resume": _p_resume(workdir),
+           "memory": _p_memory(workdir, formatter), "dp": _p_data_parallel(workdir)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase p: {out['seconds']:.1f} s")
+    print("resilience: " + json.dumps(out, default=str))
+    return out
+
+
 def _long_context_trainer(fuse_run: bool = False):
     """Path e's trainer: the long-context classifier (bench.py's
     attention_seq1024_dim512 bf16 row) on ``LONG_STEPS`` batches of
@@ -2072,6 +2409,15 @@ def phase_long_context() -> PathRun:
     return run
 
 
+def _device_profile():
+    """``torch.profiler`` over the host and the card, with host-only margins
+    around the body (``utils/ab.py:device_profile``: late in a process a
+    plain window loses device records)."""
+    from pytorch_distributed_rnn_tpu_torch.utils.ab import device_profile
+
+    return device_profile()
+
+
 def _device_events(prof) -> list:
     """The kernels, copies and sets of a profiled run, without the device
     spans of user annotations (``Optimizer.step``, DDP's forward), which
@@ -2108,13 +2454,14 @@ def _profile_steps(train, steps: int) -> tuple:
     seen to drop a kernel's records now and then (2 of 20 of one graph
     epoch once on an H100, none in 16 profiles of the same epochs after
     it): a run whose counts disagree is profiled again, up to
-    ``PROFILE_ATTEMPTS`` runs, and the phase fails if none agrees."""
-    from torch.profiler import ProfilerActivity, profile
+    ``PROFILE_ATTEMPTS`` runs, and the phase fails if none agrees.  Each
+    attempt runs ``train()`` again, so a caller compares no trainer's
+    state after this."""
 
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
         _reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with _device_profile() as prof:
             train()
             torch.cuda.synchronize()
         launches = {k: v for k, v in _launch_counts().items() if v}
@@ -2185,7 +2532,6 @@ def phase_scan_profile(run: PathRun, formatter):
     loop over T, its backward by autograd) in the per-batch loop,
     profiled once: what the kernels replace on the card.  (The graph
     path would replay the kernel path it captured.)"""
-    from torch.profiler import ProfilerActivity, profile
 
     model = run.trainer.model
     steps = len(run.trainer._epoch_index_batches())
@@ -2196,7 +2542,7 @@ def phase_scan_profile(run: PathRun, formatter):
         run.trainer._train_epoch(formatter, eager=True)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with _device_profile() as prof:
             run.trainer._train_epoch(formatter, eager=True)
             torch.cuda.synchronize()
     finally:
@@ -2227,12 +2573,11 @@ def _device_ms(fn, iters: int = 20) -> tuple[float, list]:
     """``fn``'s device time per call, summed over the kernels it launches
     under ``torch.profiler`` (``iters`` calls after two warm-up calls), and
     those kernels' names: the host's pace between launches does not count."""
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _device_profile() as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -2612,14 +2957,13 @@ def _glue(batch: int, heads: int, t: int, d: int, dtype) -> tuple:
     (``_merge_heads``).  Returns (kernels launched, their device ms) a call
     under ``torch.profiler``: none since the kernels read the (B, T, H, D)
     layout (the copies this replaced took as long as the f32 forward)."""
-    from torch.profiler import ProfilerActivity, profile
 
     from pytorch_distributed_rnn_tpu_torch.models.attention import _merge_heads, _split_heads
 
     x = torch.randn((batch, t, heads * d), device="cuda").to(dtype)
     o = torch.empty((batch, t, heads, d), device="cuda", dtype=dtype)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _device_profile() as prof:
         for _ in range(20):
             for _ in range(3):
                 if _split_heads(x, heads).transpose(1, 2).stride(-1) != 1:
@@ -2722,6 +3066,7 @@ def main() -> int:
         # this process before them, a step profile missed one kernel record in
         # all three attempts (serving once, this phase once)
         phase_ps(workdir, dp_finals, native["finals"])
+        phase_resilience(workdir, formatter)
         phase_serving(workdir, runs)
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -11,7 +11,13 @@ the Adam step of all three.  ``--model`` takes ``rnn``, ``char`` and
 ``attention``.
 ``local`` trains each epoch through CUDA-graph replays of its train step
 unless DEBUG logging asks for each batch's values, and ``--fuse-run``
-replays it over the whole run (``training/base.py``).
+replays it over the whole run (``training/base.py``).  The resilience and
+memory flags: ``--max-bad-steps K`` (skip a step with non-finite
+gradients on the device, abort past K in a row), ``--faults SPEC`` (the
+``resilience/faults.py`` schedule, also ``PDRNN_CHAOS``), ``--resume
+auto`` (the newest valid checkpoint of ``--checkpoint-directory``),
+``--grad-accum K`` (``local``: K microbatches a step) and ``--remat``
+(recompute each RNN layer or encoder block in the backward).
 Flags whose machinery is not ported yet are parsed and rejected loudly
 when set to anything but their default.
 
@@ -83,15 +89,24 @@ def build_parser() -> argparse.ArgumentParser:
                         help="--model moe only")
     parser.add_argument("--resume", default=None, type=Path, metavar="PATH",
                         help="restore model and optimizer state from a checkpoint "
-                        f"file before training ('auto' is {NOT_PORTED})")
+                        "file before training; 'auto' takes the newest valid checkpoint "
+                        "of --checkpoint-directory (past corrupt ones) and trains only the "
+                        "epochs after it, or starts fresh")
     parser.add_argument("--checkpoint-every", default=0, type=int, metavar="N",
                         help="also write checkpoint-epoch-N.ckpt every N epochs")
     parser.add_argument("--keep-checkpoints", default=0, type=int, metavar="N",
                         help="keep only the newest N epoch checkpoints (0 = all)")
-    parser.add_argument("--max-bad-steps", default=0, type=int, metavar="K", help=NOT_PORTED)
-    parser.add_argument("--faults", default=None, metavar="SPEC", help=NOT_PORTED)
+    parser.add_argument("--max-bad-steps", default=0, type=int, metavar="K",
+                        help="skip an update whose gradients hold a NaN or an Inf (on the "
+                        "device: parameters and Adam state unchanged) and abort past K "
+                        "consecutive ones (0 = off; parameter-server: no effect)")
+    parser.add_argument("--faults", default=None, metavar="SPEC",
+                        help="fault-injection schedule, e.g. 'step:3:nan,epoch:2:kill,"
+                        "net:delay:5' (resilience/faults.py; PDRNN_CHAOS when unset)")
     parser.add_argument("--grad-accum", default=1, type=int, metavar="K",
-                        help=f"values above 1 are {NOT_PORTED}")
+                        help="local: split each batch into K equal microbatches and "
+                        "accumulate their gradients into one update (the data-parallel "
+                        "strategies reject K > 1, as the JAX trainers do)")
     parser.add_argument("--sharded-update", default=True, action=argparse.BooleanOptionalAction,
                         help="distributed, horovod and distributed-native: reduce-scatter "
                         "the gradient, step Adam on each rank's 1/world slice, all-gather "
@@ -106,7 +121,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--precision", default="f32", choices=["f32", "bf16"],
                         help="bf16: bfloat16 recurrence or encoder blocks, float32 "
                         "parameters and head")
-    parser.add_argument("--remat", action="store_true", help=NOT_PORTED)
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute each RNN layer (or encoder block) in the backward "
+                        "instead of keeping its activations (same bits, less memory)")
     parser.add_argument("--checkpoint-format", default="gathered",
                         choices=["gathered", "sharded"], help=f"sharded is {NOT_PORTED}")
     parser.add_argument("--checkpoint-async", action="store_true", help=NOT_PORTED)
@@ -155,9 +172,6 @@ def reject_unported(args):
     unported = {
         "--fuse-run under distributed and horovod": (
             args.fuse_run and args.strategy in ("distributed", "horovod")),
-        "--grad-accum above 1": args.grad_accum != 1,
-        "--max-bad-steps": args.max_bad_steps != 0,
-        "--faults": args.faults is not None,
         "--metrics": args.metrics is not None,
         "--metrics-sample-every": args.metrics_sample_every is not None,
         "--live": args.live is not None,
@@ -166,8 +180,6 @@ def reject_unported(args):
         "--profile-steps": args.profile_steps is not None,
         "--checkpoint-format sharded": args.checkpoint_format != "gathered",
         "--checkpoint-async": args.checkpoint_async,
-        "--remat": args.remat,
-        "--resume auto": args.resume is not None and str(args.resume) == "auto",
     }
     chosen = [flag for flag, on in unported.items() if on]
     if chosen:

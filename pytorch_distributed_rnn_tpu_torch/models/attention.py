@@ -24,7 +24,13 @@ from pytorch_distributed_rnn_tpu_torch.ops.fused_attention import (
     resolve_attention_impl,
 )
 from pytorch_distributed_rnn_tpu_torch.ops.initializers import linear_init, position_init
-from pytorch_distributed_rnn_tpu_torch.ops.rnn import dtype_of, interlayer_dropout
+from pytorch_distributed_rnn_tpu_torch.ops.rnn import (
+    apply_dropout,
+    dropout_mask,
+    dtype_of,
+    interlayer_dropout,
+    rematerialized,
+)
 
 
 def _layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -73,33 +79,52 @@ def block_qkv(params, x, num_heads: int):
     return tuple(_split_heads(_linear(params[w], y), num_heads) for w in ("wq", "wk", "wv"))
 
 
-def block_epilogue(params, x, attn_out, dropout: float = 0.0, generator=None):
+def block_masks(params, x, generator, dropout: float) -> tuple:
+    """The block's three dropout keep-masks for input ``x`` (B, T, dim),
+    drawn from ``generator`` in the order and at the shapes the block's
+    epilogue draws them (attention projection, FFN activation, FFN
+    output): passed to the block, they give its bits."""
+    lead = x.shape[:-1]
+    widths = (params["wo"]["weight"].shape[0], params["fc1"]["weight"].shape[0],
+              params["fc2"]["weight"].shape[0])
+    return tuple(dropout_mask((*lead, width), generator, dropout, x.device) for width in widths)
+
+
+def block_epilogue(params, x, attn_out, dropout: float = 0.0, generator=None, masks=None):
     """Output projection + residual + MLP (GELU, tanh approximation as
     ``jax.nn.gelu``).  With ``dropout > 0`` and a ``generator`` (train
     mode), dropout masks the attention projection, the FFN activation and
-    the FFN output; ``generator=None`` is eval mode."""
-    train = dropout > 0.0 and generator is not None
+    the FFN output; ``masks`` (:func:`block_masks`) in place of the
+    generator gives those masks; neither is eval mode."""
+    train = dropout > 0.0 and (generator is not None or masks is not None)
+
+    def drop(t, i):
+        if masks is not None:
+            return apply_dropout(t, masks[i], dropout)
+        return interlayer_dropout(t, generator, dropout)
+
     attn_proj = _linear(params["wo"], _merge_heads(attn_out))
     if train:
-        attn_proj = interlayer_dropout(attn_proj, generator, dropout)
+        attn_proj = drop(attn_proj, 0)
     x = x + attn_proj
     y = F.gelu(_linear(params["fc1"], _layer_norm(x, **params["ln2"])), approximate="tanh")
     if train:
-        y = interlayer_dropout(y, generator, dropout)
+        y = drop(y, 1)
     y = _linear(params["fc2"], y)
     if train:
-        y = interlayer_dropout(y, generator, dropout)
+        y = drop(y, 2)
     return x + y
 
 
 def apply_block(params, x, num_heads: int, attention=None, dropout: float = 0.0,
-                generator=None):
+                generator=None, masks=None):
     """One encoder block.  ``attention(q, k, v) -> out`` defaults to the
     dense :func:`mha_attention`; it is the injection point of the
     sequence-parallel strategies."""
     q, k, v = block_qkv(params, x, num_heads)
     attn = attention if attention is not None else mha_attention
-    return block_epilogue(params, x, attn(q, k, v), dropout=dropout, generator=generator)
+    return block_epilogue(params, x, attn(q, k, v), dropout=dropout, generator=generator,
+                          masks=masks)
 
 
 class AttentionClassifier(nn.Module):
@@ -108,12 +133,15 @@ class AttentionClassifier(nn.Module):
     (their params cast inside the forward, so the gradients reach the
     float32 params); the embedding, the position add, the mean pool and the
     head stay float32.  Dropout runs in train mode only, its masks drawn
-    from ``generator``."""
+    from ``generator``.  ``remat`` recomputes each encoder block in the
+    backward (``--remat``); its masks are drawn before the block, in the
+    block's own order, so a recompute reuses them and the run keeps the
+    bits it has without ``remat``."""
 
     def __init__(self, input_dim: int = 9, dim: int = 64, depth: int = 2, num_heads: int = 4,
                  output_dim: int = 6, max_len: int = 4096, dropout: float = 0.0,
                  impl: str = "auto", precision: str = "f32",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, remat: bool = False):
         super().__init__()
         if dim % num_heads != 0:
             raise ValueError(
@@ -127,6 +155,7 @@ class AttentionClassifier(nn.Module):
         self.dropout = dropout
         self.impl = impl
         self.precision = precision
+        self.remat = remat
         self.embed = _params(linear_init(generator, input_dim, dim))
         self.pos = nn.Parameter(position_init(generator, max_len, dim))
         self.blocks = nn.ModuleList(
@@ -148,10 +177,18 @@ class AttentionClassifier(nn.Module):
             attention = flash_attention
         dtype = dtype_of(self.precision) or torch.float32
         h = (_linear(self.embed, x) + self.pos[: x.shape[1]]).to(dtype)
+        recompute = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
             params = {name: {k: t.to(dtype) for k, t in p.items()} for name, p in block.items()}
-            h = apply_block(params, h, self.num_heads, attention, dropout=self.dropout,
-                            generator=generator if train_dropout else None)
+            if not recompute:
+                h = apply_block(params, h, self.num_heads, attention, dropout=self.dropout,
+                                generator=generator if train_dropout else None)
+                continue
+            masks = block_masks(params, h, generator, self.dropout) if train_dropout else None
+            h = rematerialized(
+                lambda p, x, m: apply_block(p, x, self.num_heads, attention,
+                                            dropout=self.dropout, masks=m),
+                params, h, masks)
         return _linear(self.head, h.float().mean(dim=1))
 
 

@@ -28,12 +28,13 @@ from pytorch_distributed_rnn_tpu_torch.ops.rnn import (
 class CharRNN(nn.Module):
     """``logits = model(tokens, generator)`` maps (B, T) int tokens to
     (B, T, vocab) next-token logits.  Inter-layer dropout runs in train
-    mode only, its mask drawn from ``generator``."""
+    mode only, its mask drawn from ``generator``.  ``remat`` recomputes each
+    RNN layer in the backward (``--remat``)."""
 
     def __init__(self, vocab_size: int = 256, embed_dim: int = 128,
                  hidden_dim: int = 256, layer_dim: int = 2, cell: str = "lstm",
                  impl: str = "auto", precision: str = "f32", dropout: float = 0.0,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, remat: bool = False):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -42,6 +43,7 @@ class CharRNN(nn.Module):
         self.impl = impl
         self.precision = precision
         self.dropout = dropout
+        self.remat = remat  # recompute each RNN layer in the backward
         self.embed = nn.Parameter(embedding_init(generator, vocab_size, embed_dim))
         self.rnn = nn.ModuleList(
             nn.ParameterDict({
@@ -64,7 +66,7 @@ class CharRNN(nn.Module):
         outputs, _ = stacked_rnn(
             list(self.rnn), self.embed[tokens.long()], self.cell,
             dropout=self.dropout, generator=generator if train_dropout else None,
-            impl=self.impl, compute_dtype=dtype_of(self.precision),
+            impl=self.impl, compute_dtype=dtype_of(self.precision), remat=self.remat,
         )
         return head_logits(self.head, outputs)
 

@@ -24,12 +24,14 @@ class MotionModel(nn.Module):
     """``logits = model(x, generator)``: ``x`` (B, T, input_dim) ->
     (B, output_dim).  Inter-layer dropout runs in train mode only, with
     its mask drawn from ``generator``; the head runs in float32 whatever
-    ``precision`` the recurrence uses."""
+    ``precision`` the recurrence uses.  ``remat`` recomputes each RNN layer
+    in the backward (``--remat``)."""
 
     def __init__(self, input_dim: int = 9, hidden_dim: int = 32,
                  layer_dim: int = 2, output_dim: int = 6, cell: str = "lstm",
                  impl: str = "auto", precision: str = "f32",
-                 dropout: float = 0.0, generator: torch.Generator | None = None):
+                 dropout: float = 0.0, generator: torch.Generator | None = None,
+                 remat: bool = False):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -37,6 +39,7 @@ class MotionModel(nn.Module):
         self.impl = impl
         self.precision = precision
         self.dropout = dropout
+        self.remat = remat  # recompute each RNN layer in the backward
         self.rnn = nn.ModuleList(
             nn.ParameterDict({
                 name: nn.Parameter(p) for name, p in init_rnn_layer(
@@ -58,6 +61,6 @@ class MotionModel(nn.Module):
         outputs, _ = stacked_rnn(
             list(self.rnn), x, self.cell, dropout=self.dropout,
             generator=generator if train_dropout else None, impl=self.impl,
-            compute_dtype=dtype_of(self.precision),
+            compute_dtype=dtype_of(self.precision), remat=self.remat,
         )
         return self.fc(outputs[:, -1, :].float())

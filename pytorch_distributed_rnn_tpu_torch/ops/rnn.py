@@ -13,6 +13,7 @@ r, z, n), the same as the JAX package, so parameters carry over by name.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pytorch_distributed_rnn_tpu_torch.ops.fused_rnn import (
     gru_kernel_supports,
@@ -172,24 +173,47 @@ def resolve_rnn_impl(impl: str, cell: str, hidden: int | None = None,
     return impl
 
 
+def dropout_mask(shape, generator: torch.Generator, dropout: float, device):
+    """A dropout keep-mask of ``shape``: each element kept with probability
+    ``1 - dropout``, drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < (1.0 - dropout)
+
+
+def apply_dropout(out, mask, dropout: float):
+    """``out`` where ``mask`` keeps it, scaled by ``1 / (1 - dropout)``; 0
+    elsewhere."""
+    keep = 1.0 - dropout
+    return torch.where(mask, out / keep, torch.zeros_like(out))
+
+
 def interlayer_dropout(out, generator: torch.Generator, dropout: float):
     """The between-layer dropout block: keep each element with
     probability ``1 - dropout`` (mask drawn from ``generator``) and scale
     the kept ones by ``1 / (1 - dropout)``."""
-    keep = 1.0 - dropout
-    mask = torch.rand(out.shape, generator=generator, device=out.device) < keep
-    return torch.where(mask, out / keep, torch.zeros_like(out))
+    return apply_dropout(out, dropout_mask(out.shape, generator, dropout, out.device), dropout)
+
+
+def rematerialized(fn, *args):
+    """``fn(*args)`` recomputed in the backward instead of keeping its
+    activations (``jax.checkpoint``'s counterpart): non-reentrant
+    ``torch.utils.checkpoint``, without stashing the default generators'
+    states - nothing random runs inside (the callers draw their dropout
+    masks outside), and a CUDA graph may be capturing."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def stacked_rnn(layers, x, cell: str = "lstm", *, dropout: float = 0.0,
-                generator=None, impl: str = "auto", compute_dtype=None):
+                generator=None, impl: str = "auto", compute_dtype=None, remat: bool = False):
     """Apply a stack of RNN layers, with dropout between layers (not after
     the last), as torch's stacked ``nn.LSTM(dropout=...)`` places it.
 
     ``generator=None`` is eval mode: no dropout even when ``dropout > 0``.
     ``compute_dtype`` (e.g. ``torch.bfloat16``) casts parameters and
     activations for the layer compute; the parameters themselves stay in
-    their own dtype.  Returns ``(outputs (B, T, H), per-layer finals)``."""
+    their own dtype.  ``remat`` (where autograd records) recomputes each
+    layer in the backward (:func:`rematerialized`); the dropout between layers stays
+    outside, so nothing random is recomputed.  Returns ``(outputs (B, T,
+    H), per-layer finals)``."""
     hidden = layers[0]["w_hh"].shape[1] if layers else None
     impl = resolve_rnn_impl(impl, cell, hidden, x.device)
     if cell == "gru":
@@ -197,12 +221,16 @@ def stacked_rnn(layers, x, cell: str = "lstm", *, dropout: float = 0.0,
     else:
         layer_fn = lstm_layer_fused if impl == "fused" else lstm_layer
 
+    recompute = remat and torch.is_grad_enabled()
     finals = []
     out = x if compute_dtype is None else x.to(compute_dtype)
     for idx, layer in enumerate(layers):
         if compute_dtype is not None:
             layer = {name: p.to(compute_dtype) for name, p in layer.items()}
-        out, final = layer_fn(layer, out)
+        if recompute:
+            out, final = rematerialized(layer_fn, layer, out)
+        else:
+            out, final = layer_fn(layer, out)
         finals.append(final)
         if dropout > 0.0 and generator is not None and idx < len(layers) - 1:
             out = interlayer_dropout(out, generator, dropout)

@@ -50,6 +50,11 @@ class DistributedOptimizer:
     def zero_grad(self, set_to_none: bool = True):
         self.optimizer.zero_grad(set_to_none=set_to_none)
 
+    @property
+    def nonfinite(self):
+        """The wrapped optimizer's non-finite counters (None: unguarded)."""
+        return getattr(self.optimizer, "nonfinite", None)
+
     @torch.no_grad()
     def step(self):
         params = [p for g in self.optimizer.param_groups for p in g["params"]]

@@ -96,12 +96,10 @@ def _profiled(run, device: torch.device) -> tuple:
     """``run()`` under ``torch.profiler``: its result, the device
     microseconds of its kernels, copies and sets, and their counts by
     name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from pytorch_distributed_rnn_tpu_torch.utils.ab import device_events
+    from pytorch_distributed_rnn_tpu_torch.utils.ab import device_events, device_profile
 
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         result = run()
         torch.cuda.synchronize(device)
     events = device_events(prof)
@@ -195,10 +193,11 @@ def _rank_main(rank: int, world_size: int, init_file: str, device: str, jobs: li
         collectives.destroy(group)
 
 
-def spawn(world_size: int, jobs: list, workdir, device: str = "cpu", timeout: float = 600.0):
-    """Run ``jobs`` on a world of ``world_size`` spawned ranks; raises if a
-    rank fails or the world outlives ``timeout`` seconds (its processes
-    are then stopped)."""
+def spawn(world_size: int, jobs: list, workdir, *, device: str, timeout: float = 600.0):
+    """Run ``jobs`` on a world of ``world_size`` spawned ranks on ``device``
+    (``"cuda"`` or ``"cpu"``, no default: a world runs on the CPU only
+    when asked); raises if a rank fails or the world outlives ``timeout``
+    seconds (its processes are then stopped)."""
     import torch.multiprocessing as mp
 
     Path(workdir).mkdir(parents=True, exist_ok=True)

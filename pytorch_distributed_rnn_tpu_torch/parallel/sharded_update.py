@@ -32,13 +32,23 @@ and hands the reduced gradient and this rank's parameters to
 range of the shard, stepped on ``[lo:hi]`` views of the one flat
 ``exp_avg``/``exp_avg_sq`` shard.  Adam is elementwise, so any bucketing
 gives the bits of the whole-shard step, and the state keeps one layout.
+
+Under the non-finite guard (``guarded=True``, ``--max-bad-steps``) each
+rank sees only its slice of the reduced gradient, so one rank could skip
+a step another applies and the replicas would part.  As the JAX package
+syncs a 1-element any-non-finite flag (``sharded_update.py:57-67``), every
+rank's verdict on its slice is summed over the world
+(:meth:`ShardedUpdate.global_verdict`) and all ranks take the one verdict:
+skip, or apply.  The count is then a device tensor (a skipped step leaves
+it as it was, and nothing syncs with the host), with the guard's counters
+(``ops/adam.py:NonFiniteCounters``) beside it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pytorch_distributed_rnn_tpu_torch.ops.adam import adam_update_
+from pytorch_distributed_rnn_tpu_torch.ops.adam import NonFiniteCounters, adam_update_
 from pytorch_distributed_rnn_tpu_torch.parallel.bucketing import plan_buckets
 from pytorch_distributed_rnn_tpu_torch.parallel.collectives import padded_size
 
@@ -51,9 +61,11 @@ class ShardedUpdate:
     ``group`` (a ``collectives.World``) is needed only to step and to
     gather the state (the TCP ring's trainer passes an object with
     ``all_gather`` alone, and steps through :meth:`update_`); the layout
-    methods work without it."""
+    methods work without it.  ``guarded`` turns on the guarded update with
+    one verdict for the world."""
 
-    def __init__(self, optimizer, world_size: int, rank: int = 0, group=None):
+    def __init__(self, optimizer, world_size: int, rank: int = 0, group=None,
+                 guarded: bool = False):
         if len(optimizer.param_groups) != 1:
             raise ValueError("ShardedUpdate takes an optimizer with one parameter group")
         self.optimizer = optimizer
@@ -66,7 +78,9 @@ class ShardedUpdate:
         self.shard = self.padded // self.world
         self.dtype = self.params[0].dtype
         device = self.params[0].device
-        self.steps = 0
+        # the count: a host int, or under the guard a float64 device tensor
+        self.steps = torch.zeros((), dtype=torch.float64, device=device) if guarded else 0
+        self.nonfinite = NonFiniteCounters(device) if guarded else None
         self.exp_avg = torch.zeros(self.shard, dtype=self.dtype, device=device)
         self.exp_avg_sq = torch.zeros(self.shard, dtype=self.dtype, device=device)
 
@@ -105,10 +119,44 @@ class ShardedUpdate:
     def step(self):
         g_shard = self.group.reduce_scatter_mean(self.ravel([p.grad for p in self.params]))
         p_shard = self.shard_slice(self.ravel(self.params), self.rank)
-        self.steps += 1
-        self.update_(p_shard, g_shard)
+        finite = None
+        if self.nonfinite is not None:
+            bad = self.local_bad(g_shard)
+            self.group.psum_([bad])
+            finite = self.global_verdict(bad)
+        self.advance(finite)
+        self.update_(p_shard, g_shard, finite=finite)
+        self.record(finite)
         fresh = self.group.all_gather(p_shard)
         torch._foreach_copy_(self.params, self.unravel(fresh))
+
+    # -- the guard's one verdict ----------------------------------------------
+
+    @staticmethod
+    def local_bad(*g_subs) -> torch.Tensor:
+        """This rank's flag: 1.0 where an element of its reduced gradient
+        slices is not finite, else 0.0 (a 1-element float32 tensor on their
+        device, to be summed over the world)."""
+        return (~NonFiniteCounters.verdict(g_subs)).to(torch.float32).reshape(1)
+
+    @staticmethod
+    def global_verdict(bad_sum: torch.Tensor) -> torch.Tensor:
+        """The world's verdict from the summed flags: finite iff no rank
+        was bad (a 0-d bool)."""
+        return bad_sum.reshape(()) == 0
+
+    def advance(self, finite=None) -> None:
+        """Add this step to the count before its first update: 1, or under
+        the guard 1 where ``finite`` holds and 0 where not."""
+        if finite is None:
+            self.steps += 1
+        else:
+            self.steps.add_(finite.double())
+
+    def record(self, finite=None) -> None:
+        """Count the step's verdict in the guard's counters."""
+        if finite is not None:
+            self.nonfinite.record_(finite)
 
     def bucket_plan(self, bucket_mb: float):
         """The buckets of this rank's shard range for wire vectors of at
@@ -117,16 +165,18 @@ class ShardedUpdate:
         return plan_buckets(self.size, self.world, itemsize, bucket_mb)
 
     @torch.no_grad()
-    def update_(self, p_sub: torch.Tensor, g_sub: torch.Tensor, lo: int = 0) -> None:
+    def update_(self, p_sub: torch.Tensor, g_sub: torch.Tensor, lo: int = 0,
+                finite=None) -> None:
         """Adam in place on ``p_sub``, the elements ``[lo, lo + len)`` of
         this rank's parameter shard, with their averaged gradient ``g_sub``
         and the same range of the moments, at the current step count (the
-        caller adds 1 to ``steps`` once a step, before its first update)."""
+        caller calls :meth:`advance` once a step, before its first update);
+        ``finite`` is the world's verdict under the guard."""
         group = self.optimizer.param_groups[0]
         beta1, beta2 = group["betas"]
         hi = lo + p_sub.numel()
         adam_update_([p_sub], [g_sub], [self.exp_avg[lo:hi]], [self.exp_avg_sq[lo:hi]],
-                     self.steps, group["lr"], beta1, beta2, group["eps"])
+                     self.steps, group["lr"], beta1, beta2, group["eps"], finite)
 
     # -- layout bijection (checkpoints stay unsharded) ----------------------------
 
@@ -162,7 +212,7 @@ class ShardedUpdate:
     def state_dict(self) -> dict:
         """The unsharded ``torch.optim.Adam`` layout.  A collective: every
         rank calls it (each rank holds only its slice of the moments)."""
-        flat_state = {"step": self.steps,
+        flat_state = {"step": int(self.steps),
                       "exp_avg": self.group.all_gather(self.exp_avg).cpu(),
                       "exp_avg_sq": self.group.all_gather(self.exp_avg_sq).cpu()}
         return self.replicated_opt_state(flat_state)
@@ -173,7 +223,10 @@ class ShardedUpdate:
         self.optimizer.param_groups[0].update(
             {k: v for k, v in std_state["param_groups"][0].items() if k != "params"})
         flat = self.flat_opt_state(std_state)
-        self.steps = flat["step"]
+        if self.nonfinite is None:
+            self.steps = flat["step"]
+        else:
+            self.steps.fill_(float(flat["step"]))
         device = self.exp_avg.device
         self.exp_avg = self.shard_slice(flat["exp_avg"], self.rank).to(device, copy=True)
         self.exp_avg_sq = self.shard_slice(flat["exp_avg_sq"], self.rank).to(device, copy=True)

@@ -17,8 +17,9 @@ rank, every role on ``--device``; ranks share the card):
 
 or one role a process with ``--rank R --world-size W --master-address
 HOST --master-port PORT``.  The flags of the elastic world and of the
-master's checkpoints are parsed with JAX's defaults and rejected when set
-(:func:`reject_unported`).
+master's checkpoints, and the fault actions that need the elastic roster
+(``respawn``, ``preempt``), are parsed with JAX's defaults and rejected
+when set (:func:`reject_unported`).
 """
 
 from __future__ import annotations
@@ -27,7 +28,12 @@ from __future__ import annotations
 ELASTIC_REJECTED = ("not ported yet: elastic membership comes with the elastic half of "
                     "ROADMAP A7 (the transport's star and listener entries and the supervisor)")
 CHECKPOINT_REJECTED = ("not ported yet: the master's checkpoints and its bootstrap from them "
-                       "come with --resume auto (ROADMAP A5)")
+                       "(--resume, and --resume auto, under parameter-server) come with the "
+                       "rest of ROADMAP A5")
+FAULTS_ELASTIC_REJECTED = (
+    "not ported yet under parameter-server: JAX handles these fault actions with the "
+    "elastic roster (a respawned or preempted worker rejoins it), which comes with the "
+    "elastic half of ROADMAP A7")
 FUSE_RUN_REJECTED = (
     "--fuse-run: parameter-server workers push gradients and pull parameters over the host's "
     "TCP transport every step, so the host handles every batch and the run cannot be one "
@@ -95,6 +101,16 @@ def reject_unported(args):
         reasons.append(f"{', '.join(checkpoint)}: {CHECKPOINT_REJECTED}")
     if args.fuse_run:
         reasons.append(FUSE_RUN_REJECTED)
+    if args.faults:
+        from pytorch_distributed_rnn_tpu_torch.resilience.faults import FaultSchedule
+
+        try:
+            events = FaultSchedule.parse(args.faults).events
+        except ValueError as exc:
+            raise SystemExit(str(exc)) from None
+        elastic_actions = sorted({e.action for e in events if e.action in ("respawn", "preempt")})
+        if elastic_actions:
+            reasons.append(f"--faults {', '.join(elastic_actions)}: {FAULTS_ELASTIC_REJECTED}")
     if reasons:
         raise SystemExit("; ".join(reasons))
 

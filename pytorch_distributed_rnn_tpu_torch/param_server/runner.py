@@ -23,6 +23,12 @@ updates and the time of their parts, a worker's steps, host and exchange
 ms a step and kernel launches, and each rank's parameters as their sum
 and the sha256 of their float32 bytes.
 
+``--faults`` runs in the workers, each with the schedule bound to its
+rank (``@rank`` events), and its ``net:*`` events are exported onto the
+transport's environment before any ``Communicator`` or spawned process
+exists.  ``--max-bad-steps`` logs JAX's warning and changes nothing: the
+master's finite-gradient check is the integrity guard here.
+
 The elastic world (``--elastic``: a supervisor that respawns workers,
 star joins, REGISTER) and the master's checkpoints
 (``--ps-checkpoint-rounds``, the bootstrap from ``--resume``) are not
@@ -199,11 +205,14 @@ def run_worker(args, rank: int):
         DrainRequested,
         DrainSignal,
     )
+    from pytorch_distributed_rnn_tpu_torch import training
     from pytorch_distributed_rnn_tpu_torch.training import families
 
     # the preemption notice: SIGTERM requests a drain, honoured at the
     # next step boundary
     drain = DrainSignal().install()
+    # this worker's schedule: @rank events bound to it
+    faults = training.resolve_faults(args, rank=rank)
     device = _role_device(args, rank)
     comm, (training_set, _, _) = _join_world(args, rank, device)
     train_history = None
@@ -214,7 +223,8 @@ def run_worker(args, rank: int):
             worker_rank=rank, num_workers=args.world_size - 1, seed=args.seed, device=device,
             transport_retries=args.ps_transport_retries,
             # retry storms must die inside the round they retry into
-            transport_deadline_s=args.ps_sync_timeout, drain_signal=drain)
+            transport_deadline_s=args.ps_sync_timeout, drain_signal=drain,
+            grad_accum=args.grad_accum, faults=faults)
         t0 = time.perf_counter()
         try:
             _, train_history, _ = trainer.train(epochs=args.epochs)
@@ -274,6 +284,20 @@ def run(args):
         raise SystemExit("parameter-server needs --world-size >= 2")
     logging.basicConfig(level=args.log)
     logging.getLogger().setLevel(args.log)
+    if args.max_bad_steps:
+        # JAX's warning (param_server/runner.py): the optimizer lives on the
+        # master, so a worker-side guard would never see an update
+        log.warning(
+            "--max-bad-steps has no effect under the parameter-server "
+            "strategy: the master asserts gradient integrity per push "
+            "instead (quorum mode drops a worker whose pushes fail)"
+        )
+    # the schedule's net events onto the transport's PDRNN_FAULT_*
+    # environment before any communicator (or spawned child, which
+    # inherits it) exists
+    from pytorch_distributed_rnn_tpu_torch.resilience.faults import FaultSchedule
+
+    FaultSchedule.resolve(args)
     if args.rank is None:
         return _spawn(args)
     if not 0 <= args.rank < args.world_size:

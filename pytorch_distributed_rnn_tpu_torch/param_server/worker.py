@@ -25,6 +25,11 @@ workers, as in the reference.
 - A SIGTERM (``resilience/membership.py:DrainSignal``) is a drain,
   honoured after the step's exchange: the gradient was applied exactly
   once, then the worker deregisters and exits 0.
+- A ``--faults`` schedule bound to the worker's rank runs in its
+  per-batch loop as in ``local``'s (``training/base.py``): the data faults
+  (nan, stall, slow, exc) and ``kill``.  A NaN batch pushes a non-finite
+  gradient, which the master refuses (its integrity check), as JAX's
+  master does.
 
 ``exchange_log`` keeps each step's exchange as two ``perf_counter``
 stamps: the push's first byte, and the copies that adopt the reply
@@ -55,17 +60,21 @@ class ParameterServerWorkerTrainer(Trainer):
     # every step pushes gradients and pulls params over TCP: the host acts
     # per batch, so the per-batch loop only
     GRAPH_STEP = False
+    # as the JAX worker (param_server/worker.py)
+    SUPPORTS_GRAD_ACCUM = False
 
     def __init__(self, model, training_set, batch_size: int, learning_rate: float,
                  comm=None, worker_rank: int = 1, num_workers: int = 1,
                  seed: int | None = None, device="cuda", transport_retries: int = 3,
                  transport_deadline_s: float | None = None,
-                 drain_signal: DrainSignal | None = None):
+                 drain_signal: DrainSignal | None = None, grad_accum: int = 1, faults=None):
         if comm is None:
             raise ValueError("ParameterServerWorkerTrainer needs the transport (comm=)")
+        # no guard here: the optimizer that applies updates is the master's,
+        # whose finite-gradient check is the integrity guard
         super().__init__(model, training_set, max(1, batch_size // num_workers), learning_rate,
                          validation_set=None, test_set=None, checkpoint_dir=None, seed=seed,
-                         device=device)
+                         device=device, grad_accum=grad_accum, faults=faults)
         seed = seed if seed is not None else 0
         self.comm = comm
         self.rank = self.worker_rank = int(worker_rank)

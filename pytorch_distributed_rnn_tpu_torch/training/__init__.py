@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 
 from pytorch_distributed_rnn_tpu_torch.training.base import Trainer
 from pytorch_distributed_rnn_tpu_torch.training.distributed import (
@@ -57,12 +58,14 @@ def train(args, trainer_class):
         return _train(args, trainer_class)
     from pytorch_distributed_rnn_tpu_torch.parallel import collectives
 
+    # before the process group, bound to the launcher's rank
+    faults = resolve_faults(args, rank=int(os.environ.get("RANK", "0")))
     group = collectives.init_process_group(args.device)
     try:
         if group.device.type == "cuda":
             collectives.build_kernels_once(group)
         return _train(args, trainer_class, group, device=group.device, group=group,
-                      sharded_update=args.sharded_update)
+                      sharded_update=args.sharded_update, faults=faults)
     finally:
         collectives.destroy(group)
 
@@ -92,11 +95,32 @@ def _train(args, trainer_class, ranks=None, **placement):
                         (training_set, validation_set, test_set), **placement)
 
 
+def resolve_faults(args, rank: int | None = None):
+    """The run's fault schedule (``--faults``, else ``PDRNN_CHAOS``), bound
+    to ``rank`` and logged; its ``net:*`` events are exported onto the
+    transport's ``PDRNN_FAULT_*`` environment, so call it before any ring
+    or spawned process exists.  ``nan`` needs floating-point features and
+    is refused for ``--model char``."""
+    from pytorch_distributed_rnn_tpu_torch.resilience.faults import NAN_NEEDS_FLOAT, FaultSchedule
+    from pytorch_distributed_rnn_tpu_torch.training import families
+
+    faults = FaultSchedule.resolve(args, rank=rank)
+    if faults is None:
+        return None
+    if families.family_of(args) == "char" and faults.has_action("nan"):
+        raise SystemExit(NAN_NEEDS_FLOAT)
+    logging.warning(f"chaos schedule active: {faults}")
+    return faults
+
+
 def _run_trainer(args, trainer_class, model, datasets, **placement):
     """Construct, optionally resume, train, and (rank 0) dump
     ``history.json`` into the working directory.  ``placement`` holds the
     device, and a data-parallel strategy's process group or ring and its
-    options."""
+    options, and the fault schedule its entry point resolved (``faults``;
+    ``local`` resolves it here)."""
+    if "faults" not in placement:
+        placement["faults"] = resolve_faults(args)
     training_set, validation_set, test_set = datasets
     trainer = trainer_class(
         model=model,
@@ -110,9 +134,19 @@ def _run_trainer(args, trainer_class, model, datasets, **placement):
         checkpoint_every=args.checkpoint_every,
         keep_checkpoints=args.keep_checkpoints,
         fuse_run=args.fuse_run,
+        grad_accum=args.grad_accum,
+        max_bad_steps=args.max_bad_steps,
         **placement,
     )
-    if args.resume:
+    if args.resume is not None and str(args.resume) == "auto":
+        # the newest valid checkpoint wins, a corrupt one falls back to the
+        # one before it, none starts fresh
+        from pytorch_distributed_rnn_tpu_torch.resilience import resume_latest
+
+        if resume_latest(trainer, args.checkpoint_directory) is None:
+            logging.info(f"--resume auto: no usable checkpoint in "
+                         f"{args.checkpoint_directory}; starting fresh")
+    elif args.resume:
         meta = trainer.resume_from(args.resume)
         logging.info(f"Resumed from {args.resume} at epoch {meta['epoch']}")
     logging.info(f"Training model for {args.epochs} epochs...")

@@ -25,9 +25,27 @@ its ``local`` path:
 - Loss normalisation keeps the reference's quirks: train loss is the sum
   of batch-mean losses divided by the dataset size; evaluation is one
   batch holding the whole dataset.
+- ``grad_accum`` (``--grad-accum``) splits each optimizer batch into k
+  equal microbatches whose gradients and batch-mean losses are summed,
+  then divided by k (an epoch's final partial batch takes the largest
+  divisor of its size that is at most k), on both paths: a captured step
+  holds all k.
+- The guard (``max_bad_steps``, ``--max-bad-steps``): the optimizer's
+  step is the guarded update (``ops/adam.py``), and
+  ``resilience/guard.py:NonFiniteGuard`` reads its counters at each epoch
+  end, at the end of the fused run, and each step of the per-batch loop
+  a fault schedule forces.
+- Faults (``faults``, ``--faults``, ``resilience/faults.py``): epoch
+  events at each epoch's start; a schedule with step events runs the
+  per-batch loop, whose batches come through ``data/prefetch.py``'s
+  producer thread (the data faults fire there) and whose consumer runs
+  the kills and the NaN batches.  Step addresses are run-relative.
 - Validation every epoch writes ``best-model.ckpt`` on a new best;
   ``checkpoint_every`` adds ``checkpoint-epoch-N.ckpt``; ``resume_from``
-  restores model and optimizer; the test set is evaluated at the end.
+  restores model and optimizer (and, from the checkpoint's trainer
+  section, the dropout generator's state and the guard's counters;
+  ``advance_epoch`` continues at the checkpoint's epoch); the test set is
+  evaluated at the end.
 - The loop runs under :func:`measure_memory_and_time`, logging the perf
   line and, on the card, a "Device HBM peaks (MiB)" line.
 
@@ -43,9 +61,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pytorch_distributed_rnn_tpu_torch.data.prefetch import prefetch
 from pytorch_distributed_rnn_tpu_torch.data.sampler import DistributedSampler
 from pytorch_distributed_rnn_tpu_torch.ops.adam import DeviceStepAdam
 from pytorch_distributed_rnn_tpu_torch.ops.losses import cross_entropy_loss
+from pytorch_distributed_rnn_tpu_torch.resilience.guard import NonFiniteGuard
 from pytorch_distributed_rnn_tpu_torch.training.checkpoint import (
     load_checkpoint,
     rotate_checkpoints,
@@ -63,6 +83,8 @@ FUSE_RUN_UNFUSABLE = (
     "or epoch-offset resume, and (with dropout) a batch size "
     "dividing the training set"
 )
+
+log = logging.getLogger(__name__)
 
 
 def _correct_count(value) -> int:
@@ -126,15 +148,20 @@ class Trainer:
 
     ``GRAPH_STEP``: whether the trainer has the device-resident fast
     paths (the JAX trainer's ``DEVICE_DATA`` switch); the data-parallel
-    strategies keep the per-batch loop."""
+    strategies keep the per-batch loop.  ``SUPPORTS_GRAD_ACCUM``: whether
+    it takes ``grad_accum`` above 1 (the JAX trainers' flag)."""
 
     GRAPH_STEP = True
+    SUPPORTS_GRAD_ACCUM = True
+    # the prepared batches the per-batch loop's producer thread runs ahead
+    PREFETCH_DEPTH = 2
 
     def __init__(self, model, training_set, batch_size: int,
                  learning_rate: float, validation_set=None, test_set=None,
                  checkpoint_dir=None, seed: int | None = None,
                  checkpoint_every: int = 0, keep_checkpoints: int = 0,
-                 fuse_run: bool = False, device="cuda"):
+                 fuse_run: bool = False, device="cuda", grad_accum: int = 1,
+                 faults=None, max_bad_steps: int = 0):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.training_set = training_set
@@ -148,9 +175,30 @@ class Trainer:
         self._fuse_run = bool(fuse_run)
         seed = seed if seed is not None else 0
         self.rank = 0  # the rank that evaluates and writes files
+        self.world_size = 1
+        self.grad_accum = 1 if grad_accum is None else int(grad_accum)
+        if self.grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        if self.grad_accum > 1 and not self.SUPPORTS_GRAD_ACCUM:
+            raise NotImplementedError(
+                f"{type(self).__name__} builds its train step outside "
+                "_make_grad_step and does not support grad_accum > 1"
+            )
+        if self.grad_accum > 1 and batch_size % self.grad_accum:
+            # the user sized memory for k microbatches of every full batch
+            raise ValueError(
+                f"batch_size {batch_size} is not divisible by "
+                f"grad_accum {self.grad_accum}"
+            )
+        # the chaos schedule (resilience/faults.py); step events force the
+        # per-batch loop
+        self._faults = faults
+        # the non-finite guard: the optimizer's step is the guarded update
+        self.guard = NonFiniteGuard(max_bad_steps) if max_bad_steps else None
         self.sampler = DistributedSampler(len(training_set), num_replicas=1, rank=0, seed=seed)
         self.optimizer = DeviceStepAdam(
-            self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8
+            self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+            guarded=self.guard is not None,
         )
         # train-mode dropout masks come from this generator only
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(seed ^ 0x5EED)
@@ -160,6 +208,11 @@ class Trainer:
         self._device_data = None
         self._eval_data = {}
         self._resume_best_loss = None
+        # --resume auto: epochs [0, _start_epoch) are in the restored
+        # checkpoint; train() continues from there
+        self._start_epoch = 0
+        # run-relative optimizer steps: the fault schedule's step addresses
+        self._steps_done = 0
 
     # -- data ----------------------------------------------------------------
 
@@ -218,6 +271,53 @@ class Trainer:
         loss = (nll * w).sum() / w.sum()
         return loss, ((logits.argmax(dim=1) == y) * (w > 0)).sum()
 
+    def _microbatches(self, rows: int) -> int:
+        """The microbatches of a batch of ``rows``: the largest divisor of
+        ``rows`` that is at most ``grad_accum`` (1: the batch in one shot)."""
+        return next(d for d in range(self.grad_accum, 0, -1) if rows % d == 0)
+
+    def _gradients(self, x, y, w=None):
+        """One optimizer batch's forward and backward, its gradients left
+        in the parameters' ``.grad``; returns its batch-mean loss and its
+        ``correct``, detached.  ``w`` (the fused run's weights) takes the
+        weighted loss.  With ``grad_accum`` > 1 the batch runs as k equal
+        microbatches in order, each drawing its dropout masks from the
+        generator in turn; their gradients and losses are summed, then
+        divided by k, and their ``correct`` summed (the JAX trainer's
+        ``accum_step``)."""
+        self.optimizer.zero_grad(set_to_none=True)
+        k = self._microbatches(len(y))
+        if k == 1:
+            if w is None:
+                loss, correct = self._loss_and_metrics(x, y, self.dropout_generator)
+            else:
+                loss, correct = self._weighted_loss_and_metrics(x, y, w, self.dropout_generator)
+            loss.backward()
+            return loss.detach(), correct.detach()
+        rows = len(y) // k
+        loss_sum = correct_sum = None
+        for i in range(k):
+            part = slice(i * rows, (i + 1) * rows)
+            loss, correct = self._loss_and_metrics(x[part], y[part], self.dropout_generator)
+            loss.backward()  # the gradients add up in .grad
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            correct_sum = correct.detach() if correct_sum is None else correct_sum + correct.detach()
+        with torch.no_grad():
+            torch._foreach_div_([p.grad for p in self.model.parameters() if p.grad is not None],
+                                float(k))
+        return loss_sum / k, correct_sum
+
+    def _guard_check(self) -> None:
+        """The guard's host check of the optimizer's counters, where the
+        run has a guard."""
+        if self.guard is not None:
+            self.guard.check(self.optimizer.nonfinite)
+
+    def _chaos_host_loop(self) -> bool:
+        """Whether the fault schedule forces the per-batch loop: its step
+        events address single optimizer steps."""
+        return self._faults is not None and self._faults.has_step_events
+
     # -- loop ----------------------------------------------------------------
 
     def train(self, epochs: int):
@@ -240,7 +340,9 @@ class Trainer:
                 training_history.extend(self._train_run_fused(epochs))
                 return
             best_loss = self._resume_best_loss
-            for epoch in range(epochs):
+            for epoch in range(self._start_epoch, epochs):
+                if self._faults is not None:
+                    self._faults.on_epoch_start(epoch)
                 self.sampler.set_epoch(epoch)
                 logging.info(formatter.epoch_start_message(epoch))
                 train_loss, _ = self._train_epoch(formatter)
@@ -271,9 +373,7 @@ class Trainer:
 
     def _fusable(self, epochs: int) -> bool:
         """The JAX trainer's gate of the one-program run: nothing needs the
-        host between epochs.  The port has no gradient accumulation
-        (``main.py`` rejects ``--grad-accum`` above 1), no fault schedule
-        and no epoch-offset resume."""
+        host between epochs."""
         dropout = getattr(self.model, "dropout", 0.0) or 0.0
         return (
             self.GRAPH_STEP
@@ -284,6 +384,13 @@ class Trainer:
             and not (dropout > 0.0 and self._has_partial_batch())
             # periodic checkpoints need the host at epoch boundaries
             and not (self.checkpoint_every and self.checkpoint_dir)
+            # the fused run's weighted loss is not equal-microbatch
+            # accumulation
+            and self.grad_accum == 1
+            # chaos injection and epoch-offset resume both need the host
+            # at epoch (or step) boundaries
+            and self._faults is None
+            and self._start_epoch == 0
         )
 
     def _train_epoch(self, formatter, eager: bool | None = None):
@@ -292,7 +399,8 @@ class Trainer:
         logging at DEBUG, and the data-parallel strategies' only path) or
         the device-resident step; None picks the second where it can."""
         if eager is None:
-            eager = not self.GRAPH_STEP or logging.getLogger().isEnabledFor(logging.DEBUG)
+            eager = (not self.GRAPH_STEP or self._chaos_host_loop()
+                     or logging.getLogger().isEnabledFor(logging.DEBUG))
         if eager:
             return self._train_epoch_eager(formatter)
         batches = self._epoch_index_batches()
@@ -303,6 +411,10 @@ class Trainer:
         for idx in batches:
             self._run_step(run, len(idx))
         losses, corrects = run.read()
+        self._steps_done += len(batches)
+        # the graph path visits the host once an epoch: the guard decides
+        # here (the device already skipped the bad updates)
+        self._guard_check()
         # parity quirk kept: sum of batch-mean losses / dataset size
         n = len(self.training_set)
         loss_sum, correct_sum = self._epoch_sums(_loss_sum(losses), float(corrects.sum()))
@@ -328,6 +440,8 @@ class Trainer:
         for _ in range(len(order)):
             self._run_step(run, full_size)
         losses, _ = run.read()
+        self._steps_done += len(order)
+        self._guard_check()  # the fused run's one host visit
         n = len(self.training_set)
         return [_loss_sum(losses[e * steps:(e + 1) * steps]) / n for e in range(epochs)]
 
@@ -350,17 +464,11 @@ class Trainer:
         rows = run.position + torch.arange(size, device=self.device)
         idx = run.order[rows]
         x, y = features[idx], labels[idx]
-        if run.weights is None:
-            loss, correct = self._loss_and_metrics(x, y, self.dropout_generator)
-        else:
-            loss, correct = self._weighted_loss_and_metrics(
-                x, y, run.weights[rows], self.dropout_generator)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        loss, correct = self._gradients(x, y, None if run.weights is None else run.weights[rows])
         self.optimizer.step()
         at = run.step.view(1)
-        run.losses.index_copy_(0, at, loss.detach().float().view(1))
-        run.corrects.index_copy_(0, at, correct.detach().float().view(1))
+        run.losses.index_copy_(0, at, loss.float().view(1))
+        run.corrects.index_copy_(0, at, correct.float().view(1))
         run.position.add_(size)
         run.step.add_(1)
 
@@ -392,33 +500,62 @@ class Trainer:
         self.graphs[key] = graph
 
     def _train_epoch_eager(self, formatter):
-        """The per-batch loop: a host index vector a batch, the batch's
-        values read at once where progress is logged."""
+        """The per-batch loop: the epoch's index batches come through a
+        prefetch producer thread (where a fault schedule's data faults
+        fire), a host index vector a batch, the batch's values read at once
+        where progress is logged.  The consumer runs the schedule's kills
+        and NaN batches; with a schedule and a guard, the guard checks
+        each step."""
         log_progress = logging.getLogger().isEnabledFor(logging.DEBUG)
         features, labels = self._device_train_data()
         batches = self._epoch_index_batches()
+        faults = self._faults
+        epoch_base = self._steps_done  # run-relative fault addresses
+
+        def source():
+            for i, idx in enumerate(batches):
+                if faults is not None:
+                    # loader-side faults start in the producer, where a
+                    # real loader's failure would
+                    faults.on_producer_item(epoch_base + i)
+                yield idx
+
         self.model.train()
         total_loss = torch.zeros((), device=self.device)
         total_correct = 0  # a device tensor of the metric's dtype after the first batch
-        for batch_idx, idx in enumerate(batches):
-            idx_t = torch.from_numpy(idx).to(self.device)
-            x, y = features[idx_t], labels[idx_t]
-            loss, correct = self._loss_and_metrics(x, y, self.dropout_generator)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            self._optimizer_step()
-            total_loss += loss.detach()
-            total_correct = total_correct + correct.detach()
-            if log_progress:
-                # needs the values now: one device round trip per batch
-                logging.debug(formatter.train_progress_message(
-                    batch_idx=batch_idx, batches=len(batches),
-                    training_examples=len(idx), correct=_correct_count(correct),
-                    loss=float(loss),
-                ))
+        stream = prefetch(source(), depth=self.PREFETCH_DEPTH)
+        try:
+            for batch_idx, idx in enumerate(stream):
+                step = epoch_base + batch_idx
+                idx_t = torch.from_numpy(idx).to(self.device)
+                x, y = features[idx_t], labels[idx_t]
+                if faults is not None:
+                    faults.maybe_kill(step=step)
+                    x, y = faults.corrupt_batch(step, (x, y))
+                loss, correct = self._gradients(x, y)
+                self._optimizer_step()
+                self._steps_done = step + 1
+                if faults is not None:
+                    # a chaos run is per-batch already: deciding each step
+                    # aborts K+1 steps after divergence starts
+                    self._guard_check()
+                total_loss += loss
+                total_correct = total_correct + correct
+                if log_progress:
+                    # needs the values now: one device round trip per batch
+                    logging.debug(formatter.train_progress_message(
+                        batch_idx=batch_idx, batches=len(batches),
+                        training_examples=len(idx), correct=_correct_count(correct),
+                        loss=float(loss),
+                    ))
+        finally:
+            # an early exit (injected exception, guard abort) leaves no
+            # producer thread behind
+            stream.close()
         # parity quirk kept: sum of batch-mean losses / dataset size
         n = len(self.training_set)
         loss_sum, correct_sum = self._epoch_sums(total_loss, total_correct)
+        self._guard_check()
         return loss_sum / n, correct_sum / n
 
     def _optimizer_step(self) -> None:
@@ -464,6 +601,7 @@ class Trainer:
             return
         save_checkpoint(
             self.checkpoint_dir, epoch, self.model.state_dict(), opt_state, loss, best=best,
+            trainer_state=self._trainer_state(),
         )
         if not best and self.keep_checkpoints:
             rotate_checkpoints(self.checkpoint_dir, self.keep_checkpoints)
@@ -473,15 +611,48 @@ class Trainer:
         unsharded layout."""
         return self.optimizer.state_dict()
 
-    def resume_from(self, checkpoint_path):
-        """Restore model and optimizer state from a checkpoint file; the
-        run then trains its full epoch count on top of it.  Returns the
-        checkpoint's ``{"epoch", "loss"}``."""
+    def _trainer_state(self) -> dict:
+        """The checkpoint's trainer section: the dropout generator's state
+        (this rank's, read between steps, outside any capture) with the
+        world it belongs to, and the guard's counters where the run has a
+        guard."""
+        state = {"world": self.world_size, "device": self.device.type,
+                 "dropout_generator": self.dropout_generator.get_state()}
+        if self.guard is not None:
+            state["nonfinite"] = self.optimizer.nonfinite.state_dict()
+        return state
+
+    def _restore_trainer_state(self, path, state) -> None:
+        """Adopt a checkpoint's trainer section: the dropout stream, where
+        the checkpoint's world and this one are a single process on the
+        same kind of device (a world keeps rank 0's stream only, and a CPU
+        generator's state is not a card's), and the guard's counters, so
+        that a resumed run draws the masks and counts the skips of an
+        uninterrupted one."""
+        if (state is None or state.get("world") != 1 or self.world_size != 1
+                or state.get("device") != self.device.type):
+            log.info(f"{path} holds no dropout stream for this run: its dropout masks "
+                     "start fresh from the seed")
+        else:
+            self.dropout_generator.set_state(state["dropout_generator"])
+        if self.guard is not None and state is not None and "nonfinite" in state:
+            self.optimizer.nonfinite.load_state_dict(state["nonfinite"])
+            self.guard.total_skipped = state["nonfinite"]["total_notfinite"]
+
+    def resume_from(self, checkpoint_path, advance_epoch: bool = False):
+        """Restore model and optimizer state from a checkpoint file.  Returns
+        the checkpoint's ``{"epoch", "loss", "trainer"}``.  The run then
+        trains its full epoch count on top of it, or with ``advance_epoch``
+        (``--resume auto``) only the epochs after the checkpoint's, so a
+        run killed after epoch E and restarted covers exactly the rest."""
         if Path(checkpoint_path).is_dir():
             raise ValueError(f"{checkpoint_path} is a directory - pass the .ckpt file")
         model_state, opt_state, meta = load_checkpoint(checkpoint_path)
         self.model.load_state_dict(model_state)
         self.optimizer.load_state_dict(opt_state)
+        self._restore_trainer_state(checkpoint_path, meta["trainer"])
         self.graphs = {}  # the loaded optimizer state lives in new tensors
         self._resume_best_loss = meta["loss"]
+        if advance_epoch:
+            self._start_epoch = int(meta["epoch"])
         return meta

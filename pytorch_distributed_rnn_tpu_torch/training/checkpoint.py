@@ -3,7 +3,11 @@
 The framing of the JAX package's ``training/checkpoint.py``: the same
 file names (``best-model.ckpt``, ``checkpoint-epoch-N.ckpt``), one JSON
 header line with metadata, section lengths and a CRC32 per section, then
-the model section and the optimizer section.  Writes go to a temp file,
+the model section, the optimizer section and, where the trainer has one,
+the trainer section (``trainer_len``): the state a resumed run needs
+beside the model and ``torch.optim.Adam``'s layout, the dropout
+generator's state and the non-finite guard's counters.  A file without it
+loads as before.  Writes go to a temp file,
 ``fsync``, then ``os.replace``, so a crash never leaves a half-written
 file under the checkpoint name; a truncated or corrupt file fails to
 load with :class:`CheckpointCorruptError`.
@@ -45,28 +49,29 @@ def _to_bytes(state) -> bytes:
 
 
 def save_checkpoint(checkpoint_dir, epoch: int, model_state, opt_state,
-                    loss: float, best: bool = False) -> Path:
-    """Write a checkpoint atomically; returns its path."""
+                    loss: float, best: bool = False, trainer_state=None) -> Path:
+    """Write a checkpoint atomically; returns its path.  ``trainer_state``
+    (a dict, or None) becomes the trainer section."""
     checkpoint_dir = Path(checkpoint_dir)
     checkpoint_dir.mkdir(parents=True, exist_ok=True)
     name = "best-model.ckpt" if best else f"checkpoint-epoch-{epoch + 1}.ckpt"
     path = checkpoint_dir / name
 
-    model_bytes = _to_bytes(model_state)
-    opt_bytes = _to_bytes(opt_state)
+    sections = {"model": _to_bytes(model_state), "opt": _to_bytes(opt_state)}
+    if trainer_state is not None:
+        sections["trainer"] = _to_bytes(trainer_state)
     header = json.dumps({
         "epoch": epoch + 1,
         "loss": float(loss),
-        "model_len": len(model_bytes),
-        "opt_len": len(opt_bytes),
-        "crcs": {"model": zlib.crc32(model_bytes), "opt": zlib.crc32(opt_bytes)},
+        **{f"{name}_len": len(blob) for name, blob in sections.items()},
+        "crcs": {name: zlib.crc32(blob) for name, blob in sections.items()},
     }).encode()
     tmp = path.with_name(path.name + f".tmp.{os.getpid()}")
     try:
         with open(tmp, "wb") as f:
             f.write(header + b"\n")
-            f.write(model_bytes)
-            f.write(opt_bytes)
+            for blob in sections.values():
+                f.write(blob)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
@@ -86,34 +91,35 @@ def save_checkpoint(checkpoint_dir, epoch: int, model_state, opt_state,
 
 
 def _read_sections(path):
-    """``(header, model_bytes, opt_bytes)`` of ``path``, raising
+    """``(header, model_bytes, opt_bytes, trainer_bytes)`` of ``path``
+    (``trainer_bytes`` None where the file has no trainer section), raising
     :class:`CheckpointCorruptError` on any structural damage."""
     try:
         with open(path, "rb") as f:
             try:
                 header = json.loads(f.readline().decode())
-                model_len = int(header["model_len"])
-                opt_len = int(header["opt_len"])
+                lengths = {"model": int(header["model_len"]), "opt": int(header["opt_len"])}
+                if "trainer_len" in header:
+                    lengths["trainer"] = int(header["trainer_len"])
             except (UnicodeDecodeError, json.JSONDecodeError, KeyError,
                     TypeError, ValueError) as exc:
                 raise CheckpointCorruptError(f"{path}: bad header ({exc})") from exc
-            model_bytes = f.read(model_len)
-            opt_bytes = f.read(opt_len)
+            blobs = {name: f.read(n) for name, n in lengths.items()}
             trailing = f.read(1)
     except OSError as exc:
         raise CheckpointCorruptError(f"{path}: unreadable ({exc})") from exc
-    if len(model_bytes) != model_len or len(opt_bytes) != opt_len:
+    if any(len(blobs[name]) != n for name, n in lengths.items()):
         raise CheckpointCorruptError(
-            f"{path}: truncated - expected {model_len}+{opt_len} section "
-            f"bytes, found {len(model_bytes)}+{len(opt_bytes)}"
+            f"{path}: truncated - expected {'+'.join(map(str, lengths.values()))} section "
+            f"bytes, found {'+'.join(str(len(b)) for b in blobs.values())}"
         )
     if trailing:
         raise CheckpointCorruptError(f"{path}: trailing bytes past the declared sections")
     crcs = header.get("crcs") or {}
-    for name, blob in (("model", model_bytes), ("opt", opt_bytes)):
+    for name, blob in blobs.items():
         if zlib.crc32(blob) != crcs.get(name):
             raise CheckpointCorruptError(f"{path}: {name} section CRC mismatch")
-    return header, model_bytes, opt_bytes
+    return header, blobs["model"], blobs["opt"], blobs.get("trainer")
 
 
 def _load_section(path, blob: bytes):
@@ -130,11 +136,15 @@ def _load_section(path, blob: bytes):
 
 def load_checkpoint(path):
     """``(model_state, opt_state, meta)`` from ``path``, tensors on the
-    CPU; raises :class:`CheckpointCorruptError` for a damaged file."""
-    header, model_bytes, opt_bytes = _read_sections(path)
+    CPU; ``meta["trainer"]`` is the trainer section (None where the file
+    has none).  Raises :class:`CheckpointCorruptError` for a damaged
+    file."""
+    header, model_bytes, opt_bytes, trainer_bytes = _read_sections(path)
     model_state = _load_section(path, model_bytes)
     opt_state = _load_section(path, opt_bytes)
-    return model_state, opt_state, {"epoch": header["epoch"], "loss": header["loss"]}
+    trainer_state = None if trainer_bytes is None else _load_section(path, trainer_bytes)
+    return model_state, opt_state, {"epoch": header["epoch"], "loss": header["loss"],
+                                    "trainer": trainer_state}
 
 
 def load_model_params(path, model):
@@ -144,7 +154,7 @@ def load_model_params(path, model):
     corrupt optimizer section fails the load: a checkpoint is intact or
     rejected, never half-trusted.  A state dict that does not fit the
     module raises :class:`CheckpointCorruptError` naming the file."""
-    header, model_bytes, _ = _read_sections(path)
+    header, model_bytes, _, _ = _read_sections(path)
     state = _load_section(path, model_bytes)
     try:
         model.load_state_dict(state)

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from pytorch_distributed_rnn_tpu_torch.data.sampler import DistributedSampler
-from pytorch_distributed_rnn_tpu_torch.ops.adam import Adam
+from pytorch_distributed_rnn_tpu_torch.ops.adam import Adam, DeviceStepAdam
 from pytorch_distributed_rnn_tpu_torch.parallel import dp
 from pytorch_distributed_rnn_tpu_torch.parallel.sharded_update import ShardedUpdate
 from pytorch_distributed_rnn_tpu_torch.training.base import Trainer
@@ -41,23 +41,41 @@ from pytorch_distributed_rnn_tpu_torch.training.base import Trainer
 _RANK_SEED_STRIDE = 0x9E3779B1
 
 
+def _adam(params, learning_rate: float, guarded: bool = False):
+    """The strategies' Adam: the host-count ``Adam``, or the guarded
+    ``DeviceStepAdam`` (its count on the device, so a skipped step leaves
+    it without a host sync)."""
+    if guarded:
+        return DeviceStepAdam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                              guarded=True)
+    return Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
 class SpmdTrainer(Trainer):
     """Shared machinery of the data-parallel strategies.  ``group`` is the
     ``parallel.collectives.World`` of this process; the model runs on its
     device.  ``sharded_update`` (the default, as in the JAX package)
     replaces the gradient allreduce and the replicated Adam step with
-    ``parallel.sharded_update.ShardedUpdate``."""
+    ``parallel.sharded_update.ShardedUpdate``.  Under the non-finite
+    guard the sharded update takes one verdict for the world (its flag
+    summed over the ranks); the replicated update needs none, since the
+    averaged gradient is the same on every rank, and steps the guarded
+    ``DeviceStepAdam``."""
 
     SYNC = "backward"
     # the per-batch loop only: the graph path under the strategies (NCCL
     # collectives inside a capture) is still to be ported
     GRAPH_STEP = False
+    # as the JAX trainer (training/distributed.py): the step is built
+    # around the strategy's collectives
+    SUPPORTS_GRAD_ACCUM = False
 
     def __init__(self, model, training_set, batch_size: int, learning_rate: float,
                  validation_set=None, test_set=None, checkpoint_dir=None,
                  seed: int | None = None, checkpoint_every: int = 0,
                  keep_checkpoints: int = 0, fuse_run: bool = False, device=None, group=None,
-                 sharded_update: bool = True):
+                 sharded_update: bool = True, grad_accum: int = 1, faults=None,
+                 max_bad_steps: int = 0):
         if group is None:
             raise ValueError(f"{type(self).__name__} needs the process group (group=)")
         if device is not None and torch.device(device).type != group.device.type:
@@ -67,7 +85,8 @@ class SpmdTrainer(Trainer):
                          checkpoint_dir=checkpoint_dir, seed=seed,
                          checkpoint_every=checkpoint_every,
                          keep_checkpoints=keep_checkpoints, fuse_run=fuse_run,
-                         device=group.device)
+                         device=group.device, grad_accum=grad_accum, faults=faults,
+                         max_bad_steps=max_bad_steps)
         seed = seed if seed is not None else 0
         self.group = group
         self.rank = group.rank
@@ -75,11 +94,13 @@ class SpmdTrainer(Trainer):
         self.sampler = DistributedSampler(len(training_set), num_replicas=group.size,
                                           rank=group.rank, seed=seed)
         self.dropout_generator.manual_seed((seed ^ 0x5EED) + group.rank * _RANK_SEED_STRIDE)
-        adam = Adam(self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        guarded = self.guard is not None
         self.sharded_update = bool(sharded_update)
+        adam = _adam(self.model.parameters(), learning_rate,
+                     guarded=guarded and not self.sharded_update)
         self._ddp = None
         if self.sharded_update:
-            self.optimizer = ShardedUpdate(adam, group.size, group.rank, group)
+            self.optimizer = ShardedUpdate(adam, group.size, group.rank, group, guarded=guarded)
             if self.SYNC == "backward":
                 # what DDP's construction would do: rank 0's weights everywhere
                 dp.broadcast_params(self.model.parameters(), group)

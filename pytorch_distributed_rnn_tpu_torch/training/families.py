@@ -73,6 +73,7 @@ def build_model(args, training_set):
             dropout=args.dropout or 0.0,
             precision=args.precision,
             generator=torch.Generator().manual_seed(seed),
+            remat=getattr(args, "remat", False),
         )
     common = dict(
         layer_dim=args.stacked_layer,
@@ -80,6 +81,7 @@ def build_model(args, training_set):
         precision=args.precision,
         dropout=args.dropout or 0.0,
         generator=torch.Generator().manual_seed(seed),
+        remat=getattr(args, "remat", False),
     )
     if family == "char":
         from pytorch_distributed_rnn_tpu_torch.models import CharRNN

@@ -16,7 +16,8 @@ invariant).  What the JAX trainer does, this one does:
 - the train loss in the history is the rank's own local mean (the JAX
   native trainer's behaviour; ``distributed`` averages over ranks), log
   lines and the perf line carry the rank, and each run ends with the
-  rank-parity observable ``"{rank}: parameters: {sum:.10f}"``.
+  rank-parity observable ``"{rank}: parameters: {sum:.10f}"`` and the
+  ring's mean ``comm_wait_s``/``comm_active_s`` an update.
 
 Three update schedules (:meth:`NativeDDPTrainer._optimizer_step`):
 
@@ -66,12 +67,11 @@ from pathlib import Path
 import torch
 
 from pytorch_distributed_rnn_tpu_torch.data.sampler import DistributedSampler
-from pytorch_distributed_rnn_tpu_torch.ops.adam import Adam
 from pytorch_distributed_rnn_tpu_torch.parallel.bucketing import DEFAULT_BUCKET_MB
 from pytorch_distributed_rnn_tpu_torch.parallel.sharded_update import ShardedUpdate
 from pytorch_distributed_rnn_tpu_torch.runtime import native
 from pytorch_distributed_rnn_tpu_torch.training.base import Trainer
-from pytorch_distributed_rnn_tpu_torch.training.distributed import _RANK_SEED_STRIDE
+from pytorch_distributed_rnn_tpu_torch.training.distributed import _RANK_SEED_STRIDE, _adam
 
 # the JAX trainer's reasons (training/native_ddp.py) for the flags it rejects
 CHECKPOINT_ASYNC_REJECTED = (
@@ -105,13 +105,16 @@ class NativeDDPTrainer(Trainer):
 
     # the host moves the gradients every step: the per-batch loop only
     GRAPH_STEP = False
+    # as the JAX trainer (native_ddp.py): the step is the ring's schedule
+    SUPPORTS_GRAD_ACCUM = False
 
     def __init__(self, model, training_set, batch_size: int, learning_rate: float,
                  validation_set=None, test_set=None, checkpoint_dir=None,
                  seed: int | None = None, checkpoint_every: int = 0, keep_checkpoints: int = 0,
                  fuse_run: bool = False, device="cuda", comm=None, sharded_update: bool = True,
                  bucketed_comm: bool = True, bucket_mb: float = DEFAULT_BUCKET_MB,
-                 checkpoint_format: str = "gathered", checkpoint_async: bool = False):
+                 checkpoint_format: str = "gathered", checkpoint_async: bool = False,
+                 grad_accum: int = 1, faults=None, max_bad_steps: int = 0):
         if comm is None:
             raise ValueError("NativeDDPTrainer needs the ring (comm=)")
         if checkpoint_async:
@@ -124,7 +127,8 @@ class NativeDDPTrainer(Trainer):
                          test_set=test_set if rank == 0 else None,
                          checkpoint_dir=checkpoint_dir if rank == 0 else None, seed=seed,
                          checkpoint_every=checkpoint_every, keep_checkpoints=keep_checkpoints,
-                         fuse_run=fuse_run, device=device)
+                         fuse_run=fuse_run, device=device, grad_accum=grad_accum, faults=faults,
+                         max_bad_steps=max_bad_steps)
         seed = seed if seed is not None else 0
         self.comm = comm
         self.rank = rank
@@ -140,11 +144,14 @@ class NativeDDPTrainer(Trainer):
         self._last_step_comm = None
         self.comm_log = []
         self._pinned = {}
-        adam = Adam(self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        guarded = self.guard is not None
         self.sharded_update = bool(sharded_update)
+        adam = _adam(self.model.parameters(), learning_rate,
+                     guarded=guarded and not self.sharded_update)
         self.bucket_plan = None
         if self.sharded_update:
-            self.optimizer = ShardedUpdate(adam, world, rank, group=_RingGather(comm))
+            self.optimizer = ShardedUpdate(adam, world, rank, group=_RingGather(comm),
+                                           guarded=guarded)
             if bucketed_comm:
                 self.bucket_plan = self.optimizer.bucket_plan(bucket_mb)
         else:
@@ -255,16 +262,31 @@ class NativeDDPTrainer(Trainer):
                                            out=self._host(f"rs-out{b}", (hi - lo,), su.dtype))
             for b, ((lo, hi), host) in enumerate(zip(bounds, staged))]
         p_shard = su.shard_slice(su.ravel(su.params), self.rank)
-        su.steps += 1
+        finite = None
+        if su.nonfinite is not None:
+            # the verdict is global: every reduce-scatter lands first, then
+            # one flag a rank is summed over the ring (on the host, where
+            # the reduced slices are)
+            reduced = [finish(handle) for handle in reduce_scatters]
+            t0 = time.perf_counter()
+            bad_sum = self.comm.allreduce(su.local_bad(*reduced))
+            seconds = time.perf_counter() - t0
+            wait_s += seconds
+            active_s += seconds
+            finite = su.global_verdict(bad_sum).to(self.device)
+            reduce_scatters = reduced
+        su.advance(finite)
         all_gathers = []
         for b, (lo, hi) in enumerate(bounds):
-            g_sub = self._to_device(finish(reduce_scatters[b])).div_(world)
+            landed = reduce_scatters[b]
+            g_sub = self._to_device(landed if finite is not None else finish(landed)).div_(world)
             p_sub = p_shard[lo:hi]
-            su.update_(p_sub, g_sub, lo)
+            su.update_(p_sub, g_sub, lo, finite)
             host = self._to_host(f"ag-in{b}", p_sub)
             self._fence()  # this bucket's Adam; later buckets still stream
             all_gathers.append(self.comm.allgather_async(
                 host, out=self._host(f"ag-out{b}", (world * (hi - lo),), su.dtype)))
+        su.record(finite)
         fresh = torch.empty(world, su.shard, dtype=su.dtype, device=self.device)
         for b, (lo, hi) in enumerate(bounds):
             fresh[:, lo:hi].copy_(finish(all_gathers[b]), non_blocking=True)
@@ -324,25 +346,34 @@ def execute(args):
     device = rank_device(args.device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    # before the ring: its net:* events set the transport's fault environment
+    faults = training.resolve_faults(args, rank=int(os.environ.get("RANK", "0")))
     with ring_from_env() as comm:
         if device.type == "cuda":
             collectives.build_kernels_once(comm)
         trainer = training._train(args, NativeDDPTrainer, comm, device=device, comm=comm,
                                   sharded_update=args.sharded_update,
-                                  bucketed_comm=args.bucketed_comm, bucket_mb=args.bucket_mb)
+                                  bucketed_comm=args.bucketed_comm, bucket_mb=args.bucket_mb,
+                                  faults=faults)
         # the rank-parity observable: the same on every rank iff the
         # replicas stayed equal
         flat = torch.cat([p.detach().reshape(-1) for p in trainer.model.parameters()])
         logging.info(f"{comm.rank}: parameters: {float(flat.double().sum()):.10f}")
+        if trainer.comm_log:
+            wait_s, active_s = (sum(column) / len(trainer.comm_log)
+                                for column in zip(*trainer.comm_log))
+            logging.info(f"{comm.rank}: ring: {len(trainer.comm_log)} updates, comm_wait_s "
+                         f"{wait_s:.6f}, comm_active_s {active_s:.6f} an update")
     return trainer
 
 
-def launch_world(world_size: int, argv, *, master_port: int | None = None, cwd=None,
-                 device: str = "cpu", timeout: float = 600.0):
+def launch_world(world_size: int, argv, *, device: str, master_port: int | None = None,
+                 cwd=None, timeout: float = 600.0):
     """Spawn a local world of ``world_size`` processes, each running
     ``python -m pytorch_distributed_rnn_tpu_torch.main --device DEVICE
     <argv> distributed-native`` with the rendezvous environment set (a free
-    port when ``master_port`` is None).  Returns ``(returncode, stdout,
+    port when ``master_port`` is None).  ``device`` (``"cuda"`` or
+    ``"cpu"``) has no default: a world runs on the CPU only when asked.  Returns ``(returncode, stdout,
     stderr)`` a rank, in rank order; raises if a rank fails or outlives
     ``timeout`` seconds."""
     from pytorch_distributed_rnn_tpu_torch.utils.worlds import free_ports, spawn_world

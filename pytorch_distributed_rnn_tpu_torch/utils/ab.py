@@ -7,6 +7,7 @@
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab step --other DIR [--rounds N] [--path P]
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab step --graph [--rounds N] [--path P]
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab dp [--rounds N]
+    python -m pytorch_distributed_rnn_tpu_torch.utils.ab drift
 
 Each run measures one tree (a copy of this package with a source
 substitution, or another checkout) in its own process, with the measuring
@@ -83,6 +84,11 @@ largest device entries a step, and the device time of one Adam step alone (``ada
 path a, the port's ``ops/adam.py`` on each parameter on g0 and h0, and
 on the rank's flat 1/world slice on g and h).
 
+``drift``: how many device records ``torch.profiler`` keeps of a short
+window (``DRIFT_LAUNCHES`` synced launches of one small kernel) as the
+measuring process ages, a window every ``DRIFT_PAUSE_S`` seconds, each
+opened plainly and through :func:`device_profile`.
+
 Copies go to ``build/ab/``.  Kernel times are CUDA events over repeated
 launches.  This file imports nothing of the package at module level, so a
 tree that does not hold it can be measured with it.
@@ -90,6 +96,7 @@ tree that does not hold it can be measured with it.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import os
@@ -312,6 +319,31 @@ def device_events(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
+# On an H100 a profile window loses device records as its process ages: of
+# 5 launches a plain window kept 5, 4, 2 and 1 records at 0, 34, 54 and 74 s
+# and none after, and a late window of the smoke lost one kernel in 3 of 3
+# tries (``ab drift``, ``chip_smoke.py``).  A window opened this long before
+# the body's first launch and closed this long after its last sync kept all
+# 5 in 7 windows of 9, and no profile of a whole smoke run lost one.
+PROFILE_MARGIN_S = 0.1
+
+
+@contextlib.contextmanager
+def device_profile(activities=None):
+    """``torch.profiler.profile`` over the host and the card (or
+    ``activities``), with ``PROFILE_MARGIN_S`` of host-only time before and
+    after the body, so no device record of the body falls outside the
+    window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if activities is None:
+        activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        yield prof
+        time.sleep(PROFILE_MARGIN_S)
+
+
 def _copy_kernels(prof, calls: int) -> tuple:
     """The device copy kernels of a ``torch.profiler`` run: launches and ms
     per call."""
@@ -324,7 +356,6 @@ def _time_fwd() -> dict:
     """The tree's flash forward: f32 at the CLI shape, as the model calls
     it (with its copy kernels), and bf16 at the long-context shape."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fa = _own("ops.fused_attention")
     tattn = _own("models.attention")
@@ -346,7 +377,7 @@ def _time_fwd() -> dict:
 
     with torch.no_grad():
         out["call_ms"] = _time_ms(call, 50)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             for _ in range(10):
                 call()
             torch.cuda.synchronize()
@@ -381,11 +412,10 @@ def _adam_ms(trainer) -> float:
 def _device_ms(fn, calls: int) -> float:
     """``fn``'s device time a call under ``torch.profiler``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -397,7 +427,6 @@ def _time_step(path: str = "d") -> dict:
     clock and one profiled.  A data-parallel path (``DP_PATHS``) runs on
     each rank of its ``torchrun`` world."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     formatter = _own("training.formatter").TrainingMessageFormatter(1)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -421,7 +450,7 @@ def _time_step(path: str = "d") -> dict:
             t0 = time.perf_counter()
             epoch()
             host_ms.append((time.perf_counter() - t0) * 1e3 / steps)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             epoch()
     device_us = {e.key: e.self_device_time_total for e in device_events(prof)}
     kernels = {}
@@ -515,6 +544,42 @@ def _time_graph(path: str = "d", rounds: str = "1") -> dict:
                                          for (kind, rows), g in trainer.graphs.items()}}
 
 
+DRIFT_LAUNCHES = 5  # synced launches in each drift window
+DRIFT_WINDOWS = 9
+DRIFT_PAUSE_S = 20.0
+
+
+def _drift_window(margin: bool) -> int:
+    """The device records a profile keeps of ``DRIFT_LAUNCHES`` synced
+    launches of one small kernel, with :func:`device_profile`'s margins or
+    without."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    window = (device_profile() if margin
+              else profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+    with window as prof:
+        for _ in range(DRIFT_LAUNCHES):
+            x.add_(1)
+            torch.cuda.synchronize()
+    return sum(e.count for e in device_events(prof))
+
+
+def _time_drift() -> dict:
+    """``DRIFT_WINDOWS`` pairs of drift windows, ``DRIFT_PAUSE_S`` apart:
+    the process's age and the records each kept."""
+    t0 = time.perf_counter()
+    windows = []
+    for i in range(DRIFT_WINDOWS):
+        if i:
+            time.sleep(DRIFT_PAUSE_S)
+        windows.append({"age_s": time.perf_counter() - t0, "kept": _drift_window(False),
+                        "kept_with_margins": _drift_window(True)})
+    return {"launches": DRIFT_LAUNCHES, "windows": windows}
+
+
 def _run(root: Path, what: str, *args: str, ranks: int = 0):
     """``what(*args)`` of this file in a child process whose ``sys.path[0]``
     is ``root``; with ``ranks``, in each process of a ``torchrun`` world of
@@ -541,8 +606,9 @@ def _parse(argv: list) -> tuple:
     misuse."""
     usage = ("usage: ab rows | ab split | ab tc | ab fwd --other DIR [--rounds N] | "
              "ab step --other DIR [--rounds N] [--path a|b|c|d|e|f] | "
-             "ab step --graph [--rounds N] [--path a|b|c|d|e|f] | ab dp [--rounds N]")
-    if argv in (["rows"], ["split"], ["tc"]):
+             "ab step --graph [--rounds N] [--path a|b|c|d|e|f] | ab dp [--rounds N] | "
+             "ab drift")
+    if argv in (["rows"], ["split"], ["tc"], ["drift"]):
         return argv[0], None, 1, None
     mode, rest = (argv[0], argv[1:]) if argv else (None, [])
     if mode == "step" and "--graph" in rest:
@@ -586,6 +652,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
+    if mode == "drift":
+        print(json.dumps(_run(PACKAGE.parent, "_time_drift")), flush=True)
+        return 0
     if mode == "graph":  # both paths in turns inside one process
         print(json.dumps(_run(PACKAGE.parent, "_time_graph", path, str(rounds))), flush=True)
         return 0

@@ -13,6 +13,7 @@ from pytorch_distributed_rnn_tpu_torch.utils import ab
     (["rows"], ("rows", None, 1, None)),
     (["split"], ("split", None, 1, None)),
     (["tc"], ("tc", None, 1, None)),
+    (["drift"], ("drift", None, 1, None)),
     (["step", "--other", "x"], ("step", Path("x").resolve(), 1, "d")),
     (["step", "--other", "x", "--rounds", "5"], ("step", Path("x").resolve(), 5, "d")),
     (["step", "--path", "f", "--other", "x"], ("step", Path("x").resolve(), 1, "f")),
@@ -41,7 +42,7 @@ def test_parse(argv, want):
     ["fwd"], ["fwd", "--other", "x", "--path", "d"], ["fwd", "--rounds", "2"],
     ["dp", "--other", "x"], ["dp", "--path", "g"], ["step", "--other", "x", "--path", "g"],
     ["step", "--graph", "--other", "x"], ["step", "--graph", "--path", "g"], ["fwd", "--graph"],
-    ["dp", "--graph"],
+    ["dp", "--graph"], ["drift", "--rounds", "2"], ["drift", "--path", "a"],
 ])
 def test_parse_rejects(argv):
     with pytest.raises(SystemExit):
@@ -79,3 +80,21 @@ def test_device_events_leave_out_user_annotations():
               SimpleNamespace(key="aten::mm", device_type=cpu, is_user_annotation=False)]
     prof = SimpleNamespace(key_averages=lambda: events)
     assert [e.key for e in ab.device_events(prof)] == ["lstm_fwd_kernel"]
+
+
+def test_device_profile_keeps_margins_around_the_body(monkeypatch):
+    """The body runs inside the profile, after a host-only margin, and the
+    window stays open a margin after it."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    monkeypatch.setattr(ab, "PROFILE_MARGIN_S", 0.05)
+    t0 = time.perf_counter()
+    with ab.device_profile(activities=[ProfilerActivity.CPU]) as prof:
+        entered = time.perf_counter()
+        torch.ones(4).add_(1)
+        left = time.perf_counter()
+    assert entered - t0 >= 0.05 and time.perf_counter() - left >= 0.05
+    assert any(e.key == "aten::add_" for e in prof.key_averages())

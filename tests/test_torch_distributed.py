@@ -128,7 +128,7 @@ def world2(work, data):
                       "argv": _family_argv(work, "attention", cache)},
         "build": {"dir": str(work / "w2" / "build"), "build_once": True},
     }
-    launch.spawn(2, jobs + list(extra.values()), work / "w2", timeout=300)
+    launch.spawn(2, jobs + list(extra.values()), work / "w2", device="cpu", timeout=300)
     return jobs, extra
 
 
@@ -144,7 +144,7 @@ def world4(work, data):
                           "argv": _argv(data, sharding, "distributed", epochs=1,
                                         resume=checkpoint)}
                for sharding in SHARDING}
-    launch.spawn(4, jobs + list(resumed.values()), work / "w4", timeout=300)
+    launch.spawn(4, jobs + list(resumed.values()), work / "w4", device="cpu", timeout=300)
     return jobs, resumed, checkpoint
 
 

@@ -76,7 +76,7 @@ def world2(tmp_path_factory, jax_init):
     jobs = {name: {"dir": str(root / name), "module": module.__name__,
                    "argv": ["--device", "cpu", "--init", str(jax_init)]}
             for name, module in PORT_EXAMPLES.items()}
-    launch.spawn(2, list(jobs.values()), root, timeout=120)
+    launch.spawn(2, list(jobs.values()), root, device="cpu", timeout=120)
     return {name: [torch.load(f"{job['dir']}/rank{r}.pt", weights_only=False)
                    for r in range(2)] for name, job in jobs.items()}
 
@@ -115,7 +115,7 @@ def test_world1_in_process_matches_jax(name, jax_init, capsys, monkeypatch):
 def test_p2p_relays_rank0s_value_around_a_world_of_3(tmp_path):
     job = {"dir": str(tmp_path / "p2p"), "module": "pytorch_distributed_rnn_tpu_torch.examples."
            "example_p2p", "argv": ["--device", "cpu"]}
-    launch.spawn(3, [job], tmp_path, timeout=120)
+    launch.spawn(3, [job], tmp_path, device="cpu", timeout=120)
     for rank in range(3):
         result = torch.load(tmp_path / "p2p" / f"rank{rank}.pt", weights_only=False)
         assert result["result"] == 1.0

@@ -15,7 +15,10 @@ directly, so these tests hold the body itself:
   JAX trainer's at 1e-5;
 - ``DeviceStepAdam`` against ``optax.adam`` at 1e-6 (f32 rounding over a few
   steps), and its ``state_dict`` in ``torch.optim.Adam``'s layout;
-- the fusable gate against the JAX trainer's.
+- the fusable gate against the JAX trainer's, with its refusals of
+  ``grad_accum``, a fault schedule and an epoch-offset resume;
+- the step body with ``grad_accum`` microbatches and with the guarded
+  update against the per-batch loop, bit for bit.
 
 The ``cuda``-marked tests need the card: ``python -m pytest --noconftest -m
 cuda tests/test_torch_graph_step.py``.  JAX is imported inside the tests
@@ -68,9 +71,9 @@ def _jax():
                            wrap_lm_trainer=wrap_lm_trainer)
 
 
-def _motion_trainer(n, batch, dropout=0.0, cell="lstm", device="cpu", **kw):
+def _motion_trainer(n, batch, dropout=0.0, cell="lstm", device="cpu", remat=False, **kw):
     X, y = generate_har_arrays(n, seq_length=12, seed=0)
-    model = MotionModel(hidden_dim=8, layer_dim=2, cell=cell, dropout=dropout,
+    model = MotionModel(hidden_dim=8, layer_dim=2, cell=cell, dropout=dropout, remat=remat,
                         generator=torch.Generator().manual_seed(1))
     return Trainer(model, MotionDataset(X, y), batch_size=batch, learning_rate=2.5e-3,
                    seed=SEED, device=device, **kw)
@@ -127,6 +130,28 @@ def test_char_step_body_matches_the_per_batch_loop_bitwise():
     eager, device, (h_eager, h_device) = _two_paths(make)
     assert h_eager == h_device
     _assert_same_bits(eager, device)
+
+
+@pytest.mark.parametrize("n", [192, 202], ids=["full-batches", "partial-batch"])
+def test_grad_accum_step_body_matches_the_per_batch_loop_bitwise(n):
+    """Four microbatches a step (the final batch of 10: two), dropout drawn
+    in microbatch order on both paths."""
+    eager, device, (h_eager, h_device) = _two_paths(
+        lambda: _motion_trainer(n, 48, dropout=0.1, grad_accum=4))
+    assert h_eager == h_device
+    _assert_same_bits(eager, device)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_guarded_step_body_matches_the_per_batch_loop_and_the_unguarded(dropout):
+    eager, device, (h_eager, h_device) = _two_paths(
+        lambda: _motion_trainer(200, 48, dropout=dropout, max_bad_steps=2))
+    assert h_eager == h_device
+    _assert_same_bits(eager, device)
+    plain = _two_paths(lambda: _motion_trainer(200, 48, dropout=dropout))
+    assert plain[2][1] == h_device
+    _assert_same_bits(plain[1], device)
+    assert device.optimizer.nonfinite.read() == (0, 0)
 
 
 def test_device_counter_walks_the_epochs_rows_in_sampler_order():
@@ -423,7 +448,8 @@ def test_device_step_adam_state_dict_round_trips_through_torch_adam():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["validation", "checkpoint-every", "dropout-partial-batch"])
+@pytest.mark.parametrize("case", ["validation", "checkpoint-every", "dropout-partial-batch",
+                                  "grad-accum", "faults", "epoch-offset-resume"])
 def test_fuse_run_refuses_where_jax_does(case, tmp_path):
     jx = _jax()
     X, y = generate_har_arrays(100, seq_length=8, seed=0)  # 2 batches of 48 and one of 4
@@ -435,17 +461,37 @@ def test_fuse_run_refuses_where_jax_does(case, tmp_path):
         port_kw = {"validation_set": MotionDataset(Xv, yv)}
     elif case == "checkpoint-every":
         jax_kw = port_kw = {"checkpoint_every": 1, "checkpoint_dir": tmp_path}
+    elif case == "grad-accum":
+        jax_kw = port_kw = {"grad_accum": 2}
+    elif case == "faults":
+        from pytorch_distributed_rnn_tpu.resilience import FaultSchedule as JaxFaults
+
+        from pytorch_distributed_rnn_tpu_torch.resilience import FaultSchedule
+
+        jax_kw = {"faults": JaxFaults.parse("epoch:9:stall")}
+        port_kw = {"faults": FaultSchedule.parse("epoch:9:stall")}
     else:
         jax_kw = port_kw = {}
-        dropout = 0.1
+        dropout = 0.1 if case == "dropout-partial-batch" else 0.0
     jt = jx.Trainer(jx.MotionModel(hidden_dim=8, dropout=dropout), jx.MotionDataset(X, y),
                     **kw, **jax_kw)
     trainer = Trainer(MotionModel(hidden_dim=8, dropout=dropout), MotionDataset(X, y),
                       device="cpu", **kw, **port_kw)
+    if case == "epoch-offset-resume":
+        # each resumes its own checkpoint of epoch 1, and trains from there
+        jt.checkpoint_dir = trainer.checkpoint_dir = tmp_path
+        jt._save_checkpoint(0, 1.0)
+        jt.resume_from(tmp_path / "checkpoint-epoch-1.ckpt", advance_epoch=True)
+        (tmp_path / "port").mkdir()
+        trainer.checkpoint_dir = tmp_path / "port"
+        trainer._save_checkpoint(0, 1.0)
+        trainer.resume_from(tmp_path / "port" / "checkpoint-epoch-1.ckpt", advance_epoch=True)
+        assert jt._start_epoch == trainer._start_epoch == 1
+    epochs = 2 if case == "epoch-offset-resume" else 1
     with pytest.raises(ValueError, match="--fuse-run") as theirs:
-        jt.train(epochs=1)
+        jt.train(epochs=epochs)
     with pytest.raises(ValueError, match="--fuse-run") as ours:
-        trainer.train(epochs=1)
+        trainer.train(epochs=epochs)
     assert str(ours.value) == str(theirs.value) == FUSE_RUN_UNFUSABLE
     assert not trainer._buffers  # refused before any step
 
@@ -479,6 +525,53 @@ def test_cuda_graph_path_matches_the_per_batch_loop_bitwise(cuda_device, dropout
     assert h_eager == h_device
     _assert_same_bits(eager, device)
     assert sorted(device.graphs) == [("epoch", 8), ("epoch", 48)]
+
+
+@pytest.mark.cuda
+def test_cuda_guard_inside_the_captured_step(cuda_device):
+    """The guarded update captured in the step's graph: finite, the
+    unguarded graph path's bits; a NaN step replayed from the graph moves
+    nothing and counts on the device."""
+    eager, device, (h_eager, h_device) = _two_paths(
+        lambda: _motion_trainer(200, 48, dropout=0.1, device=cuda_device, max_bad_steps=2))
+    assert h_eager == h_device
+    _assert_same_bits(eager, device)
+    plain = _two_paths(lambda: _motion_trainer(200, 48, dropout=0.1, device=cuda_device))
+    assert plain[2][1] == h_device
+    _assert_same_bits(plain[1], device)
+    features, _ = device._device_train_data()
+    features[0, 0, 0] = float("nan")  # one NaN row: the step whose batch holds it skips
+    before = [p.detach().clone() for p in device.model.parameters()]
+    steps = float(device.optimizer.device_steps)
+    device.sampler.set_epoch(2)
+    device._train_epoch(TrainingMessageFormatter(1), eager=False)
+    assert device.optimizer.nonfinite.read()[1] == 1
+    assert float(device.optimizer.device_steps) == steps + 4
+    assert all(torch.isfinite(p).all() for p in device.model.parameters())
+    assert not all(torch.equal(a, b) for a, b in zip(before, device.model.parameters()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_cuda_remat_recompute_replays_in_the_captured_backward(cuda_device, dropout):
+    """--remat on the graph path: the forward kernels run again inside the
+    captured backward (two forward launches a layer a step) and the run
+    keeps the plain run's bits."""
+    from pytorch_distributed_rnn_tpu_torch.ops import fused_rnn as fr
+
+    runs = {}
+    for remat in (False, True):
+        fr.reset_launch_counts()
+        eager, device, (h_eager, h_device) = _two_paths(
+            lambda r=remat: _motion_trainer(200, 48, dropout=dropout, device=cuda_device,
+                                            remat=r))
+        torch.cuda.synchronize()
+        assert h_eager == h_device
+        runs[remat] = (device, h_device, dict(fr.LAUNCHES))
+    assert runs[False][1] == runs[True][1]
+    _assert_same_bits(runs[False][0], runs[True][0])
+    assert runs[True][2]["lstm_fwd"] == 2 * runs[False][2]["lstm_fwd"]
+    assert runs[True][2]["lstm_bwd"] == runs[False][2]["lstm_bwd"]
 
 
 @pytest.mark.cuda

@@ -197,7 +197,7 @@ def world2(work, data, jax_world1):
         jobs[family] = {"dir": str(root / family), "argv": _family_argv(work, family, cache)}
     for job, port in zip(jobs.values(), free_ports(len(jobs))):
         job["env"] = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
-    launch.spawn(2, list(jobs.values()), root, timeout=300)
+    launch.spawn(2, list(jobs.values()), root, device="cpu", timeout=300)
     return jobs, checkpoint
 
 
@@ -435,7 +435,8 @@ def test_cli_world2_over_launch_world_keeps_rank_parity(work, data):
     directory = work / "launched"
     directory.mkdir()
     # launch_world adds --device cpu and the subcommand
-    results = native_ddp.launch_world(2, _argv(cache, "--no-validation")[2:-1], cwd=directory)
+    results = native_ddp.launch_world(2, _argv(cache, "--no-validation")[2:-1], device="cpu",
+                                     cwd=directory)
     assert len(results) == 2
     sums = {}
     for code, _, err in results:

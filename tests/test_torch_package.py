@@ -58,7 +58,8 @@ def test_port_imports_with_jax_blocked():
     "serving/cli.py", "serving/drill.py", "serving/engine.py", "serving/loadgen.py",
     "serving/protocol.py", "serving/scheduler.py", "serving/server.py", "obs/__init__.py",
     "obs/live.py", "obs/summary.py", "obs/tracectx.py", "models/attention_lm.py",
-    "examples/example_generate.py",
+    "examples/example_generate.py", "resilience/faults.py", "resilience/guard.py",
+    "data/prefetch.py",
 ])
 def test_new_modules_are_checked(relative):
     assert PORT / relative in FILES

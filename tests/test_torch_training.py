@@ -221,19 +221,28 @@ def test_main_without_device_cpu_needs_cuda(cache_dir, monkeypatch):
 @pytest.mark.parametrize(
     "flags,command",
     # --fuse-run is ported for local (tests/test_torch_graph_step.py), not
-    # for the data-parallel strategies
+    # for the data-parallel strategies; --grad-accum, --max-bad-steps,
+    # --faults, --remat and --resume auto are ported
+    # (tests/test_torch_resilience.py, and the case below)
     [(["--fuse-run"], "distributed"), (["--fuse-run"], "horovod"),
-     (["--grad-accum", "2"], "local"), (["--max-bad-steps", "3"], "local"),
-     (["--faults", "step:1:nan"], "local"), (["--metrics", "m.jsonl"], "local"),
+     (["--metrics", "m.jsonl"], "local"),
      (["--metrics-sample-every", "4"], "local"), (["--live", "0"], "local"),
      (["--live-port-file", "p"], "local"), (["--profile", "trace"], "local"),
      (["--profile-steps", "1:3"], "local"), (["--checkpoint-format", "sharded"], "local"),
-     (["--checkpoint-async"], "local"), (["--remat"], "local"), (["--resume", "auto"], "local")],
+     (["--checkpoint-async"], "local")],
 )
 def test_unported_flags_are_rejected_loudly(flags, command, capsys):
     with pytest.raises(SystemExit, match="not ported yet") as exc:
         port_main.main(["--device", "cpu", *flags, command])
     assert flags[0] in str(exc.value)
+
+
+@pytest.mark.parametrize("flags", [["--grad-accum", "2"], ["--max-bad-steps", "3"],
+                                   ["--faults", "step:1:nan"], ["--remat"],
+                                   ["--resume", "auto"]])
+def test_resilience_and_memory_flags_pass_the_gate(flags):
+    """The five flags of ROADMAP A5's first half are no longer rejected."""
+    port_main.reject_unported(port_main.build_parser().parse_args([*flags, "local"]))
 
 
 @pytest.mark.parametrize("family", ["char", "attention", "moe"])

@@ -138,6 +138,30 @@ Phases, in order; any failure raises and the script exits nonzero:
       host and ring time a step beside 5 ms times the ring's sends;
       ``distributed`` at world 1 on NCCL against ``local`` with the same
       schedule.
+   q. the training CLI's telemetry (``phase_telemetry``, after
+      ``phase_resilience``, before ``phase_serving``): q.1 path a (graph
+      path, 3 epochs) with and without ``--metrics --metrics-sample-every
+      5`` in turns: parameters and Adam state bit for bit, host ms a step
+      (epochs 2-3 on the host clock) and device ms a step (one more epoch
+      profiled) of each and their difference; the sidecar's ``meta`` first,
+      one ``step`` event a step, ``fenced_s`` on sampled steps only, epoch
+      path ``step``, the ``run_summary`` ledger block on the H100's peak
+      (``utils/hw.py``) and its MFU; the port's ``obs`` CLI ``summarize`` and
+      ``ledger`` over it; q.2 ``--profile-steps 3:6`` on path a: the trace
+      holds each LSTM kernel 3 x 2 times and the ``profile`` event says
+      captured, and ``--profile`` over path d's epoch lists the flash
+      kernels; q.3 ``distributed-native`` at world 2 sharing the card at
+      dropout 0.1 with ``--metrics`` (rank-suffixed sidecars,
+      ``comm_wait_s`` in every step event, the two ranks' timeline through
+      its validator) and, at the same time, the same world killed by
+      ``epoch:1:kill``, then ``--resume auto``: parameters and Adam state
+      and each rank's parameter digest bit for bit the uninterrupted run's
+      (ROADMAP C6); q.4 path f (one epoch) with ``--live 0
+      --live-port-file`` and ``--faults step:4:stall:3,step:6:stall:0.8``
+      at ``PDRNN_WATCHDOG_STALL=1``, in a thread, polled: ``/metrics``
+      answers, ``/health`` goes stalled then ok, ``/events`` holds the stall
+      alert and its clearing; the parameters equal the same run's without
+      telemetry bit for bit.
    k. serving (``phase_serving``, the smoke's last phase, after phase 6):
       path f's trained checkpoint through the serving CLI's loader, an engine of 8
       slots (prompt buckets 16-128, 128 new tokens at most) whose prefill
@@ -2369,6 +2393,431 @@ def phase_resilience(workdir: Path, formatter) -> dict:
     return out
 
 
+Q_EPOCHS = 3  # q.1: path a's runs
+Q_SAMPLE_EVERY = 5  # q.1: --metrics-sample-every
+Q_TURNS = ("plain", "metrics", "metrics", "plain") * 2  # q.1: its runs, in turns
+Q_PROFILE_STEPS = (3, 6)  # q.2: --profile-steps on path a
+H100_F32_PEAK = 67e12  # utils/hw.py's H100 entry for --precision f32
+# q.4: path f's stall (step, seconds), longer than the watchdog's threshold,
+# then a shorter one that holds the run while the watchdog sees the
+# progress move on.  A step's stall runs in the prefetch producer, whose
+# queue holds 2 batches: batch k's stall starts as step k - 3 starts (at
+# once for k < 3, overlapping the run's start, not a wait between steps)
+Q_STALL = (4, 3.0)
+Q_HOLD = (6, 0.8)
+Q_WATCHDOG_STALL_S = 1.0
+Q_TIMEOUT = 600
+_DIGEST = re.compile(r"(\d+): parameters sha256 (\w+)")
+
+
+@contextlib.contextmanager
+def _epoch_clock(walls: list):
+    """Each local ``_train_epoch`` timed on the host clock from a device
+    sync to a device sync, appended to ``walls`` as (seconds, steps)."""
+    from pytorch_distributed_rnn_tpu_torch.training.base import Trainer
+
+    original = Trainer._train_epoch
+
+    def timed(self, formatter, eager=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(self, formatter, eager)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0, len(self._epoch_index_batches())))
+        return out
+
+    Trainer._train_epoch = timed
+    try:
+        yield walls
+    finally:
+        Trainer._train_epoch = original
+
+
+@contextlib.contextmanager
+def _environ(**values):
+    saved = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def _obs_cli(argv: list) -> str:
+    """The port's ``python -m pytorch_distributed_rnn_tpu_torch.obs`` in
+    this process; returns what it printed, and fails on a nonzero exit."""
+    import io
+
+    from pytorch_distributed_rnn_tpu_torch.obs.cli import main as obs_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = obs_main(argv)
+    if rc != 0:
+        raise RuntimeError(f"obs {' '.join(argv)} exited {rc}: {out.getvalue()[-2000:]}")
+    return out.getvalue()
+
+
+def _cli_process(cwd: Path, argv: list, epochs: int) -> str:
+    """``main ... `` in a fresh process (its profile windows early in its
+    life, where no device record goes missing: ``PERF.md`` §7); returns
+    its log, and fails on a nonzero exit."""
+    cwd.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-m", "pytorch_distributed_rnn_tpu_torch.main",
+                           "--epochs", str(epochs), *argv], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=Q_TIMEOUT)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:])
+        raise RuntimeError(f"{' '.join(argv[-6:])}: exit {proc.returncode}")
+    return proc.stderr
+
+
+def _trace_device_ms(path: Path, steps: int) -> float:
+    """Device ms a step of a Chrome trace: its kernels, copies and sets,
+    not the device spans of user annotations (``utils/ab.py:
+    device_events``)."""
+    events = json.loads(path.read_text())["traceEvents"]
+    us = sum(e.get("dur", 0) for e in events
+             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return us / 1e3 / steps
+
+
+def _q_sidecar(path: Path, steps: int) -> dict:
+    """q.1's checks of path a's sidecar: the meta line first, one step
+    event a step, ``fenced_s`` on the sampled steps only, epochs on the
+    graph path, and the run summary's ledger block on the H100's entry;
+    returns the ledger's MFU and the events' counts."""
+    from pytorch_distributed_rnn_tpu_torch.obs import ledger as obs_ledger
+    from pytorch_distributed_rnn_tpu_torch.obs.summary import load_events
+
+    events = load_events(path)
+    if events[0]["kind"] != "meta" or events[0]["schema"] != 2:
+        raise RuntimeError(f"q.1: the sidecar's first line is {events[0]}")
+    step_events = [e for e in events if e["kind"] == "step"]
+    if [e["step"] for e in step_events] != list(range(steps)):
+        raise RuntimeError(f"q.1: step events {[e['step'] for e in step_events]}, {steps} steps")
+    sampled = [e["step"] for e in step_events if e["fenced_s"] is not None]
+    want = [s for s in range(steps) if s == 1 or s % Q_SAMPLE_EVERY == 0]
+    if sampled != want:
+        raise RuntimeError(f"q.1: fenced_s on steps {sampled}, not {want}")
+    paths = [e["path"] for e in events if e["kind"] == "epoch"]
+    if paths != ["step"] * Q_EPOCHS:
+        raise RuntimeError(f"q.1: epoch paths {paths}")
+    run = [e for e in events if e["kind"] == "run_summary"][-1]["ledger"]
+    if ("H100" not in str(run["device_kind"]) or run["peak_flops_total"] != H100_F32_PEAK
+            or run["peak_flops_estimated"] or not run["model_flops_per_step"]):
+        raise RuntimeError(f"q.1: the run summary's ledger block {run}")
+    aggregate = obs_ledger.ledger_run(path)["aggregate"]
+    if not aggregate["mfu_est"] or aggregate["mfu_est"] <= 0:
+        raise RuntimeError(f"q.1: the ledger's MFU {aggregate}")
+    counts = {}
+    for e in events:
+        counts[e["kind"]] = counts.get(e["kind"], 0) + 1
+    compiles = [(e["step"], round(e["seconds"] * 1e3, 3)) for e in events if e["kind"] == "compile"]
+    count_s = [e["count_s"] for e in events if e["kind"] == "collectives"][0]
+    return {"mfu": aggregate["mfu_est"], "goodput": aggregate["goodput"], "counts": counts,
+            "flops_per_step": run["model_flops_per_step"], "compiles": compiles,
+            "flop_count_s": count_s}
+
+
+def _q_metrics(workdir: Path, formatter) -> dict:
+    """q.1: path a (graph path, 3 epochs) without and with ``--metrics
+    --metrics-sample-every 5``, in turns (plain, metrics, metrics,
+    plain): the same parameters and Adam state bit for bit, host ms a step
+    over the epochs after the first (the captures' epoch; twice each in
+    turns, compared by their medians), the sidecar's
+    checks, and the port's CLI ``summarize`` and ``ledger`` over it; then
+    each once more in a fresh process with ``--profile-steps`` over epochs
+    2-3: device ms a step from its trace, which must hold each LSTM kernel
+    once a layer a step (a late window in this process loses records)."""
+    root = workdir / "q1"
+    root.mkdir()
+    host = {"plain": [], "metrics": []}
+    trainers, sidecar = {}, None
+    for i, mode in enumerate(Q_TURNS):
+        extra = []
+        if mode == "metrics":
+            sidecar = root / f"m{i}.jsonl"
+            extra = ["--metrics", str(sidecar), "--metrics-sample-every", str(Q_SAMPLE_EVERY)]
+        walls = []
+        with _epoch_clock(walls):
+            trainer = _cli_trainer(root, _graph_argv(workdir, "a", extra), epochs=Q_EPOCHS)
+        host[mode].append(sum(w for w, _ in walls[1:]) * 1e3 / sum(s for _, s in walls[1:]))
+        trainers.setdefault(mode, trainer)
+    _same_bits("q.1 --metrics vs plain", trainers["plain"], trainers["metrics"])
+    steps = len(trainers["plain"]._epoch_index_batches())
+    sidecar_out = _q_sidecar(sidecar, Q_EPOCHS * steps)
+    device = {}
+    window = (steps, Q_EPOCHS * steps)  # epochs 2-3: replays only
+    for mode in ("plain", "metrics"):
+        trace_dir = root / f"trace-{mode}"
+        extra = ["--profile", str(trace_dir), "--profile-steps", f"{window[0]}:{window[1]}"]
+        if mode == "metrics":
+            extra += ["--metrics", str(root / "profiled.jsonl"), "--metrics-sample-every",
+                      str(Q_SAMPLE_EVERY)]
+        _cli_process(root / f"process-{mode}", _graph_argv(workdir, "a", extra), Q_EPOCHS)
+        trace = trace_dir / f"steps-{window[0]}-{window[1]}.json"
+        counts = _trace_kernels(trace)
+        want = 2 * (window[1] - window[0])
+        if counts != {"lstm_fwd": want, "lstm_bwd": want}:
+            raise RuntimeError(f"q.1 {mode}: the trace of steps {window} holds {counts}")
+        device[mode] = _trace_device_ms(trace, window[1] - window[0])
+    median = {mode: sorted(v)[len(v) // 2] for mode, v in host.items()}
+    summarize = _obs_cli(["summarize", str(sidecar)])
+    ledger_text = _obs_cli(["ledger", str(sidecar)])
+    print(f"  q.1 path a, {Q_EPOCHS} epochs of {steps} steps on the graph path: parameters and "
+          f"Adam state with --metrics equal the plain run's bit for bit; host ms a step (epochs "
+          f"2-{Q_EPOCHS}) plain {host['plain']}, metrics {host['metrics']} (medians: plain "
+          f"{median['plain']:.4f}, metrics {median['metrics']:.4f}, difference "
+          f"{median['metrics'] - median['plain']:+.4f} ms); device ms a "
+          f"step (steps {window[0]}-{window[1] - 1} of a fresh process's --profile-steps trace, "
+          f"its LSTM kernels once a layer a step) plain {device['plain']:.4f}, metrics "
+          f"{device['metrics']:.4f} (difference {device['metrics'] - device['plain']:+.4f})")
+    print(f"  q.1 sidecar: {sidecar_out['counts']}; compile events (step, capture ms) "
+          f"{sidecar_out['compiles']}; model FLOPs a step {sidecar_out['flops_per_step']} "
+          f"(counted in {sidecar_out['flop_count_s']:.3f} s before the first step); ledger MFU "
+          f"{sidecar_out['mfu']:.6e} against the H100's {H100_F32_PEAK:g} f32 peak, "
+          f"goodput {sidecar_out['goodput']:.4f}")
+    print("  q.1 obs summarize:\n" + "\n".join("    " + line for line in summarize.splitlines()))
+    print("  q.1 obs ledger:\n" + "\n".join("    " + line for line in ledger_text.splitlines()))
+    return {"host_ms": host, "device_ms": device, "steps": steps, **sidecar_out}
+
+
+def _trace_kernels(path: Path) -> dict:
+    """The port's kernels among a Chrome trace's kernel events, counted by
+    wrapper name."""
+    counts = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel" and (m := _KERNEL_EVENT.search(e.get("name", ""))):
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def _q_profile(workdir: Path) -> dict:
+    """q.2, each run a fresh CLI process, both at once: ``--profile-steps
+    3:6`` on path a: its trace holds each LSTM kernel 3 x 2 times (a
+    forward and a backward a layer a step) and the ``profile`` event says
+    captured; ``--profile DIR`` over path d's run (one epoch): its trace
+    lists the flash kernels, a forward and a ``flash_dqkv`` a layer a step
+    (the sidecar's steps)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pytorch_distributed_rnn_tpu_torch.obs.summary import load_events
+
+    root = workdir / "q2"
+    root.mkdir()
+    start, stop = Q_PROFILE_STEPS
+    trace_dir = root / "trace-a"
+    runs = {"a": (_graph_argv(workdir, "a", [
+                "--profile", str(trace_dir), "--profile-steps", f"{start}:{stop}",
+                "--metrics", str(root / "m.jsonl")]), 2),
+            "d": (_graph_argv(workdir, "d", ["--profile", str(root / "trace-d"), "--metrics",
+                                             str(root / "d.jsonl")]), 1)}
+    with ThreadPoolExecutor(2) as pool:
+        for done in [pool.submit(_cli_process, root / f"process-{path}", argv, epochs)
+                     for path, (argv, epochs) in runs.items()]:
+            done.result()
+    counts = _trace_kernels(trace_dir / f"steps-{start}-{stop}.json")
+    want = {"lstm_fwd": 2 * (stop - start), "lstm_bwd": 2 * (stop - start)}
+    profile = [e for e in load_events(root / "m.jsonl") if e["kind"] == "profile"]
+    if counts != want:
+        raise RuntimeError(f"q.2: the trace of steps {start}:{stop} holds {counts}, not {want}")
+    if len(profile) != 1 or not profile[0]["captured"] or profile[0]["start"] != start:
+        raise RuntimeError(f"q.2: profile events {profile}")
+    print(f"  q.2 path a --profile-steps {start}:{stop}: the trace's kernels {counts} (one "
+          f"forward and one backward a layer a step); profile event {profile[0]}")
+    steps = sum(1 for e in load_events(root / "d.jsonl") if e["kind"] == "step")
+    want = {"flash_fwd": ATTN_DEPTH * steps, "flash_dqkv": ATTN_DEPTH * steps}
+    seen = _trace_kernels(root / "trace-d" / "trace.json")
+    if seen != want:
+        raise RuntimeError(f"q.2: path d's trace holds {seen}, its {steps} steps launch {want}")
+    print(f"  q.2 path d --profile (1 epoch, {steps} steps): the trace's kernels "
+          f"{seen}, a forward and a flash_dqkv a layer a step")
+    return {"a": counts, "d": seen}
+
+
+def _q_world(cwd: Path, argv: list, check: bool = True) -> list:
+    from pytorch_distributed_rnn_tpu_torch.training import native_ddp
+
+    cwd.mkdir(parents=True, exist_ok=True)
+    return native_ddp.launch_world(2, argv, device="cuda", cwd=cwd, timeout=Q_TIMEOUT,
+                                   check=check)
+
+
+def _q_native(workdir: Path) -> dict:
+    """q.3: ``distributed-native`` at world 2 sharing the card (path i's
+    bucketed sharded update) at dropout 0.1, 3 epochs, a checkpoint an
+    epoch: with ``--metrics`` (rank-suffixed sidecars, ``comm_wait_s`` in
+    every step event, the two ranks' timeline passes its validator), and
+    at the same time the same run killed by ``epoch:1:kill``; then the
+    killed run with ``--resume auto``: parameters and Adam state (the
+    final checkpoints) and each rank's parameter digest equal the
+    uninterrupted run's bit for bit (ROADMAP C6)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pytorch_distributed_rnn_tpu_torch.obs import timeline
+    from pytorch_distributed_rnn_tpu_torch.obs.summary import load_events
+    from pytorch_distributed_rnn_tpu_torch.training.checkpoint import load_checkpoint
+
+    root = workdir / "q3"
+    base = ["--dataset-path", str(workdir / "data"), "--epochs", "3", "--seed", "0",
+            "--no-validation", "--bucket-mb", str(NATIVE_BUCKET_MB), "--dropout", "0.1",
+            "--checkpoint-every", "1", "--checkpoint-directory", "models"]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        ref = pool.submit(_q_world, root / "ref", [*base, "--metrics", "m.jsonl",
+                                                   "--metrics-sample-every", "5"])
+        killed = pool.submit(_q_world, root / "killed", [*base, "--faults", "epoch:1:kill"],
+                             False)
+        ref, killed = ref.result(), killed.result()
+    if [rc for rc, _, _ in killed] != [-9, -9]:
+        print(killed[0][2][-4000:])
+        raise RuntimeError(f"q.3: the killed world exited {[rc for rc, _, _ in killed]}")
+    resumed = _q_world(root / "killed", [*base, "--resume", "auto"])
+    wall = time.perf_counter() - t0
+    logs = "".join(err for _, _, err in resumed)
+    if "auto-resume: restored" not in logs or "holds no dropout stream" in logs:
+        raise RuntimeError(f"q.3: the resumed world's logs: {logs[-3000:]}")
+    digests = {name: {int(r): d for run in results for r, d in _DIGEST.findall(run[2])}
+               for name, results in (("ref", ref), ("resumed", resumed))}
+    if sorted(digests["ref"]) != [0, 1] or digests["ref"] != digests["resumed"]:
+        raise RuntimeError(f"q.3: parameter digests {digests}")
+    want, got = (load_checkpoint(root / name / "models" / "checkpoint-epoch-3.ckpt")
+                 for name in ("ref", "killed"))
+    for key, value in want[0].items():
+        if not torch.equal(value, got[0][key]):
+            raise RuntimeError(f"q.3: resumed parameter {key} differs")
+    for i, state in want[1]["state"].items():
+        for key in ("exp_avg", "exp_avg_sq"):
+            if not torch.equal(state[key], got[1]["state"][i][key]):
+                raise RuntimeError(f"q.3: resumed Adam state {i} {key} differs")
+    sidecars = {rank: root / "ref" / name for rank, name in ((0, "m.jsonl"), (1, "m-r1.jsonl"))}
+    comm = {}
+    for rank, path in sidecars.items():
+        steps = [e for e in load_events(path) if e["kind"] == "step"]
+        if not steps or any(e.get("comm_wait_s") is None for e in steps):
+            raise RuntimeError(f"q.3: rank {rank}'s step events lack comm_wait_s")
+        comm[rank] = {"steps": len(steps), "comm_wait_ms": 1e3 * sum(
+            e["comm_wait_s"] for e in steps) / len(steps), "overlap_frac": [
+            round(e["overlap_frac"], 3) for e in steps if "overlap_frac" in e][:5]}
+    trace = timeline.build_chrome_trace(timeline.load_run(sidecars[0]))
+    timeline.validate_chrome_trace(trace)
+    ranks = trace["otherData"]["ranks"]
+    if sorted(ranks) != [0, 1]:
+        raise RuntimeError(f"q.3: the timeline's ranks {ranks}")
+    print(f"  q.3 distributed-native world 2 --metrics: sidecars m.jsonl and m-r1.jsonl, "
+          f"comm_wait_s in every step event {comm}; the two ranks' timeline "
+          f"({len(trace['traceEvents'])} events, clock offsets "
+          f"{trace['otherData']['clock_offsets_s']}) passes its validator")
+    print(f"  q.3 C6: killed at epoch 1 (exit -9 on both ranks), --resume auto: final "
+          f"parameters and Adam state equal the uninterrupted run's bit for bit, rank digests "
+          f"{digests['resumed']}; three worlds {wall:.1f} s")
+    return {"comm": comm, "seconds": wall}
+
+
+def _q_live(workdir: Path) -> dict:
+    """q.4: path f (one epoch, the per-batch loop of a fault schedule) with
+    ``--metrics --live 0 --live-port-file`` and a stall longer than
+    ``PDRNN_WATCHDOG_STALL`` in a thread of this process, polled from
+    this one: ``/metrics`` answers, ``/health`` reports the rank stalled
+    and then ok, ``/events`` the stall alert and its clearing; then the
+    same run without telemetry (and stalls of 10 ms): the same parameters
+    and Adam state bit for bit."""
+    import urllib.error
+    import urllib.request
+
+    root = workdir / "q4"
+    (root / "live").mkdir(parents=True)
+    (root / "plain").mkdir()
+    port_file = root / "live" / "port.txt"
+    (step, seconds), (hold_step, hold) = Q_STALL, Q_HOLD
+    faults = f"step:{step}:stall:{seconds:g},step:{hold_step}:stall:{hold:g}"
+    result = {}
+
+    def live_run():
+        try:
+            result["trainer"] = _cli_trainer(root / "live", _graph_argv(workdir, "f", [
+                "--metrics", str(root / "live" / "m.jsonl"), "--live", "0",
+                "--live-port-file", str(port_file), "--faults", faults]), epochs=1)
+        except BaseException as exc:  # re-raised below
+            result["error"] = exc
+
+    def get(url):
+        try:
+            with urllib.request.urlopen(url, timeout=2.0) as resp:
+                return resp.status, resp.read().decode()
+        except urllib.error.HTTPError as err:
+            return err.code, err.read().decode()
+
+    seen = {"metrics": None, "health": [], "events": []}
+    with _environ(PDRNN_WATCHDOG_STALL=f"{Q_WATCHDOG_STALL_S:g}", PDRNN_METRICS_HEARTBEAT="0.2",
+                  PDRNN_LIVE_PUSH_EVERY="0.2"):
+        thread = threading.Thread(target=live_run, name="q4-live-run")
+        thread.start()
+        deadline = time.perf_counter() + Q_TIMEOUT
+        while not port_file.exists() and thread.is_alive() and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        if port_file.exists():
+            host, port = port_file.read_text().split()
+            base = f"http://{host}:{port}"
+            while thread.is_alive() and time.perf_counter() < deadline:
+                try:
+                    code, body = get(base + "/health")
+                    status = [s["status"] for s in json.loads(body)["sources"]]
+                    if not seen["health"] or seen["health"][-1] != status:
+                        seen["health"].append(status)
+                    if seen["metrics"] is None or "pdrnn_steps_total" not in seen["metrics"][1]:
+                        seen["metrics"] = get(base + "/metrics")
+                    code, body = get(base + "/events")
+                    seen["events"] = [e.get("alert") for e in json.loads(body)]
+                except OSError:
+                    pass  # the server closes as the run ends
+                time.sleep(0.1)
+        thread.join()
+    if "error" in result:
+        raise result["error"]
+    plain = _cli_trainer(root / "plain", _graph_argv(workdir, "f", [
+        "--faults", f"step:{step}:stall:0.01,step:{hold_step}:stall:0.01"]), epochs=1)
+    _same_bits("q.4 path f --live vs plain", result["trainer"], plain)
+    statuses = [s[0] for s in seen["health"] if s]
+    code, text = seen["metrics"] or (None, "")
+    if code != 200 or "pdrnn_steps_total" not in text:
+        raise RuntimeError(f"q.4: /metrics answered {code}: {text[:500]}")
+    if "stalled" not in statuses or "ok" not in statuses[statuses.index("stalled"):]:
+        raise RuntimeError(f"q.4: /health went {seen['health']}")
+    if "stall" not in seen["events"] or "stall_cleared" not in seen["events"]:
+        raise RuntimeError(f"q.4: /events {seen['events']}")
+    print(f"  q.4 path f --live 0 --faults {faults} (PDRNN_WATCHDOG_STALL "
+          f"{Q_WATCHDOG_STALL_S:g}): /metrics answered 200 "
+          f"({len(text.splitlines())} lines), /health went {statuses}, /events "
+          f"{seen['events']}; parameters and Adam state equal the run without telemetry's "
+          f"bit for bit")
+    return {"health": statuses, "events": seen["events"]}
+
+
+def phase_telemetry(workdir: Path, formatter) -> dict:
+    """Phase q, the training CLI's telemetry on the existing kernels: q.1
+    ``--metrics`` on path a's graph path (bits, the recorder's cost a step,
+    the sidecar and the ledger), q.2 ``--profile-steps`` and ``--profile``,
+    q.3 ``distributed-native`` at world 2 with ``--metrics`` and the C6
+    kill and resume, q.4 the live plane and the watchdog on path f."""
+    print("phase q: --metrics, --metrics-sample-every, --profile, --profile-steps, --live, "
+          "--live-port-file")
+    t0 = time.perf_counter()
+    out = {"metrics": _q_metrics(workdir, formatter), "profile": _q_profile(workdir),
+           "native": _q_native(workdir), "live": _q_live(workdir)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase q: {out['seconds']:.1f} s")
+    print("telemetry: " + json.dumps(out, default=str))
+    return out
+
+
 def _long_context_trainer(fuse_run: bool = False):
     """Path e's trainer: the long-context classifier (bench.py's
     attention_seq1024_dim512 bf16 row) on ``LONG_STEPS`` batches of
@@ -3067,6 +3516,7 @@ def main() -> int:
         # all three attempts (serving once, this phase once)
         phase_ps(workdir, dp_finals, native["finals"])
         phase_resilience(workdir, formatter)
+        phase_telemetry(workdir, formatter)
         phase_serving(workdir, runs)
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

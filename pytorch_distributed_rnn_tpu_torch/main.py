@@ -17,7 +17,13 @@ gradients on the device, abort past K in a row), ``--faults SPEC`` (the
 ``resilience/faults.py`` schedule, also ``PDRNN_CHAOS``), ``--resume
 auto`` (the newest valid checkpoint of ``--checkpoint-directory``),
 ``--grad-accum K`` (``local``: K microbatches a step) and ``--remat``
-(recompute each RNN layer or encoder block in the backward).
+(recompute each RNN layer or encoder block in the backward).  The
+telemetry flags, on every strategy: ``--metrics PATH`` (a JSONL sidecar
+a rank, ``obs/recorder.py``; ``PDRNN_METRICS``), ``--metrics-sample-every
+N``, ``--live [HOST:]PORT`` and ``--live-port-file PATH`` (the live plane,
+``obs/live.py``; ``PDRNN_LIVE``), ``--profile DIR`` and ``--profile-steps
+A:B`` (``obs/profile.py``); read the sidecars with ``python -m
+pytorch_distributed_rnn_tpu_torch.obs``.
 Flags whose machinery is not ported yet are parsed and rejected loudly
 when set to anything but their default.
 
@@ -34,6 +40,9 @@ Run:
       --hidden-units 512 --seq-length 128 --batch-size 256 --dropout 0 local
   python -m pytorch_distributed_rnn_tpu_torch.main --model attention \
       --hidden-units 128 --num-heads 4 --batch-size 256 --dropout 0 local
+  python -m pytorch_distributed_rnn_tpu_torch.main --dataset-path data \
+      --metrics m.jsonl --live 0 --live-port-file port local
+  python -m pytorch_distributed_rnn_tpu_torch.obs summarize m.jsonl
 """
 
 from __future__ import annotations
@@ -134,14 +143,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "and, with dropout, a batch size dividing the training set; "
                         f"distributed and horovod: {NOT_PORTED}; distributed-native: "
                         "rejected (the host handles every batch)")
-    parser.add_argument("--profile", default=None, type=Path, metavar="DIR", help=NOT_PORTED)
-    parser.add_argument("--profile-steps", default=None, metavar="A:B", help=NOT_PORTED)
-    parser.add_argument("--metrics", default=None, type=Path, metavar="PATH", help=NOT_PORTED)
+    parser.add_argument("--profile", default=None, type=Path, metavar="DIR",
+                        help="write a torch.profiler Chrome trace (host, and the card's "
+                        "kernels) of the training run into DIR")
+    parser.add_argument("--profile-steps", default=None, metavar="A:B",
+                        help="bound the --profile trace to optimizer steps [A, B)")
+    parser.add_argument("--metrics", default=None, type=Path, metavar="PATH",
+                        help="structured run telemetry: rank-tagged JSONL events (steps, "
+                        "epochs, collectives, checkpoints, faults, the efficiency ledger) "
+                        "to PATH (-r<rank> siblings for other ranks), written by a "
+                        "background thread; PDRNN_METRICS when unset")
     parser.add_argument("--metrics-sample-every", default=None, type=int, metavar="N",
-                        help=NOT_PORTED)
-    parser.add_argument("--live", default=None, metavar="[HOST:]PORT", help=NOT_PORTED)
+                        help="every N-th step (and step 1) synchronizes the device to "
+                        "measure its wall time (default 16, PDRNN_METRICS_SAMPLE)")
+    parser.add_argument("--live", default=None, metavar="[HOST:]PORT",
+                        help="live plane (needs --metrics): rank 0 serves GET /metrics, "
+                        "/health, /events and /fleet, the other ranks push to it, and a "
+                        "watchdog flags stalls, NaN streaks and loss spikes "
+                        "(PDRNN_WATCHDOG_STALL seconds); PDRNN_LIVE when unset")
     parser.add_argument("--live-port-file", default=None, type=Path, metavar="PATH",
-                        help=NOT_PORTED)
+                        help="write 'host port' of the live endpoint here once bound "
+                        "(finds a --live 0 ephemeral port)")
 
     sub_parser = parser.add_subparsers(title="Available commands",
                                        metavar="command [options ...]")
@@ -172,12 +194,6 @@ def reject_unported(args):
     unported = {
         "--fuse-run under distributed and horovod": (
             args.fuse_run and args.strategy in ("distributed", "horovod")),
-        "--metrics": args.metrics is not None,
-        "--metrics-sample-every": args.metrics_sample_every is not None,
-        "--live": args.live is not None,
-        "--live-port-file": args.live_port_file is not None,
-        "--profile": args.profile is not None,
-        "--profile-steps": args.profile_steps is not None,
         "--checkpoint-format sharded": args.checkpoint_format != "gathered",
         "--checkpoint-async": args.checkpoint_async,
     }

@@ -24,6 +24,14 @@ voluntarily, without burning the quorum budget.  The elastic half - the
 acceptor of REGISTER (re)joins, the per-rank generations of re-accepted
 service threads and the rejoin wait - comes with ROADMAP A7's second
 half.
+
+Telemetry (``recorder``, the master's rank-0 sidecar), as the JAX
+master records it: a ``ps_round`` span a round (sync: from the round's
+first push to its update, with its gathered and expected counts and
+each worker's push seq; async: the update, under the lock), a
+``ps_worker_dead`` event and the roster's ``member_dead`` and
+``member_drain``, and at the end ``ps_summary`` and a ``run_summary``
+with the roster's counts.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from __future__ import annotations
 import logging
 import math
 import threading
+import time
 
 import torch
 
@@ -42,7 +51,7 @@ log = logging.getLogger(__name__)
 
 class ParameterServerMaster:
     def __init__(self, comm, flat_params: torch.Tensor, apply_update, sync_mode: bool = False,
-                 sync_timeout: float = 300.0, quorum: float = 1.0):
+                 sync_timeout: float = 300.0, quorum: float = 1.0, recorder=None):
         """``apply_update(flat_grads) -> flat_params`` advances the owned
         state by one optimizer step and returns the new flat params (a
         float32 CPU tensor the master sends as they are).
@@ -55,6 +64,9 @@ class ParameterServerMaster:
         a straggler's late gradient joins the next round."""
         if not 0.0 < quorum <= 1.0:
             raise ValueError(f"quorum must be in (0, 1], got {quorum}")
+        from pytorch_distributed_rnn_tpu_torch.obs.recorder import NULL_RECORDER
+
+        self.recorder = recorder if recorder is not None else NULL_RECORDER
         self.comm = comm
         self.params = flat_params
         self.apply_update = apply_update
@@ -66,10 +78,13 @@ class ParameterServerMaster:
         self.num_params = int(flat_params.numel())
         self.updates_applied = 0
         self.degraded_rounds = 0
-        self.roster = membership.Roster()
+        self.roster = membership.Roster(recorder=self.recorder)
         self.roster.bootstrap(range(1, self.comm.world_size))
-        # sync-mode rendezvous state
+        # sync-mode rendezvous state: the gradients, each worker's push
+        # seq and when the round's first push arrived
         self._pending: dict[int, torch.Tensor] = {}
+        self._round_seqs: dict[int, int] = {}
+        self._round_tm0 = None
         self._sync_cv = threading.Condition(self.lock)
 
     def serve(self) -> torch.Tensor:
@@ -80,6 +95,7 @@ class ParameterServerMaster:
         mode): a dying worker is then marked dead and dropped from later
         rounds, and only a loss below the quorum fails the run.  Returns
         the final flat params."""
+        serve_tm0 = time.perf_counter()
         num_workers = self.comm.world_size - 1
         errors: dict[int, BaseException] = {}
         tolerated: dict[int, BaseException] = {}
@@ -115,11 +131,20 @@ class ParameterServerMaster:
                 f"parameter server lost quorum: {sorted(m.rank for m in lost)} worker(s) died, "
                 f"{survivors} survivor(s) < quorum {self._quorum_count(num_workers)}"
             ) from tolerated.get(lost[0].rank)
+        counts = self.roster.counts()
         log.info(
             f"parameter server done: {self.updates_applied} updates applied, roster "
-            f"{self.roster.counts()}"
+            f"{counts}"
             + (f", {self.degraded_rounds} degraded round(s)" if self.degraded_rounds else "")
         )
+        self.recorder.record("ps_summary", updates=self.updates_applied,
+                             degraded_rounds=self.degraded_rounds, workers_lost=len(lost),
+                             rejoins=0)
+        # the roster's verdict, where the summaries read a run's outcome
+        self.recorder.record("run_summary", duration_s=time.perf_counter() - serve_tm0,
+                             steps=self.updates_applied, roster=counts, rejoins=0,
+                             degraded_rounds=self.degraded_rounds)
+        self.recorder.flush()
         return self.params
 
     def _mark_dead(self, worker: int, exc: BaseException):
@@ -129,6 +154,8 @@ class ParameterServerMaster:
         close it here."""
         log.warning(f"worker {worker} dropped from the sync rendezvous "
                     f"({type(exc).__name__}: {exc}); degrading to survivors")
+        self.recorder.record("ps_worker_dead", worker=worker,
+                             error=f"{type(exc).__name__}: {str(exc)[:200]}")
         self.roster.mark_dead(worker, error=f"{type(exc).__name__}: {str(exc)[:200]}")
         self._rendezvous_leave(worker)
 
@@ -139,6 +166,7 @@ class ParameterServerMaster:
         (``round_ranks`` excludes the leaver)."""
         with self._sync_cv:
             self._pending.pop(worker, None)
+            self._round_seqs.pop(worker, None)
             live = len(self.roster.round_ranks())
             if self._pending and len(self._pending) >= max(1, live):
                 self._close_round()
@@ -183,24 +211,44 @@ class ParameterServerMaster:
                     "gradient presence per batch; this asserts integrity)"
                 )
             if self.sync_mode:
-                self._push_sync(worker, grads)
+                self._push_sync(worker, grads, seq)
             else:
                 with self.lock:
+                    # the span inside the lock: updates are serialized, so
+                    # the spans on the master's ps row do not overlap
+                    t0 = time.perf_counter()
                     self.params = self.apply_update(grads)
                     self.updates_applied += 1
                     protocol.send_params(self.comm, worker, self.params)
+                    if self.recorder.enabled:
+                        self.recorder.emit_span("ps_round", t0, time.perf_counter() - t0,
+                                                cat="ps", round=self.updates_applied,
+                                                worker=worker, seq=seq, mode="async")
 
-    def _close_round(self):  # holds: lock
+    def _close_round(self, degraded: bool = False):  # holds: lock
         """Average the gathered gradients (summed in worker-rank order,
         then divided by their count), apply ONE update, reply to every
         worker owed fresh params, wake the waiters.  Caller holds the
         lock."""
         ranks = sorted(self._pending)
+        expected = len(self.roster.round_ranks())
+        tm0, self._round_tm0 = self._round_tm0, None
+        seqs = {str(w): s for w, s in self._round_seqs.items() if s is not None}
+        self._round_seqs = {}
         total = self._pending[ranks[0]].clone()
         for w in ranks[1:]:
             total.add_(self._pending[w])
         self.params = self.apply_update(total.div_(len(ranks)))
         self.updates_applied += 1
+        if self.recorder.enabled:
+            now = time.perf_counter()
+            # the push seq each worker contributed: what the timeline's
+            # clock alignment pairs with the workers' push exchanges
+            self.recorder.emit_span("ps_round", now if tm0 is None else tm0,
+                                    0.0 if tm0 is None else now - tm0, cat="ps",
+                                    round=self.updates_applied, gathered=len(ranks),
+                                    expected=expected, degraded=degraded, mode="sync",
+                                    seqs=seqs)
         for w in ranks:
             try:
                 protocol.send_params(self.comm, w, self.params)
@@ -218,7 +266,7 @@ class ParameterServerMaster:
     def _quorum_count(self, num_workers: int) -> int:
         return max(1, math.ceil(self.quorum * num_workers))
 
-    def _push_sync(self, worker: int, grads: torch.Tensor):
+    def _push_sync(self, worker: int, grads: torch.Tensor, seq: int | None = None):
         """Gather one gradient per live worker, average, apply once,
         release.
 
@@ -227,7 +275,10 @@ class ParameterServerMaster:
         (strict mode, or not even a quorum delivered)."""
         with self._sync_cv:
             num_workers = max(1, len(self.roster.round_ranks()))
+            if not self._pending:
+                self._round_tm0 = time.perf_counter()
             self._pending[worker] = grads
+            self._round_seqs[worker] = seq
             if len(self._pending) >= num_workers:
                 self._close_round()
                 return
@@ -248,7 +299,7 @@ class ParameterServerMaster:
                     f"gradient(s) after {self.sync_timeout}s ({missing} straggler(s)); applying "
                     f"the partial average (degraded rounds so far: {self.degraded_rounds})"
                 )
-                self._close_round()
+                self._close_round(degraded=True)
                 return
             # a straggler never delivered and no quorum covers it: fail
             # loudly instead of silently proceeding with stale parameters

@@ -23,6 +23,15 @@ updates and the time of their parts, a worker's steps, host and exchange
 ms a step and kernel launches, and each rank's parameters as their sum
 and the sha256 of their float32 bytes.
 
+Telemetry: each role resolves its own recorder (``--metrics``: the
+master's sidecar is rank 0's, a worker's its ``-r<rank>`` sibling) with
+its SIGUSR2 stack dump; ``--live`` makes the master the anchor that
+serves ``/metrics`` and ``/health`` and the workers push to it.
+``--profile DIR`` traces each role's whole run and ``--profile-steps
+A:B`` each worker's steps, into rank-suffixed traces: every role is its
+own process here (the JAX strategy refuses both, its parent process
+traces nothing).
+
 ``--faults`` runs in the workers, each with the schedule bound to its
 rank (``@rank`` events), and its ``net:*`` events are exported onto the
 transport's environment before any ``Communicator`` or spawned process
@@ -124,12 +133,16 @@ def flat_parameters(model) -> torch.Tensor:
     return torch.cat([p.detach().reshape(-1).float().cpu() for p in model.parameters()])
 
 
+def parameters_digest(flat: torch.Tensor) -> str:
+    """The sha256 of the parameters' float32 bytes (equal digests: equal
+    bits)."""
+    return hashlib.sha256(flat.detach().float().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
 def parameters_line(rank: int, flat: torch.Tensor) -> str:
-    """The rank-parity observable: the parameters' sum and the sha256 of
-    their float32 bytes (equal digests: equal bits)."""
-    data = flat.detach().float().cpu().contiguous().numpy().tobytes()
+    """The rank-parity observable: the parameters' sum and digest."""
     return (f"{rank}: parameters: {float(flat.double().sum()):.10f} "
-            f"sha256 {hashlib.sha256(data).hexdigest()}")
+            f"sha256 {parameters_digest(flat)}")
 
 
 def _role_device(args, rank: int) -> torch.device:
@@ -168,6 +181,37 @@ def _join_world(args, rank: int, device: torch.device):
     return comm, datasets
 
 
+def _telemetry(args, rank: int, role: str, faults=None):
+    """This role's recorder (the NULL recorder without ``--metrics``),
+    its live plane (None without ``--live``) and the whole-run trace of
+    ``--profile`` without ``--profile-steps`` (a null context else)."""
+    import contextlib
+
+    from pytorch_distributed_rnn_tpu_torch.obs.profile import run_trace
+    from pytorch_distributed_rnn_tpu_torch.obs.recorder import MetricsRecorder
+
+    recorder = MetricsRecorder.resolve(args, rank=rank, meta={"role": role})
+    plane = None
+    if recorder.enabled:
+        from pytorch_distributed_rnn_tpu_torch.obs.live import LivePlane
+        from pytorch_distributed_rnn_tpu_torch.obs.watchdog import install_stack_dump_handler
+
+        install_stack_dump_handler(recorder.path)
+        plane = LivePlane.resolve(args, recorder, rank=rank, role=role, faults=faults)
+    profile = getattr(args, "profile", None)
+    trace = (run_trace(profile, _role_device(args, rank), rank)
+             if profile and not getattr(args, "profile_steps", None)
+             else contextlib.nullcontext())
+    return recorder, plane, trace
+
+
+def _close_telemetry(recorder, plane) -> None:
+    # the plane after the recorder: the final digest lands first
+    recorder.close()
+    if plane is not None:
+        plane.close()
+
+
 def run_master(args) -> torch.Tensor:
     """Rank 0: serve the workers until each is done; returns the final
     flat parameters."""
@@ -176,14 +220,19 @@ def run_master(args) -> torch.Tensor:
 
     device = _role_device(args, 0)
     comm, (training_set, _, _) = _join_world(args, 0, device)
-    with comm:
-        flat = flat_parameters(families.build_model(args, training_set))
-        update = FlatAdam(flat, args.learning_rate, device)
-        master = ParameterServerMaster(comm, update.host, update,
-                                       sync_mode=args.ps_mode == "sync",
-                                       sync_timeout=args.ps_sync_timeout,
-                                       quorum=args.ps_quorum)
-        final = master.serve()
+    # no fault schedule here: faults fire in the workers' data paths
+    recorder, plane, trace = _telemetry(args, 0, "master")
+    try:
+        with comm, trace:
+            flat = flat_parameters(families.build_model(args, training_set))
+            update = FlatAdam(flat, args.learning_rate, device)
+            master = ParameterServerMaster(comm, update.host, update,
+                                           sync_mode=args.ps_mode == "sync",
+                                           sync_timeout=args.ps_sync_timeout,
+                                           quorum=args.ps_quorum, recorder=recorder)
+            final = master.serve()
+    finally:
+        _close_telemetry(recorder, plane)
     total = [sum(parts) for parts in zip(*update.seconds.values())]
     parts = ", ".join(f"{part} {mean_and_median_ms(s)}" for part, s in update.seconds.items())
     log.info(f"ps master: {master.updates_applied} updates ({args.ps_mode}); update ms a call, "
@@ -197,6 +246,7 @@ def run_worker(args, rank: int):
     """Worker ``rank``: train against the master; returns the trainer.  A
     SIGTERM drain deregisters after the in-flight exchange and returns
     normally (exit 0)."""
+    from pytorch_distributed_rnn_tpu_torch.obs.profile import StepTraceCapture
     from pytorch_distributed_rnn_tpu_torch.param_server.worker import (
         ParameterServerWorkerTrainer,
     )
@@ -215,27 +265,33 @@ def run_worker(args, rank: int):
     faults = training.resolve_faults(args, rank=rank)
     device = _role_device(args, rank)
     comm, (training_set, _, _) = _join_world(args, rank, device)
+    recorder, plane, trace = _telemetry(args, rank, "worker", faults)
     train_history = None
-    with comm:
-        model = families.build_model(args, training_set)
-        trainer = families.wrap_trainer(args, ParameterServerWorkerTrainer)(
-            model, training_set, args.batch_size, args.learning_rate, comm=comm,
-            worker_rank=rank, num_workers=args.world_size - 1, seed=args.seed, device=device,
-            transport_retries=args.ps_transport_retries,
-            # retry storms must die inside the round they retry into
-            transport_deadline_s=args.ps_sync_timeout, drain_signal=drain,
-            grad_accum=args.grad_accum, faults=faults)
-        t0 = time.perf_counter()
-        try:
-            _, train_history, _ = trainer.train(epochs=args.epochs)
-            trainer.finish()
-        except DrainRequested:
-            trainer.deregister()
-            # a voluntary leave is success: the process exits 0
-            log.warning(f"worker {rank} drained on SIGTERM")
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
+    try:
+        with comm:
+            model = families.build_model(args, training_set)
+            trainer = families.wrap_trainer(args, ParameterServerWorkerTrainer)(
+                model, training_set, args.batch_size, args.learning_rate, comm=comm,
+                worker_rank=rank, num_workers=args.world_size - 1, seed=args.seed,
+                device=device, transport_retries=args.ps_transport_retries,
+                # retry storms must die inside the round they retry into
+                transport_deadline_s=args.ps_sync_timeout, drain_signal=drain,
+                grad_accum=args.grad_accum, faults=faults, recorder=recorder,
+                profile_steps=StepTraceCapture.resolve(args))
+            t0 = time.perf_counter()
+            try:
+                with trace:
+                    _, train_history, _ = trainer.train(epochs=args.epochs)
+                trainer.finish()
+            except DrainRequested:
+                trainer.deregister()
+                # a voluntary leave is success: the process exits 0
+                log.warning(f"worker {rank} drained on SIGTERM")
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+    finally:
+        _close_telemetry(recorder, plane)
     times = step_times(trainer)
     launches = {name: n for name, n in launch_counts().items() if n}
     log.info(f"ps worker {rank}: {len(trainer.exchange_log)} steps in {wall:.3f} s; ms a step, "

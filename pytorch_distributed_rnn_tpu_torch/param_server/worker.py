@@ -31,6 +31,12 @@ workers, as in the reference.
   gradient, which the master refuses (its integrity check), as JAX's
   master does.
 
+Telemetry (``recorder``, the worker's ``-r<rank>`` sidecar): the
+trainer's step and epoch events, a ``ps_exchange`` event an exchange
+(what, step, push seq, seconds, retries; ``failed`` before a failure
+propagates) and ``member_drain`` on a drain, as the JAX worker records
+them.
+
 ``exchange_log`` keeps each step's exchange as two ``perf_counter``
 stamps: the push's first byte, and the copies that adopt the reply
 queued on the device; ``train_started`` is the stamp training started
@@ -62,19 +68,23 @@ class ParameterServerWorkerTrainer(Trainer):
     GRAPH_STEP = False
     # as the JAX worker (param_server/worker.py)
     SUPPORTS_GRAD_ACCUM = False
+    # the master applies the update: a step here is forward and backward
+    UPDATES_LOCALLY = False
 
     def __init__(self, model, training_set, batch_size: int, learning_rate: float,
                  comm=None, worker_rank: int = 1, num_workers: int = 1,
                  seed: int | None = None, device="cuda", transport_retries: int = 3,
                  transport_deadline_s: float | None = None,
-                 drain_signal: DrainSignal | None = None, grad_accum: int = 1, faults=None):
+                 drain_signal: DrainSignal | None = None, grad_accum: int = 1, faults=None,
+                 recorder=None, profile_steps=None):
         if comm is None:
             raise ValueError("ParameterServerWorkerTrainer needs the transport (comm=)")
         # no guard here: the optimizer that applies updates is the master's,
         # whose finite-gradient check is the integrity guard
         super().__init__(model, training_set, max(1, batch_size // num_workers), learning_rate,
                          validation_set=None, test_set=None, checkpoint_dir=None, seed=seed,
-                         device=device, grad_accum=grad_accum, faults=faults)
+                         device=device, grad_accum=grad_accum, faults=faults,
+                         recorder=recorder, profile_steps=profile_steps)
         seed = seed if seed is not None else 0
         self.comm = comm
         self.rank = self.worker_rank = int(worker_rank)
@@ -97,6 +107,12 @@ class ParameterServerWorkerTrainer(Trainer):
         self._pinned = {}
         # the initial pull: adopt the master's authoritative parameters
         self._adopt(self._exchange(self._pull_params, what="initial pull"))
+
+    def _collective_ops(self) -> dict:
+        """A step's exchange with the master: the flat gradient pushed,
+        the flat parameters pulled (float32)."""
+        flat = 4 * self.num_params
+        return {"ps_push": {"count": 1, "bytes": flat}, "ps_pull": {"count": 1, "bytes": flat}}
 
     def train(self, epochs: int):
         self.train_started = time.perf_counter()
@@ -121,12 +137,34 @@ class ParameterServerWorkerTrainer(Trainer):
         protocol.send_request(self.comm, protocol.OP_PULL)
         return protocol.recv_params(self.comm, self.num_params, out=self._host("reply"))
 
-    def _exchange(self, fn, what: str):
+    def _exchange(self, fn, what: str, seq: int | None = None):
         """One protocol exchange under the retry policy, retried WHOLE
-        (request and reply)."""
-        return retry_transport(fn, retries=self._transport_retries, seed=self.worker_rank,
-                               what=f"{what} (worker {self.worker_rank})",
-                               deadline_s=self._transport_deadline)
+        (request and reply); with a recorder, its latency and retries as a
+        ``ps_exchange`` event (``seq``, the push's, pairs it with the
+        master's round)."""
+        recording = self.recorder.enabled
+        retries = [0]
+
+        def on_retry(attempt, exc):
+            retries[0] = attempt
+
+        t0 = time.perf_counter()
+        try:
+            result = retry_transport(fn, retries=self._transport_retries, seed=self.worker_rank,
+                                     what=f"{what} (worker {self.worker_rank})",
+                                     on_retry=on_retry if recording else None,
+                                     deadline_s=self._transport_deadline)
+        except Exception:
+            if recording:
+                self.recorder.record("ps_exchange", what=what, step=self._steps_done, seq=seq,
+                                     seconds=time.perf_counter() - t0, retries=retries[0],
+                                     failed=True)
+                self.recorder.flush()  # the run is about to die with this
+            raise
+        if recording:
+            self.recorder.record("ps_exchange", what=what, step=self._steps_done, seq=seq,
+                                 seconds=time.perf_counter() - t0, retries=retries[0])
+        return result
 
     @torch.no_grad()
     def _adopt(self, flat: torch.Tensor) -> None:
@@ -161,7 +199,7 @@ class ParameterServerWorkerTrainer(Trainer):
             return protocol.recv_params(self.comm, self.num_params, out=self._host("reply"))
 
         t0 = time.perf_counter()
-        self._adopt(self._exchange(push_pull, what="gradient push"))
+        self._adopt(self._exchange(push_pull, what="gradient push", seq=seq))
         self.exchange_log.append((t0, time.perf_counter()))
         if self._drain is not None:
             # the step's exchange is complete (gradient applied, params
@@ -178,3 +216,8 @@ class ParameterServerWorkerTrainer(Trainer):
         protocol.send_request(self.comm, protocol.OP_DEREGISTER, seq=self._push_seq)
         log.info(f"worker-id {self.worker_id} (rank {self.worker_rank}) deregistered after "
                  f"push seq {self._push_seq}")
+        if self.recorder.enabled:
+            # health reads this rank as drained, not dead
+            self.recorder.record("member_drain", worker_id=self.worker_id,
+                                 rank_slot=self.worker_rank, seq=self._push_seq)
+            self.recorder.flush()

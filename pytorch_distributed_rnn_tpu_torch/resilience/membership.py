@@ -21,9 +21,11 @@ and drain signals.  The non-elastic part of the JAX package's
 
 The elastic entries - a respawned member re-entering through REGISTER
 (``join`` with an incarnation count and the rejoin window) and
-``restore_watermarks`` - come with the elastic half of ROADMAP A7, and
-the membership events with the port's recorder (A5): transitions are
-logged.
+``restore_watermarks`` - come with the elastic half of ROADMAP A7.  A
+fixed world's launch set is not membership telemetry (no ``member_join``
+events, as the JAX master bootstraps it quietly); a drain and a death are
+logged and recorded (``member_drain``, ``member_dead``, with the roster's
+counts) on the recorder the roster is given.
 """
 
 from __future__ import annotations
@@ -73,7 +75,10 @@ class Roster:
     so it composes under the master's round lock.
     """
 
-    def __init__(self):
+    def __init__(self, recorder=None):
+        from pytorch_distributed_rnn_tpu_torch.obs.recorder import NULL_RECORDER
+
+        self.recorder = recorder if recorder is not None else NULL_RECORDER
         self._lock = threading.Lock()  # guards _members, _by_rank
         self._members: dict[int, Member] = {}
         self._by_rank: dict[int, int] = {}
@@ -94,7 +99,7 @@ class Roster:
         denominator without burning its budget."""
         member = self._transition(rank, DRAINED)
         if member is not None:
-            self._log("member_drain", member, f"after push seq {seq}")
+            self._emit("member_drain", member, seq=seq, **self.counts())
         return member
 
     def mark_dead(self, rank: int, error: str | None = None) -> Member | None:
@@ -103,7 +108,7 @@ class Roster:
         member = self._transition(rank, DEAD)
         if member is not None:
             member.error = error
-            self._log("member_dead", member, error or "")
+            self._emit("member_dead", member, error=error, **self.counts())
         return member
 
     def complete(self, rank: int) -> Member | None:
@@ -160,10 +165,12 @@ class Roster:
                 counts[m.state] += 1
             return counts
 
-    @staticmethod
-    def _log(kind: str, member: Member, detail: str) -> None:
+    def _emit(self, kind: str, member: Member, **fields) -> None:
         log.info(f"membership: {kind} worker_id={member.worker_id} rank={member.rank} "
-                 f"{detail}".rstrip())
+                 f"{fields.get('error') or ''}".rstrip())
+        if self.recorder.enabled:
+            self.recorder.record(kind, worker_id=member.worker_id, rank_slot=member.rank,
+                                 incarnation=0, **fields)
 
 
 class DrainSignal:

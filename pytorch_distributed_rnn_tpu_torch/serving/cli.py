@@ -27,8 +27,9 @@ it, SIGTERM down, the report (with the server's exit code) out.  Exit
 codes: 0 = SLO pass, 1 = SLO fail or errors, 2 = usage or spawn failure.
 
 Flags whose machinery is not ported yet are parsed and rejected when set:
-the telemetry and chaos flags (``--metrics``, ``--live``, ``--slo``,
-``--faults``, ...) with ROADMAP A5, the fleet's (``--replica-id``,
+serving's telemetry and chaos flags (``--metrics``, ``--live``, ``--slo``,
+``--faults``, ...: the engine's spans and live source; the training CLI
+has its telemetry) with ROADMAP A5's serving part, the fleet's (``--replica-id``,
 ``--drain-timeout``, loadgen's ``--spawn-fleet`` and its options, the
 ``router`` subcommand) with the serving fleet, ``--model moe`` with A9.
 """
@@ -46,7 +47,8 @@ from pathlib import Path
 
 log = logging.getLogger(__name__)
 
-NOT_PORTED_TELEMETRY = "not ported yet (ROADMAP.md A5: the telemetry, chaos and live plane)"
+NOT_PORTED_TELEMETRY = ("not ported yet for serving (ROADMAP.md A5, serving part: the engine's "
+                        "spans, its live source, the SLOs and chaos)")
 NOT_PORTED_FLEET = "not ported yet (ROADMAP.md A4: the serving fleet and its router)"
 MOE_NOT_PORTED = ("--model moe is not ported yet - the port serves --model char and "
                   "attention; the MoE LM and its adapter come with ROADMAP.md A9")

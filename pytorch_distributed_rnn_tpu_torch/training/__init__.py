@@ -12,6 +12,15 @@ pytorch_distributed_rnn_tpu_torch.main ... distributed``).
 ``native_ddp.launch_world``).  Without a launcher each runs as a world of 1.
 ``parameter-server`` (``param_server/``) spawns its own world, or runs one
 role a process with ``--rank``.
+
+The run tail (:func:`_run_trainer`) wires the telemetry flags as the JAX
+package's does: ``--metrics`` (or ``PDRNN_METRICS``) a rank-suffixed
+JSONL sidecar a rank (``obs/recorder.py``), ``--live`` (or
+``PDRNN_LIVE``) the live plane and its watchdog (``obs/live.py``: rank 0
+serves ``/metrics``, ``/health``, ``/events`` and ``/fleet``, the other
+ranks push to it; ``--live-port-file`` reports the port), a SIGUSR2
+stack dump beside the sidecar, ``--profile DIR`` a trace of the whole
+run and ``--profile-steps A:B`` of a step range (``obs/profile.py``).
 """
 
 from __future__ import annotations
@@ -51,7 +60,8 @@ def train(args, trainer_class):
     """Load the family's datasets, build its model and run the trainer
     with the family's loss mixed in.  A data-parallel strategy first joins
     the process group of its launch; rank 0 builds the kernels and
-    prepares the data before the other ranks read them."""
+    prepares the data before the other ranks read them, and each rank
+    ends with its parameters' digest (:func:`log_parameter_digest`)."""
     logging.basicConfig(level=args.log)
     logging.getLogger().setLevel(args.log)
     if not issubclass(trainer_class, SpmdTrainer):
@@ -64,10 +74,24 @@ def train(args, trainer_class):
     try:
         if group.device.type == "cuda":
             collectives.build_kernels_once(group)
-        return _train(args, trainer_class, group, device=group.device, group=group,
-                      sharded_update=args.sharded_update, faults=faults)
+        trainer = _train(args, trainer_class, group, device=group.device, group=group,
+                         sharded_update=args.sharded_update, faults=faults)
+        log_parameter_digest(group.rank, trainer.model)
+        return trainer
     finally:
         collectives.destroy(group)
+
+
+def log_parameter_digest(rank: int, model) -> None:
+    """The rank-parity observable of a world's rank: ``"{rank}: parameters
+    sha256 {hex}"``, the digest of the parameters' float32 bytes in
+    ``parameters()`` order (equal digests: equal bits)."""
+    from pytorch_distributed_rnn_tpu_torch.param_server.runner import (
+        flat_parameters,
+        parameters_digest,
+    )
+
+    logging.info(f"{rank}: parameters sha256 {parameters_digest(flat_parameters(model))}")
 
 
 def _train(args, trainer_class, ranks=None, **placement):
@@ -114,13 +138,33 @@ def resolve_faults(args, rank: int | None = None):
 
 
 def _run_trainer(args, trainer_class, model, datasets, **placement):
-    """Construct, optionally resume, train, and (rank 0) dump
-    ``history.json`` into the working directory.  ``placement`` holds the
-    device, and a data-parallel strategy's process group or ring and its
-    options, and the fault schedule its entry point resolved (``faults``;
-    ``local`` resolves it here)."""
+    """Construct, optionally resume, train (under the telemetry the
+    flags ask for), and (rank 0) dump ``history.json`` into the working
+    directory.  ``placement`` holds the device, and a data-parallel
+    strategy's process group or ring and its options, and the fault
+    schedule its entry point resolved (``faults``; ``local`` resolves it
+    here)."""
+    import contextlib
+
+    from pytorch_distributed_rnn_tpu_torch.obs.profile import StepTraceCapture, run_trace
+    from pytorch_distributed_rnn_tpu_torch.obs.recorder import MetricsRecorder
+
     if "faults" not in placement:
         placement["faults"] = resolve_faults(args)
+    world = placement.get("group") or placement.get("comm")
+    rank = world.rank if world is not None else 0
+    # --metrics beats PDRNN_METRICS; the NULL recorder (no thread) when off
+    recorder = MetricsRecorder.resolve(args, rank=rank)
+    profile_steps = StepTraceCapture.resolve(args)
+    plane = None
+    if recorder.enabled:
+        from pytorch_distributed_rnn_tpu_torch.obs.live import LivePlane
+        from pytorch_distributed_rnn_tpu_torch.obs.watchdog import install_stack_dump_handler
+
+        # kill -USR2 <pid>: every thread's stack beside the sidecar
+        install_stack_dump_handler(recorder.path)
+        plane = LivePlane.resolve(args, recorder, rank=rank, role="trainer",
+                                  faults=placement["faults"])
     training_set, validation_set, test_set = datasets
     trainer = trainer_class(
         model=model,
@@ -136,6 +180,8 @@ def _run_trainer(args, trainer_class, model, datasets, **placement):
         fuse_run=args.fuse_run,
         grad_accum=args.grad_accum,
         max_bad_steps=args.max_bad_steps,
+        recorder=recorder,
+        profile_steps=profile_steps,
         **placement,
     )
     if args.resume is not None and str(args.resume) == "auto":
@@ -150,7 +196,17 @@ def _run_trainer(args, trainer_class, model, datasets, **placement):
         meta = trainer.resume_from(args.resume)
         logging.info(f"Resumed from {args.resume} at epoch {meta['epoch']}")
     logging.info(f"Training model for {args.epochs} epochs...")
-    _, train_history, validation_history = trainer.train(epochs=args.epochs)
+    trace = (run_trace(args.profile, trainer.device, rank)
+             if args.profile and profile_steps is None else contextlib.nullcontext())
+    try:
+        with trace:
+            _, train_history, validation_history = trainer.train(epochs=args.epochs)
+    finally:
+        # the sidecar drains even when training raises; the plane closes
+        # after the recorder, so its final digest (finished) lands first
+        recorder.close()
+        if plane is not None:
+            plane.close()
     if trainer.rank == 0:
         with open("history.json", "w") as file:
             json.dump({

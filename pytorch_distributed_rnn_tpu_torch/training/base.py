@@ -48,6 +48,23 @@ its ``local`` path:
   evaluated at the end.
 - The loop runs under :func:`measure_memory_and_time`, logging the perf
   line and, on the card, a "Device HBM peaks (MiB)" line.
+- Telemetry (``recorder``, ``--metrics``; ``obs/recorder.py``), the JAX
+  trainer's events: one ``step`` event a step with ``dispatch_s`` (on the
+  graph path the ``replay()`` call), ``data_wait_s`` (the per-batch
+  loop's wait for its producer) and, on sampled steps only, ``fenced_s``
+  after a stream synchronize; ``tm`` is the dispatch start, and the
+  losses are read once an epoch, as the uninstrumented run reads them.
+  ``epoch`` events carry the path (``step``: the graph path, ``host``:
+  the per-batch loop, ``fused``: ``--fuse-run``, epoch events only); a
+  capture after the first (a new batch shape) is a ``compile`` event;
+  one ``collectives`` event a run holds the strategy's collectives of a
+  step and the step's analytic FLOPs (``obs/flops.py``); ``eval``,
+  ``checkpoint_save``/``checkpoint_restore``, ``profile`` and
+  ``run_summary`` (with the efficiency ledger's block) complete the run,
+  and the guard and the fault schedule record through the same recorder.
+  No recorder call runs inside :meth:`Trainer._step_body` or a capture,
+  and ``--metrics`` keeps the graph path.  ``profile_steps``
+  (``--profile-steps``, ``obs/profile.py``) traces a step range.
 
 Loss and accuracy sums stay on the device until the epoch ends, so the
 host does not wait for the card between steps.
@@ -56,6 +73,7 @@ host does not wait for the card between steps.
 from __future__ import annotations
 
 import logging
+import time
 from pathlib import Path
 
 import numpy as np
@@ -63,6 +81,7 @@ import torch
 
 from pytorch_distributed_rnn_tpu_torch.data.prefetch import prefetch
 from pytorch_distributed_rnn_tpu_torch.data.sampler import DistributedSampler
+from pytorch_distributed_rnn_tpu_torch.obs.recorder import NULL_RECORDER
 from pytorch_distributed_rnn_tpu_torch.ops.adam import DeviceStepAdam
 from pytorch_distributed_rnn_tpu_torch.ops.losses import cross_entropy_loss
 from pytorch_distributed_rnn_tpu_torch.resilience.guard import NonFiniteGuard
@@ -149,10 +168,14 @@ class Trainer:
     ``GRAPH_STEP``: whether the trainer has the device-resident fast
     paths (the JAX trainer's ``DEVICE_DATA`` switch); the data-parallel
     strategies keep the per-batch loop.  ``SUPPORTS_GRAD_ACCUM``: whether
-    it takes ``grad_accum`` above 1 (the JAX trainers' flag)."""
+    it takes ``grad_accum`` above 1 (the JAX trainers' flag).
+    ``UPDATES_LOCALLY``: whether the Adam update runs in this process (a
+    parameter-server worker's runs on the master)."""
 
     GRAPH_STEP = True
     SUPPORTS_GRAD_ACCUM = True
+    # whether a step's update runs here (the FLOP count of a step holds it)
+    UPDATES_LOCALLY = True
     # the prepared batches the per-batch loop's producer thread runs ahead
     PREFETCH_DEPTH = 2
 
@@ -161,7 +184,7 @@ class Trainer:
                  checkpoint_dir=None, seed: int | None = None,
                  checkpoint_every: int = 0, keep_checkpoints: int = 0,
                  fuse_run: bool = False, device="cuda", grad_accum: int = 1,
-                 faults=None, max_bad_steps: int = 0):
+                 faults=None, max_bad_steps: int = 0, recorder=None, profile_steps=None):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.training_set = training_set
@@ -195,6 +218,26 @@ class Trainer:
         self._faults = faults
         # the non-finite guard: the optimizer's step is the guarded update
         self.guard = NonFiniteGuard(max_bad_steps) if max_bad_steps else None
+        # structured telemetry (obs/recorder.py): NULL_RECORDER when off, and
+        # then each instrumented site costs one attribute check; the guard
+        # and the fault schedule record through it too
+        self.recorder = recorder if recorder is not None else NULL_RECORDER
+        if self.guard is not None:
+            self.guard.recorder = self.recorder
+        if faults is not None:
+            faults.recorder = self.recorder
+        # --profile-steps (obs/profile.py): a step range traced
+        self._profile = profile_steps
+        # the collectives event (and the step's FLOPs) is recorded once
+        self._collectives_recorded = False
+        self._model_flops_per_step = None
+        self._model_flops_exact = None
+        # the batch kinds whose first capture (the warm-up) happened
+        self._captured_kinds = set()
+        self._epoch = 0
+        # a strategy with host collectives publishes each step's
+        # (comm_wait_s, comm_active_s) here
+        self._last_step_comm = None
         self.sampler = DistributedSampler(len(training_set), num_replicas=1, rank=0, seed=seed)
         self.optimizer = DeviceStepAdam(
             self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
@@ -326,6 +369,8 @@ class Trainer:
         training_history: list[float] = []
         validation_history: list[float] = []
         formatter = TrainingMessageFormatter(epochs, self.rank)
+        if self._profile is not None:
+            self._profile.bind(self.device, self.rank)
         fusable = self._fusable(epochs)
         if self._fuse_run and not fusable:
             # asked for one program: running epoch by epoch instead would
@@ -344,6 +389,7 @@ class Trainer:
                 if self._faults is not None:
                     self._faults.on_epoch_start(epoch)
                 self.sampler.set_epoch(epoch)
+                self._epoch = epoch
                 logging.info(formatter.epoch_start_message(epoch))
                 train_loss, _ = self._train_epoch(formatter)
                 training_history.append(train_loss)
@@ -367,9 +413,93 @@ class Trainer:
             # a separate line: the perf line above stays byte-compatible
             rendered = ", ".join(f"{d}={mb:.1f}" for d, mb in sorted(device_peaks.items()))
             logging.info(f"Device HBM peaks (MiB): {rendered}")
+        if self._profile is not None:
+            self.recorder.record("profile", **self._profile.close())
+        if self.recorder.enabled:
+            self.recorder.record(
+                "run_summary", memory_mb=memory, duration_s=duration,
+                device_peaks_mb=device_peaks or {}, steps=self._steps_done, epochs=epochs,
+                nan_skipped=self.guard.total_skipped if self.guard is not None else 0,
+                faults_fired=dict(self._faults.fired) if self._faults is not None else {},
+                ledger=self._ledger_block(),
+            )
+            self.recorder.flush()
         if self.test_set is not None:
             self._evaluate(self.test_set, formatter)
         return self.model, training_history, validation_history
+
+    # -- telemetry -----------------------------------------------------------
+
+    def _fence(self) -> None:
+        """The work queued on the device is done (a stream synchronize on
+        the card; nothing on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _collective_ops(self) -> dict:
+        """The strategy's collectives of one step, ``{op: {"count",
+        "bytes"}}`` (the bytes a rank puts on the wire); ``local`` has none."""
+        return {}
+
+    def _maybe_record_collectives(self, rows: int) -> None:
+        """Once a run, before the first step: the ``collectives`` event
+        with the strategy's collectives of a step and the analytic FLOPs
+        and boundary bytes of a step of ``rows`` rows (``obs/flops.py``,
+        counted on a ``meta`` copy of the model: nothing runs on the
+        device).  A count that fails records its error, not the run's."""
+        if self._collectives_recorded or not self.recorder.enabled:
+            return
+        self._collectives_recorded = True
+        from pytorch_distributed_rnn_tpu_torch.obs.flops import step_flop_stats
+
+        t0 = time.perf_counter()
+        try:
+            stats = step_flop_stats(self, rows)
+            ops = self._collective_ops()
+        except Exception as exc:  # telemetry must never kill the run
+            self.recorder.record("collectives", ops=None, bytes_per_step=None,
+                                 error=f"{type(exc).__name__}: {str(exc)[:200]}")
+            return
+        self._model_flops_per_step = stats["flops"]
+        self._model_flops_exact = stats["exact"]
+        self.recorder.record(
+            "collectives", ops=ops, bytes_per_step=sum(op["bytes"] for op in ops.values()),
+            model_flops_per_step=stats["flops"], model_flops_exact=stats["exact"],
+            matmul_flops_per_step=stats["matmul_flops"], arg_bytes=stats["arg_bytes"],
+            out_bytes=stats["out_bytes"], count_s=time.perf_counter() - t0,
+        )
+
+    def _ledger_block(self) -> dict:
+        """run_summary's efficiency-ledger block: the step's FLOPs and the
+        peak the ledger divides by (``utils/hw.py``, for the device and the
+        compute dtype of the run), recorded here so that readers need no
+        card."""
+        from pytorch_distributed_rnn_tpu_torch.utils.hw import local_peak_flops
+
+        precision = "bf16" if getattr(self.model, "precision", "f32") == "bf16" else "f32"
+        peak = local_peak_flops(self.device, precision)
+        return {
+            "model_flops_per_step": self._model_flops_per_step,
+            "model_flops_exact": self._model_flops_exact,
+            "backend": peak["backend"],
+            "device_kind": peak["device"],
+            "device_count": peak["device_count"],
+            "precision": precision,
+            "peak_flops_total": peak["peak_flops_total"],
+            "peak_flops_estimated": peak["estimated"],
+        }
+
+    def _note_capture(self, run: StepBuffers, size: int, step: int, tm: float) -> None:
+        """A capture of ``run``'s step at ``size`` rows just happened: the
+        first of its kind is the warm-up; a later one (a new batch shape)
+        is a ``compile`` event with the capture's wall time."""
+        if run.kind not in self._captured_kinds:
+            self._captured_kinds.add(run.kind)
+            return
+        graph = self.graphs[(run.kind, size)]
+        cache_size = sum(1 for key in self.graphs if key[0] == run.kind)
+        self.recorder.record("compile", step=step, seconds=graph.capture_s,
+                             cache_size=cache_size, tm=tm)
 
     def _fusable(self, epochs: int) -> bool:
         """The JAX trainer's gate of the one-program run: nothing needs the
@@ -391,6 +521,11 @@ class Trainer:
             # at epoch (or step) boundaries
             and self._faults is None
             and self._start_epoch == 0
+            # step-bounded profiling addresses single steps
+            and self._profile is None
+            # step telemetry needs the host at epochs at least; an explicit
+            # --fuse-run still wins (epoch events only)
+            and (self._fuse_run or not self.recorder.enabled)
         )
 
     def _train_epoch(self, formatter, eager: bool | None = None):
@@ -408,16 +543,47 @@ class Trainer:
         run = self._step_buffers("epoch", rows, len(batches), weighted=False)
         run.load(np.concatenate(batches))
         self.model.train()
-        for idx in batches:
-            self._run_step(run, len(idx))
+        recording = self.recorder.enabled
+        t_epoch = time.perf_counter()
+        step_base = self._steps_done
+        raw = []
+        for i, idx in enumerate(batches):
+            step = step_base + i
+            if recording:
+                self._maybe_record_collectives(len(idx))
+            if self._profile is not None:
+                self._profile.on_step_start(step)
+            t0 = time.perf_counter()
+            captured = self._run_step(run, len(idx))
+            dispatch_s = time.perf_counter() - t0
+            fenced_s = None
+            if recording and self.recorder.is_sample_step(step):
+                self._fence()
+                fenced_s = time.perf_counter() - t0
+            if recording and captured:
+                self._note_capture(run, len(idx), step, t0)
+            if self._profile is not None:
+                self._profile.on_step_end(step)
+            self._steps_done = step + 1
+            self.recorder.note_progress(step)
+            if recording:
+                raw.append((step, t0, dispatch_s, fenced_s))
         losses, corrects = run.read()
-        self._steps_done += len(batches)
+        # step events after the loop, from the epoch's one read of the
+        # losses; tm is each step's dispatch start
+        for (step, t0, dispatch_s, fenced_s), loss in zip(raw, losses):
+            self.recorder.record("step", step=step, epoch=self._epoch, loss=float(loss),
+                                 dispatch_s=dispatch_s, data_wait_s=0.0, fenced_s=fenced_s,
+                                 tm=t0)
         # the graph path visits the host once an epoch: the guard decides
         # here (the device already skipped the bad updates)
         self._guard_check()
         # parity quirk kept: sum of batch-mean losses / dataset size
         n = len(self.training_set)
         loss_sum, correct_sum = self._epoch_sums(_loss_sum(losses), float(corrects.sum()))
+        self.recorder.record("epoch", epoch=self._epoch, steps=len(batches), loss=loss_sum / n,
+                             acc=correct_sum / n, wall_s=time.perf_counter() - t_epoch,
+                             path="step", tm=t_epoch)
         return loss_sum / n, correct_sum / n
 
     def _train_run_fused(self, epochs: int) -> list[float]:
@@ -443,7 +609,13 @@ class Trainer:
         self._steps_done += len(order)
         self._guard_check()  # the fused run's one host visit
         n = len(self.training_set)
-        return [_loss_sum(losses[e * steps:(e + 1) * steps]) / n for e in range(epochs)]
+        history = [_loss_sum(losses[e * steps:(e + 1) * steps]) / n for e in range(epochs)]
+        # the fused run visits the host once: its telemetry is per epoch,
+        # after the fact
+        for epoch, loss in enumerate(history):
+            self.recorder.record("epoch", epoch=epoch, steps=steps, loss=loss, acc=None,
+                                 wall_s=None, path="fused")
+        return history
 
     def _step_buffers(self, kind: str, rows: int, steps: int, weighted: bool) -> StepBuffers:
         """The ``kind`` run's buffers at this size, made anew (and that
@@ -472,20 +644,21 @@ class Trainer:
         run.position.add_(size)
         run.step.add_(1)
 
-    def _run_step(self, run: StepBuffers, size: int) -> None:
+    def _run_step(self, run: StepBuffers, size: int) -> bool:
         """The next step of ``run``: on the CPU the body itself; on the
         card the replay of its graph for this shape.  The first step of a
         shape runs the body eagerly on the capture stream (the capture's
         warm-up, and this step of the run), then captures it (which runs
-        nothing); a capture that fails raises."""
+        nothing); a capture that fails raises.  Returns whether it
+        captured."""
         if self.device.type != "cuda":
             self._step_body(run, size)
-            return
+            return False
         key = (run.kind, size)
         graph = self.graphs.get(key)
         if graph is not None:
             graph.replay()
-            return
+            return False
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
         stream = self._capture_stream
@@ -498,6 +671,7 @@ class Trainer:
         graph = CountedGraph([self.dropout_generator])
         graph.capture(lambda: self._step_body(run, size), stream)
         self.graphs[key] = graph
+        return True
 
     def _train_epoch_eager(self, formatter):
         """The per-batch loop: the epoch's index batches come through a
@@ -521,20 +695,46 @@ class Trainer:
                 yield idx
 
         self.model.train()
+        recording = self.recorder.enabled
+        t_epoch = time.perf_counter()
         total_loss = torch.zeros((), device=self.device)
         total_correct = 0  # a device tensor of the metric's dtype after the first batch
+        raw, losses = [], []  # the recorded steps, and their device losses
         stream = prefetch(source(), depth=self.PREFETCH_DEPTH)
         try:
-            for batch_idx, idx in enumerate(stream):
+            batch_iter = iter(stream)
+            batch_idx = 0
+            while True:
+                # the wait for the producer: ~0 while the pipeline keeps up
+                t_wait = time.perf_counter()
+                try:
+                    idx = next(batch_iter)
+                except StopIteration:
+                    break
+                data_wait_s = time.perf_counter() - t_wait
                 step = epoch_base + batch_idx
+                if recording:
+                    self._maybe_record_collectives(len(idx))
+                if self._profile is not None:
+                    self._profile.on_step_start(step)
+                t0 = time.perf_counter()
                 idx_t = torch.from_numpy(idx).to(self.device)
                 x, y = features[idx_t], labels[idx_t]
                 if faults is not None:
                     faults.maybe_kill(step=step)
                     x, y = faults.corrupt_batch(step, (x, y))
+                self._last_step_comm = None
                 loss, correct = self._gradients(x, y)
                 self._optimizer_step()
+                dispatch_s = time.perf_counter() - t0
+                fenced_s = None
+                if recording and self.recorder.is_sample_step(step):
+                    self._fence()
+                    fenced_s = time.perf_counter() - t0
+                if self._profile is not None:
+                    self._profile.on_step_end(step)
                 self._steps_done = step + 1
+                self.recorder.note_progress(step)
                 if faults is not None:
                     # a chaos run is per-batch already: deciding each step
                     # aborts K+1 steps after divergence starts
@@ -548,15 +748,43 @@ class Trainer:
                         training_examples=len(idx), correct=_correct_count(correct),
                         loss=float(loss),
                     ))
+                if recording:
+                    raw.append((step, t0, dispatch_s, fenced_s, data_wait_s,
+                                self._last_step_comm))
+                    losses.append(loss)
+                batch_idx += 1
         finally:
             # an early exit (injected exception, guard abort) leaves no
             # producer thread behind
             stream.close()
+        if recording:
+            self._record_host_steps(raw, losses)
         # parity quirk kept: sum of batch-mean losses / dataset size
         n = len(self.training_set)
         loss_sum, correct_sum = self._epoch_sums(total_loss, total_correct)
         self._guard_check()
+        self.recorder.record("epoch", epoch=self._epoch, steps=batch_idx, loss=loss_sum / n,
+                             acc=correct_sum / n, wall_s=time.perf_counter() - t_epoch,
+                             path="host", tm=t_epoch)
         return loss_sum / n, correct_sum / n
+
+    def _record_host_steps(self, raw, losses) -> None:
+        """The per-batch loop's step events, after the loop: the losses
+        in one read, and a strategy's host-collective times where it
+        published them (``comm_wait_s``, and ``overlap_frac`` = 1 -
+        wait/active, the share of the collectives' time the host did not
+        sit blocked)."""
+        values = torch.stack(losses).float().tolist() if losses else []
+        for (step, t0, dispatch_s, fenced_s, data_wait_s, comm), loss in zip(raw, values):
+            extra = {}
+            if comm is not None:
+                wait_s, active_s = comm
+                extra["comm_wait_s"] = wait_s
+                if active_s > 0:
+                    extra["overlap_frac"] = max(0.0, 1.0 - wait_s / active_s)
+            self.recorder.record("step", step=step, epoch=self._epoch, loss=loss,
+                                 dispatch_s=dispatch_s, data_wait_s=data_wait_s,
+                                 fenced_s=fenced_s, tm=t0, **extra)
 
     def _optimizer_step(self) -> None:
         """The update of the per-batch loop, after the backward: the
@@ -579,11 +807,13 @@ class Trainer:
             self._eval_data[key] = cached
         _, x, y = cached
         self.model.eval()
-        with torch.no_grad():
+        # the float() reads end the evaluation: the span is its wall time
+        with self.recorder.span("eval", cat="eval", epoch=epoch), torch.no_grad():
             loss, correct = self._loss_and_metrics(x, y)
             eval_loss = float(loss)
             total_correct = float(correct)
         accuracy = total_correct / len(dataset)
+        self.recorder.record("eval", epoch=epoch, loss=eval_loss, acc=accuracy)
         logging.info(formatter.evaluation_message(
             accuracy, len(dataset), epoch, eval_loss, _correct_count(total_correct)
         ))
@@ -594,47 +824,58 @@ class Trainer:
     def _save_checkpoint(self, epoch, loss, best=False):
         if self.checkpoint_dir is None:
             return
-        # every rank takes the optimizer state (a collective where it is
-        # sharded); rank 0 writes
+        t0 = time.perf_counter()
+        # every rank takes the optimizer state and the dropout streams
+        # (collectives in a world); rank 0 writes
         opt_state = self._checkpoint_opt_state()
-        if self.rank != 0:
-            return
-        save_checkpoint(
-            self.checkpoint_dir, epoch, self.model.state_dict(), opt_state, loss, best=best,
-            trainer_state=self._trainer_state(),
-        )
-        if not best and self.keep_checkpoints:
-            rotate_checkpoints(self.checkpoint_dir, self.keep_checkpoints)
+        trainer_state = self._trainer_state()
+        if self.rank == 0:
+            save_checkpoint(
+                self.checkpoint_dir, epoch, self.model.state_dict(), opt_state, loss, best=best,
+                trainer_state=trainer_state,
+            )
+            if not best and self.keep_checkpoints:
+                rotate_checkpoints(self.checkpoint_dir, self.keep_checkpoints)
+        self.recorder.record("checkpoint_save", epoch=epoch, best=bool(best),
+                             seconds=time.perf_counter() - t0, format="gathered",
+                             asynchronous=False)
 
     def _checkpoint_opt_state(self) -> dict:
         """The optimizer state a checkpoint holds, ``torch.optim.Adam``'s
         unsharded layout."""
         return self.optimizer.state_dict()
 
+    def _dropout_states(self) -> list:
+        """Every rank's dropout generator state in rank order, read
+        between steps, outside any capture: this process's alone here; a
+        world gathers them (a collective on every rank)."""
+        return [self.dropout_generator.get_state()]
+
     def _trainer_state(self) -> dict:
-        """The checkpoint's trainer section: the dropout generator's state
-        (this rank's, read between steps, outside any capture) with the
-        world it belongs to, and the guard's counters where the run has a
-        guard."""
+        """The checkpoint's trainer section: every rank's dropout
+        generator state (``dropout_generators``, in rank order) with the
+        world and the kind of device they belong to, and the guard's
+        counters where the run has a guard."""
         state = {"world": self.world_size, "device": self.device.type,
-                 "dropout_generator": self.dropout_generator.get_state()}
+                 "dropout_generators": self._dropout_states()}
         if self.guard is not None:
             state["nonfinite"] = self.optimizer.nonfinite.state_dict()
         return state
 
     def _restore_trainer_state(self, path, state) -> None:
-        """Adopt a checkpoint's trainer section: the dropout stream, where
-        the checkpoint's world and this one are a single process on the
-        same kind of device (a world keeps rank 0's stream only, and a CPU
-        generator's state is not a card's), and the guard's counters, so
-        that a resumed run draws the masks and counts the skips of an
-        uninterrupted one."""
-        if (state is None or state.get("world") != 1 or self.world_size != 1
-                or state.get("device") != self.device.type):
+        """Adopt a checkpoint's trainer section: this rank's dropout
+        stream, where the checkpoint's world has this one's size and kind
+        of device (a CPU generator's state is not a card's), and the
+        guard's counters, so that a resumed run draws the masks and counts
+        the skips of an uninterrupted one.  A checkpoint from another
+        world or device starts the masks fresh from the seed, and says so."""
+        streams = None if state is None else state.get("dropout_generators")
+        if (streams is None or state.get("world") != self.world_size
+                or len(streams) != self.world_size or state.get("device") != self.device.type):
             log.info(f"{path} holds no dropout stream for this run: its dropout masks "
                      "start fresh from the seed")
         else:
-            self.dropout_generator.set_state(state["dropout_generator"])
+            self.dropout_generator.set_state(streams[self.rank])
         if self.guard is not None and state is not None and "nonfinite" in state:
             self.optimizer.nonfinite.load_state_dict(state["nonfinite"])
             self.guard.total_skipped = state["nonfinite"]["total_notfinite"]
@@ -647,6 +888,7 @@ class Trainer:
         run killed after epoch E and restarted covers exactly the rest."""
         if Path(checkpoint_path).is_dir():
             raise ValueError(f"{checkpoint_path} is a directory - pass the .ckpt file")
+        t0 = time.perf_counter()
         model_state, opt_state, meta = load_checkpoint(checkpoint_path)
         self.model.load_state_dict(model_state)
         self.optimizer.load_state_dict(opt_state)
@@ -655,4 +897,6 @@ class Trainer:
         self._resume_best_loss = meta["loss"]
         if advance_epoch:
             self._start_epoch = int(meta["epoch"])
+        self.recorder.record("checkpoint_restore", path=str(checkpoint_path),
+                             epoch=int(meta["epoch"]), seconds=time.perf_counter() - t0)
         return meta

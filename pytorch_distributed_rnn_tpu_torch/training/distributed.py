@@ -22,7 +22,9 @@ JAX ``SpmdTrainer`` is one controller whose "ranks" are positions on a
 
 Checkpoints hold the unwrapped module's ``state_dict`` and
 ``torch.optim.Adam``'s unsharded per-parameter state, so a checkpoint of
-any strategy resumes in any other.  The update is the optax formula
+any strategy resumes in any other, and every rank's dropout generator
+state, gathered to rank 0 (a world of the same size and device resumes
+each rank's stream).  The update is the optax formula
 (``ops/adam.py``) on every path here, replicated or sharded.
 """
 
@@ -34,6 +36,7 @@ import torch
 from pytorch_distributed_rnn_tpu_torch.data.sampler import DistributedSampler
 from pytorch_distributed_rnn_tpu_torch.ops.adam import Adam, DeviceStepAdam
 from pytorch_distributed_rnn_tpu_torch.parallel import dp
+from pytorch_distributed_rnn_tpu_torch.parallel.collectives import padded_size
 from pytorch_distributed_rnn_tpu_torch.parallel.sharded_update import ShardedUpdate
 from pytorch_distributed_rnn_tpu_torch.training.base import Trainer
 
@@ -75,7 +78,7 @@ class SpmdTrainer(Trainer):
                  seed: int | None = None, checkpoint_every: int = 0,
                  keep_checkpoints: int = 0, fuse_run: bool = False, device=None, group=None,
                  sharded_update: bool = True, grad_accum: int = 1, faults=None,
-                 max_bad_steps: int = 0):
+                 max_bad_steps: int = 0, recorder=None, profile_steps=None):
         if group is None:
             raise ValueError(f"{type(self).__name__} needs the process group (group=)")
         if device is not None and torch.device(device).type != group.device.type:
@@ -86,7 +89,8 @@ class SpmdTrainer(Trainer):
                          checkpoint_every=checkpoint_every,
                          keep_checkpoints=keep_checkpoints, fuse_run=fuse_run,
                          device=group.device, grad_accum=grad_accum, faults=faults,
-                         max_bad_steps=max_bad_steps)
+                         max_bad_steps=max_bad_steps, recorder=recorder,
+                         profile_steps=profile_steps)
         seed = seed if seed is not None else 0
         self.group = group
         self.rank = group.rank
@@ -114,6 +118,31 @@ class SpmdTrainer(Trainer):
         if self._ddp is not None and self.model.training:
             return self._ddp
         return self.model
+
+    def _dropout_states(self) -> list:
+        """Every rank's generator state, all-gathered (the ranks' states
+        have one size: one kind of device)."""
+        state = self.dropout_generator.get_state()
+        gathered = self.group.all_gather(state.to(self.device))
+        # each rank's state its own tensor: a view into the gathered one
+        # would carry a storage offset into the checkpoint
+        return [row.clone() for row in gathered.cpu().view(self.world_size, -1)]
+
+    def _collective_ops(self) -> dict:
+        """A step's collectives: the sharded update's reduce-scatter and
+        all-gather of the padded flat vector (and the guard's one-flag
+        sum), or one coalesced allreduce of the gradients (DDP's hook and
+        Horovod's optimizer alike)."""
+        params = list(self.model.parameters())
+        itemsize = params[0].element_size()
+        flat = padded_size(sum(p.numel() for p in params), self.world_size) * itemsize
+        if not self.sharded_update:
+            return {"all_reduce": {"count": 1, "bytes": flat}}
+        ops = {"reduce_scatter": {"count": 1, "bytes": flat},
+               "all_gather": {"count": 1, "bytes": flat}}
+        if self.guard is not None:
+            ops["all_reduce"] = {"count": 1, "bytes": padded_size(1, self.world_size) * 4}
+        return ops
 
     def _epoch_index_batches(self):
         """This rank's rows of each global batch: ``batch_size // world`` of

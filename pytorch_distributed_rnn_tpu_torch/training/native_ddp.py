@@ -16,8 +16,10 @@ invariant).  What the JAX trainer does, this one does:
 - the train loss in the history is the rank's own local mean (the JAX
   native trainer's behaviour; ``distributed`` averages over ranks), log
   lines and the perf line carry the rank, and each run ends with the
-  rank-parity observable ``"{rank}: parameters: {sum:.10f}"`` and the
-  ring's mean ``comm_wait_s``/``comm_active_s`` an update.
+  rank-parity observables ``"{rank}: parameters: {sum:.10f}"`` and
+  ``"{rank}: parameters sha256 {hex}"`` (of the parameters' float32
+  bytes: equal digests, equal bits) and the ring's mean
+  ``comm_wait_s``/``comm_active_s`` an update.
 
 Three update schedules (:meth:`NativeDDPTrainer._optimizer_step`):
 
@@ -47,9 +49,14 @@ blocked in the ring, and the collectives' own time on its worker - is
 ``_last_step_comm`` (and ``comm_log`` keeps every step's).
 
 Checkpoints hold ``torch.optim.Adam``'s unsharded state: at each epoch end
-of a world that checkpoints, every rank gathers its Adam slice over the
-ring and rank 0 writes the gathered state, so a ``distributed-native``
-checkpoint resumes under ``local`` and ``distributed``, and the reverse.
+of a world that checkpoints, every rank gathers its Adam slice and its
+dropout generator's state over the ring and rank 0 writes the gathered
+state, so a ``distributed-native`` checkpoint resumes under ``local`` and
+``distributed``, and the reverse, and a world of its size resumes each
+rank's dropout stream.
+
+With ``--metrics`` each step event carries the ring's ``comm_wait_s``
+and ``overlap_frac`` (``training/base.py``).
 
 Launch: one process a rank with ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/
 ``WORLD_SIZE`` set (no launcher: a world of 1), subcommand
@@ -114,7 +121,8 @@ class NativeDDPTrainer(Trainer):
                  fuse_run: bool = False, device="cuda", comm=None, sharded_update: bool = True,
                  bucketed_comm: bool = True, bucket_mb: float = DEFAULT_BUCKET_MB,
                  checkpoint_format: str = "gathered", checkpoint_async: bool = False,
-                 grad_accum: int = 1, faults=None, max_bad_steps: int = 0):
+                 grad_accum: int = 1, faults=None, max_bad_steps: int = 0, recorder=None,
+                 profile_steps=None):
         if comm is None:
             raise ValueError("NativeDDPTrainer needs the ring (comm=)")
         if checkpoint_async:
@@ -128,7 +136,8 @@ class NativeDDPTrainer(Trainer):
                          checkpoint_dir=checkpoint_dir if rank == 0 else None, seed=seed,
                          checkpoint_every=checkpoint_every, keep_checkpoints=keep_checkpoints,
                          fuse_run=fuse_run, device=device, grad_accum=grad_accum, faults=faults,
-                         max_bad_steps=max_bad_steps)
+                         max_bad_steps=max_bad_steps, recorder=recorder,
+                         profile_steps=profile_steps)
         seed = seed if seed is not None else 0
         self.comm = comm
         self.rank = rank
@@ -141,7 +150,7 @@ class NativeDDPTrainer(Trainer):
         # directory)
         self._ckpt_world = checkpoint_dir is not None
         self._ckpt_cache = None
-        self._last_step_comm = None
+        self._dropout_cache = None
         self.comm_log = []
         self._pinned = {}
         guarded = self.guard is not None
@@ -180,11 +189,6 @@ class NativeDDPTrainer(Trainer):
         if self.device.type != "cuda":
             return tensor.contiguous()
         return self._host(slot, tensor.shape, tensor.dtype).copy_(tensor, non_blocking=True)
-
-    def _fence(self) -> None:
-        """The device's copies into host buffers are done."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
 
     def _to_device(self, host: torch.Tensor) -> torch.Tensor:
         """A ring result on the device, queued on the current stream (a
@@ -297,10 +301,37 @@ class NativeDDPTrainer(Trainer):
 
     def _train_epoch(self, formatter, eager=None):
         result = super()._train_epoch(formatter, eager)
-        if self.sharded_update and self._ckpt_world:
-            # every rank gathers (a collective); rank 0 writes the result
-            self._ckpt_cache = self.optimizer.state_dict()
+        if self._ckpt_world:
+            # every rank gathers (collectives); rank 0 writes the result
+            if self.sharded_update:
+                self._ckpt_cache = self.optimizer.state_dict()
+            state = self.dropout_generator.get_state()
+            gathered = self.comm.allgather(state.double())  # bytes, exact in float64
+            self._dropout_cache = [row.to(torch.uint8) for row in
+                                   gathered.reshape(self.world_size, -1)]
         return result
+
+    def _dropout_states(self) -> list:
+        if self._dropout_cache is None:
+            raise RuntimeError("a checkpoint before any epoch-end gather: no dropout streams")
+        return self._dropout_cache
+
+    def _collective_ops(self) -> dict:
+        """A step's ring collectives: one reduce-scatter and one all-gather
+        a bucket (the guard's one-flag allreduce besides), or one
+        allreduce of the flat gradient."""
+        su = self.optimizer
+        if not self.sharded_update:
+            params = list(self.model.parameters())
+            return {"all_reduce": {"count": 1, "bytes": sum(p.numel() * p.element_size()
+                                                             for p in params)}}
+        buckets = len(self.bucket_plan.bounds) if self.bucket_plan is not None else 1
+        flat = self.world_size * su.shard * torch.tensor([], dtype=su.dtype).element_size()
+        ops = {"reduce_scatter": {"count": buckets, "bytes": flat},
+               "all_gather": {"count": buckets, "bytes": flat}}
+        if su.nonfinite is not None:
+            ops["all_reduce"] = {"count": 1, "bytes": 4}
+        return ops
 
     def _checkpoint_opt_state(self) -> dict:
         if not self.sharded_update:
@@ -359,6 +390,7 @@ def execute(args):
         # replicas stayed equal
         flat = torch.cat([p.detach().reshape(-1) for p in trainer.model.parameters()])
         logging.info(f"{comm.rank}: parameters: {float(flat.double().sum()):.10f}")
+        training.log_parameter_digest(comm.rank, trainer.model)
         if trainer.comm_log:
             wait_s, active_s = (sum(column) / len(trainer.comm_log)
                                 for column in zip(*trainer.comm_log))
@@ -368,14 +400,15 @@ def execute(args):
 
 
 def launch_world(world_size: int, argv, *, device: str, master_port: int | None = None,
-                 cwd=None, timeout: float = 600.0):
+                 cwd=None, timeout: float = 600.0, check: bool = True):
     """Spawn a local world of ``world_size`` processes, each running
     ``python -m pytorch_distributed_rnn_tpu_torch.main --device DEVICE
     <argv> distributed-native`` with the rendezvous environment set (a free
     port when ``master_port`` is None).  ``device`` (``"cuda"`` or
     ``"cpu"``) has no default: a world runs on the CPU only when asked.  Returns ``(returncode, stdout,
-    stderr)`` a rank, in rank order; raises if a rank fails or outlives
-    ``timeout`` seconds."""
+    stderr)`` a rank, in rank order; raises if a rank outlives ``timeout``
+    seconds, and with ``check`` if a rank fails (a world killed on purpose
+    passes ``check=False``)."""
     from pytorch_distributed_rnn_tpu_torch.utils.worlds import free_ports, spawn_world
 
     port = master_port if master_port is not None else free_ports(1)[0]
@@ -387,4 +420,4 @@ def launch_world(world_size: int, argv, *, device: str, master_port: int | None 
         env["PYTHONPATH"] = os.pathsep.join(p for p in (repo, env.get("PYTHONPATH")) if p)
         rank_cmds.append(([sys.executable, "-m", "pytorch_distributed_rnn_tpu_torch.main",
                            "--device", device, *map(str, argv), "distributed-native"], env))
-    return spawn_world(rank_cmds, timeout=timeout, cwd=cwd)
+    return spawn_world(rank_cmds, timeout=timeout, cwd=cwd, check=check)

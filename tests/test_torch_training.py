@@ -223,18 +223,32 @@ def test_main_without_device_cpu_needs_cuda(cache_dir, monkeypatch):
     # --fuse-run is ported for local (tests/test_torch_graph_step.py), not
     # for the data-parallel strategies; --grad-accum, --max-bad-steps,
     # --faults, --remat and --resume auto are ported
-    # (tests/test_torch_resilience.py, and the case below)
+    # (tests/test_torch_resilience.py, and the case below), and so are the
+    # telemetry flags (tests/test_torch_obs.py, and the case below); the
+    # two checkpoint flags stay rejected on every strategy that does not
+    # name its own reason
     [(["--fuse-run"], "distributed"), (["--fuse-run"], "horovod"),
-     (["--metrics", "m.jsonl"], "local"),
-     (["--metrics-sample-every", "4"], "local"), (["--live", "0"], "local"),
-     (["--live-port-file", "p"], "local"), (["--profile", "trace"], "local"),
-     (["--profile-steps", "1:3"], "local"), (["--checkpoint-format", "sharded"], "local"),
+     (["--checkpoint-format", "sharded"], "distributed"),
+     (["--checkpoint-format", "sharded"], "horovod"), (["--checkpoint-async"], "distributed"),
+     (["--checkpoint-async"], "horovod"), (["--checkpoint-format", "sharded"], "parameter-server"),
+     (["--checkpoint-async"], "parameter-server"), (["--checkpoint-format", "sharded"], "local"),
      (["--checkpoint-async"], "local")],
 )
 def test_unported_flags_are_rejected_loudly(flags, command, capsys):
     with pytest.raises(SystemExit, match="not ported yet") as exc:
         port_main.main(["--device", "cpu", *flags, command])
     assert flags[0] in str(exc.value)
+
+
+@pytest.mark.parametrize("flags", [["--metrics", "m.jsonl"], ["--metrics-sample-every", "4"],
+                                   ["--live", "0"], ["--live-port-file", "p"],
+                                   ["--profile", "trace"], ["--profile-steps", "1:3"]])
+@pytest.mark.parametrize("command", ["local", "distributed", "horovod", "distributed-native",
+                                     "parameter-server"])
+def test_telemetry_flags_pass_the_gate(flags, command):
+    """The six telemetry flags of ROADMAP A5's second part pass the gate
+    on every strategy."""
+    port_main.reject_unported(port_main.build_parser().parse_args([*flags, command]))
 
 
 @pytest.mark.parametrize("flags", [["--grad-accum", "2"], ["--max-bad-steps", "3"],

@@ -185,6 +185,29 @@ Phases, in order; any failure raises and the script exits nonzero:
       attention LM at path e's widths (dim 512, 4 heads, depth 2, max_len
       512) from a seed, written as a port checkpoint, 16 requests, and its
       decode step's timing.
+   r. serving's telemetry and chaos, then the fleet (``phase_fleet_telemetry``,
+      after ``phase_serving``, whose path k it serves; no RNN or flash
+      kernel launched): r.1 the CLI server with ``--metrics --live 0
+      --live-port-file --slo qos=normal:p95_ms=<2x k's TCP latency p95>
+      --slo-windows 5,30`` under the CLI loadgen (64 Poisson requests at
+      20/s, a quarter traced): 0 errors, exit 0 on SIGTERM, the sidecar's
+      step, prefill and request events, ``obs summarize`` counting the
+      loadgen's done requests, ``obs trace`` on a sampled trace (exit 0,
+      a valid tree), ``/metrics`` serving the ``pdrnn_serving_*`` series;
+      then ``run_step`` at 8 busy slots 200 times without and with the
+      recorder and an armed fault schedule, in turns: host ms, device ms,
+      Python->torch calls a step (at most 4).  r.2 ``loadgen
+      --spawn-server "<k's flags> --faults step:40:stall:1.5 --metrics"``:
+      the degradation window opens and closes, the server exits 0, the
+      fault in its sidecar; then ``step:5:nan`` on an engine in this
+      process: the in-flight requests fail cleanly, the next 16 have
+      ``generate``'s tokens.  r.3 ``loadgen --spawn-fleet 3`` with k's flags
+      behind the router, one replica SIGKILLed a third into 120 requests
+      at 40/s: accounting OK, the window closed, a respawn, router exit 0;
+      a trace across the router's and a replica's sidecars; every completed
+      greedy request's tokens equal to ``generate``'s; each replica's card
+      memory (``nvidia-smi``).  The three replicas share one card: no
+      scaling figure.
    Paths a-f train on the device-resident step (CUDA-graph replays of the
    train step; INFO logging), so each kernel's launches count at each
    replay.  Each of a-f checks finite losses (a-d, f: and the perf line),
@@ -1056,10 +1079,12 @@ def _generate_first_logits(model, prompt, length: int):
         return attention_prefill(model, prompt, prompt.shape[1] + length)[2][:, -1]
 
 
-def _check_served_tokens(name: str, model, requests: list, first_logits: dict, device) -> dict:
+def _check_served_tokens(name: str, model, requests: list, first_logits, device) -> dict:
     """Every request's tokens against its single-request ``generate`` on
     the same device: a differing token fails unless greedy at a near tie
-    (top-2 logit gap below ``LOGIT_TOL`` at the first differing step)."""
+    (top-2 logit gap below ``LOGIT_TOL`` at the first differing step).
+    With ``first_logits`` (by seed), also the largest difference of the
+    served first-step logits from ``generate``'s."""
     worst, ties, tokens = 0.0, [], 0
     for r in requests:
         prompt = torch.tensor([r.prompt], device=device)
@@ -1069,8 +1094,9 @@ def _check_served_tokens(name: str, model, requests: list, first_logits: dict, d
         want = out[0, len(r.prompt):].tolist()
         if r.status != "done" or len(r.tokens) != r.max_new_tokens:
             raise RuntimeError(f"{name}: request {r.id} ended {r.status}: {r.error}")
-        worst = max(worst, _max_err(first_logits[r.seed],
-                                    _generate_first_logits(model, prompt, r.max_new_tokens)[0]))
+        if first_logits is not None:
+            worst = max(worst, _max_err(
+                first_logits[r.seed], _generate_first_logits(model, prompt, r.max_new_tokens)[0]))
         tokens += len(want)
         if r.tokens == want:
             continue
@@ -1084,9 +1110,10 @@ def _check_served_tokens(name: str, model, requests: list, first_logits: dict, d
             raise RuntimeError(f"{name}: request {r.id} diverged from its single-request "
                                "generate")
         ties.append((r.id, step, gap))
+    logits = ("" if first_logits is None else "; largest first-step logit difference, batched "
+              f"prefill vs generate: {worst:.3e}")
     print(f"  {name}: {len(requests)} requests, {tokens} tokens equal to generate's "
-          f"(near greedy ties: {ties}); largest first-step logit difference, batched prefill vs "
-          f"generate: {worst:.3e}")
+          f"(near greedy ties: {ties}){logits}")
     return {"first_logit_max_abs_diff": worst, "near_ties": ties, "tokens": tokens}
 
 
@@ -1272,6 +1299,20 @@ def _serve_over_tcp(workdir: Path, serve_args: list) -> dict:
                                                    "server_exit")}}
 
 
+def _spy_first_logits(engine) -> dict:
+    """Keep each join's prefill logits (by the request's seed): the
+    logits a served request draws its first token from."""
+    first_logits = {}
+    join = engine._join
+
+    def spy(slot, seq_state, seq_logits, length, temperature, seed):
+        first_logits[seed] = seq_logits[0].clone()
+        join(slot, seq_state, seq_logits, length, temperature, seed)
+
+    engine._join = spy
+    return first_logits
+
+
 def _serve_path(name: str, serve_args: list, windows: np.ndarray, n_requests: int,
                 seed: int) -> tuple:
     """Steps 1-4 of a serving path: the CLI's loader, an engine of 8 slots
@@ -1289,14 +1330,7 @@ def _serve_path(name: str, serve_args: list, windows: np.ndarray, n_requests: in
     want = {"prefill": len(SERVE_BUCKETS.split(",")), "step": 1, "join": 1}
     if snapshot != want:
         raise RuntimeError(f"{name}: captures after warm-up {snapshot}, not {want}")
-    first_logits = {}
-    join = engine._join
-
-    def spy(slot, seq_state, seq_logits, length, temperature, seed):
-        first_logits[seed] = seq_logits[0].clone()
-        join(slot, seq_state, seq_logits, length, temperature, seed)
-
-    engine._join = spy
+    first_logits = _spy_first_logits(engine)
     requests = _serve_requests(windows, n_requests, seed)
     t0 = time.perf_counter()
     for r in requests:
@@ -1366,6 +1400,392 @@ def phase_serving(workdir: Path, runs: dict) -> dict:
     results["seconds"] = time.perf_counter() - t0
     print(f"serving phase: {results['seconds']:.1f} s")
     print("serving: " + json.dumps(results))
+    return results
+
+
+# serving's telemetry and chaos, and the serving fleet (path r)
+
+R_TRACE_SAMPLE = "0.25"
+R_SLO_WINDOWS = "5,30"
+R_SLO_OVER_K = 2.0  # r's SLO p95: this many times path k's measured TCP latency p95
+R_COST_ROUNDS = 4  # rounds of (off, on, on, off) turns of the decode step's cost
+R_STALL, R_STALL_S = "step:40:stall:1.5", 1.5
+R_NAN_STEP = 5
+R_FLEET = 3
+R_FLEET_REQUESTS, R_FLEET_RATE = 120, 40.0
+R_ROUTER = ["--retries", "2", "--eject-after", "2", "--cooldown-s", "0.5",
+            "--health-every-s", "0.2", "--live", "127.0.0.1:0", "--trace-sample", "1.0"]
+R_FLEET_LOAD = ["--prompt-len-min", "2", "--prompt-len-max", "64", "--new-tokens-min", "8",
+                "--new-tokens-max", "64", "--temperature", "0.8", "--sampled-fraction", "0.5",
+                "--seed", "2"]
+R_SERVING_SERIES = ("pdrnn_serving_requests_total", "pdrnn_serving_tokens_total",
+                    "pdrnn_serving_latency_seconds", "pdrnn_request_latency_seconds_bucket")
+
+
+def _event_counts(path: Path) -> dict:
+    """A sidecar family's events by kind (spans by ``span:<name>``)."""
+    from pytorch_distributed_rnn_tpu_torch.obs.summary import load_events, rank_files
+
+    counts = {}
+    for member in rank_files(path):
+        for event in load_events(member):
+            kind = event.get("kind")
+            key = f"span:{event.get('name')}" if kind == "span" else kind
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def _scrape(url: str, want: tuple, timeout_s: float = 20.0) -> str:
+    """GET ``url`` until its body names every series in ``want``."""
+    import urllib.request
+
+    deadline, body = time.monotonic() + timeout_s, ""
+    while time.monotonic() < deadline:
+        try:
+            with urllib.request.urlopen(url, timeout=5.0) as resp:
+                body = resp.read().decode()
+            if all(name in body for name in want):
+                return body
+        except OSError:
+            pass
+        time.sleep(0.5)
+    missing = [name for name in want if name not in body]
+    raise RuntimeError(f"r: {url} never served {missing}")
+
+
+def _trace_check(name: str, family: Path, trace_id: str | None = None,
+                 cross: bool = False) -> dict:
+    """The sidecar family's traces assembled and validated in process, and
+    one of them (``trace_id``, or the first crossing processes) through the
+    ``obs trace`` subcommand: exit 0 and the tree printed."""
+    from pytorch_distributed_rnn_tpu_torch.obs.trace import assemble_traces, validate_trace_tree
+
+    trees = assemble_traces([family])
+    for tree in trees:
+        validate_trace_tree(tree)
+    crossing = [t for t in trees if len(t.processes) > 1]
+    if trace_id is None:
+        pool = [t for t in crossing if {"router", "serve"} <= {n.role for n in t.root.walk()}]
+        if cross and not pool:
+            raise RuntimeError(f"{name}: no trace crosses the router's and a replica's sidecars")
+        trace_id = (pool or trees)[0].trace_id
+    cli_run = subprocess.run(
+        [sys.executable, "-m", "pytorch_distributed_rnn_tpu_torch.obs", "trace", str(family),
+         "--request", trace_id], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    if cli_run.returncode != 0 or f"trace {trace_id}" not in cli_run.stdout:
+        raise RuntimeError(f"{name}: obs trace exit {cli_run.returncode}:\n"
+                           f"{cli_run.stdout[-2000:]}{cli_run.stderr[-2000:]}")
+    print(cli_run.stdout.rstrip())
+    names = sorted({n.name for t in trees for n in t.root.walk()})
+    print(f"  {name}: {len(trees)} traces assembled and valid ({len(crossing)} across "
+          f"processes; spans {names}); obs trace --request {trace_id}: exit 0")
+    return {"traces": len(trees), "crossing": len(crossing), "span_names": names,
+            "trace_id": trace_id}
+
+
+def _r_serve(workdir: Path, k_args: list, slo_ms: float) -> dict:
+    """r.1: the CLI server with ``--metrics --live --slo`` under the CLI
+    loadgen (64 Poisson requests at 20/s, a quarter traced)."""
+    from pytorch_distributed_rnn_tpu_torch.obs.summary import load_events, summarize_file
+    from pytorch_distributed_rnn_tpu_torch.serving.drill import spawn_server
+
+    d = workdir / "r1"
+    d.mkdir()
+    sidecar, live_file, report_path = d / "serve.jsonl", d / "live.port", d / "report.json"
+    serve_args = [*k_args, "--slots", str(SERVE_SLOTS), "--metrics", str(sidecar),
+                  "--live", "0", "--live-port-file", str(live_file),
+                  "--slo", f"qos=normal:p95_ms={slo_ms:g}", "--slo-windows", R_SLO_WINDOWS]
+    t0 = time.perf_counter()
+    with spawn_server(serve_args, ready_timeout_s=SERVE_PROCESS_TIMEOUT) as (host, port, proc):
+        ready_s = time.perf_counter() - t0
+        load = _serve_subprocess(["loadgen", "--connect", f"{host}:{port}", *SERVE_TCP,
+                                  "--trace-sample", R_TRACE_SAMPLE, "--report",
+                                  str(report_path)])
+        lhost, lport = live_file.read_text().split()
+        body = _scrape(f"http://{lhost}:{lport}/metrics", R_SERVING_SERIES)
+    print(load.stdout.strip())
+    report = json.loads(report_path.read_text())
+    if report["errors"] != 0 or load.returncode != 0:
+        raise RuntimeError(f"r.1: loadgen exit {load.returncode}, {report['errors']} errors: "
+                           f"{report['error_samples']}\n{load.stderr[-4000:]}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"r.1: the server exited {proc.returncode} on SIGTERM")
+    counts = _event_counts(sidecar)
+    done = report["done"]
+    if not (counts.get("step", 0) > 0 and counts.get("span:prefill") == done
+            and counts.get("request") == done and counts.get("run_summary") == 1):
+        raise RuntimeError(f"r.1: sidecar events {counts} for {done} requests")
+    summary = summarize_file(sidecar)
+    if summary["requests"] != done:
+        raise RuntimeError(f"r.1: obs summarize counts {summary['requests']} requests, the "
+                           f"loadgen {done}")
+    traced = next(e["trace"] for e in load_events(sidecar) if e.get("trace"))
+    traces = _trace_check("r.1", sidecar, trace_id=traced)
+    series = sorted({line.split("{")[0].split(" ")[0] for line in body.splitlines()
+                     if line.startswith("pdrnn_serving_")})
+    print(f"  r.1: server ready in {ready_s:.1f} s; {done} requests, 0 errors, exit 0 on "
+          f"SIGTERM; sidecar {counts}; obs summarize requests {summary['requests']}; "
+          f"latency ms p50 {report['latency_ms']['p50']} p95 {report['latency_ms']['p95']}, "
+          f"ttft ms p95 {report['ttft_ms']['p95']}; /metrics series {series}")
+    return {"ready_s": ready_s, "events": counts, "requests": done, "series": series,
+            "latency_ms": report["latency_ms"], "ttft_ms": report["ttft_ms"],
+            "tokens_per_s": report["tokens_per_s"], "trace": traces}
+
+
+def _r_step_cost(workdir: Path, model) -> dict:
+    """r.1: the decode step (``run_step`` at 8 busy slots: replay, result
+    copy, token delivery) 200 times, without and with the recorder and an
+    armed fault schedule that never fires, in turns (off, on, on, off),
+    host ms on the host clock (each step ends in the result copy's sync),
+    device ms under ``torch.profiler``; Python->torch calls a step with
+    the recorder on."""
+    from pytorch_distributed_rnn_tpu_torch.obs.recorder import NULL_RECORDER, MetricsRecorder
+    from pytorch_distributed_rnn_tpu_torch.resilience.faults import FaultSchedule
+    from pytorch_distributed_rnn_tpu_torch.serving.adapters import adapter_for
+    from pytorch_distributed_rnn_tpu_torch.serving.buckets import BucketSpec
+    from pytorch_distributed_rnn_tpu_torch.serving.engine import ServingEngine, TorchCalls
+    from pytorch_distributed_rnn_tpu_torch.serving.scheduler import ServeRequest
+
+    n = SERVE_TIMING_REPLAYS
+    engine = ServingEngine(adapter_for(model), num_slots=SERVE_SLOTS,
+                           bucket_spec=BucketSpec.parse("16"), max_new_tokens=n + 1)
+    engine.warmup()
+    recorder = MetricsRecorder(workdir / "r1" / "step-cost.jsonl", sample_every=5)
+    faults = FaultSchedule.parse("step:1000000000:nan,step:1000000001:stall:1")
+
+    def turn(on: bool, counted=None, profiled=False):
+        engine.recorder, engine.faults = (recorder, faults) if on else (NULL_RECORDER, None)
+        for i in range(SERVE_SLOTS):
+            engine.submit(ServeRequest(prompt=[1 + i] * 8, max_new_tokens=n + 1, id=str(i)))
+        engine.run_step(wait_s=0.0)  # the joins and the first token
+        torch.cuda.synchronize()
+        with counted if counted is not None else contextlib.nullcontext(), \
+                _device_profile() if profiled else contextlib.nullcontext() as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                engine.run_step(wait_s=0.0)
+            host_ms = (time.perf_counter() - t0) * 1e3 / n
+        if engine.batcher.has_work:
+            raise RuntimeError("r.1: the timed requests did not finish in their steps")
+        if profiled:
+            return sum(e.self_device_time_total for e in _device_events(prof)) / 1e3 / n
+        return host_ms
+
+    with torch.no_grad():
+        host = {"off": [], "on": []}
+        for on in (False, True, True, False) * R_COST_ROUNDS:
+            host["on" if on else "off"].append(turn(on))
+        calls = TorchCalls(engine)
+        turn(True, counted=calls)
+        device = {"off": turn(False, profiled=True), "on": turn(True, profiled=True)}
+    recorder.close()
+    per_step = (calls.counts["step"] + calls.counts["result"] + calls.counts["faults"]) / n
+    if per_step > SERVE_STEP_CALLS or calls.counts["faults"]:
+        raise RuntimeError(f"r.1: {per_step:g} Python->torch calls a decode step with the "
+                           f"recorder on ({dict(calls.counts)})")
+    med = {k: float(np.median(v)) for k, v in host.items()}
+    print(f"  r.1: decode step at {SERVE_SLOTS} busy slots, {n} steps a turn, in turns: host ms "
+          f"without the recorder {[round(v, 4) for v in host['off']]} (median "
+          f"{med['off']:.4f}), with it and a fault schedule armed "
+          f"{[round(v, 4) for v in host['on']]} (median {med['on']:.4f}): "
+          f"{med['on'] - med['off']:+.4f} ms; device ms {device['off']:.4f} / "
+          f"{device['on']:.4f}; Python->torch calls a step with the recorder on "
+          f"{per_step:g} ({dict(calls.counts)}; at most {SERVE_STEP_CALLS})")
+    return {"host_ms": host, "host_ms_median": med, "device_ms": device,
+            "calls_a_step": per_step}
+
+
+def _r_chaos(workdir: Path, k_args: list, slo_ms: float, model, windows) -> dict:
+    """r.2: the chaos drill (a stalled server under the CLI loadgen), then
+    ``step:N:nan`` on an engine in this process."""
+    from pytorch_distributed_rnn_tpu_torch.resilience.faults import FaultSchedule
+
+    d = workdir / "r2"
+    d.mkdir()
+    sidecar, report_path = d / "serve.jsonl", d / "report.json"
+    serve_args = [*k_args, "--slots", str(SERVE_SLOTS), "--faults", R_STALL,
+                  "--metrics", str(sidecar)]
+    # the drill's SLO at most half the stall, so that the requests held
+    # through it open the degradation window
+    drill_slo = min(slo_ms, R_STALL_S * 1e3 / 2)
+    drill = _serve_subprocess(["loadgen", "--spawn-server", shlex.join(serve_args), *SERVE_TCP,
+                               "--slo-p95-ms", f"{drill_slo:g}", "--report", str(report_path)])
+    print(drill.stdout.strip())
+    report = json.loads(report_path.read_text()) if report_path.exists() else None
+    if report is None:
+        raise RuntimeError(f"r.2: no drill report (exit {drill.returncode}):\n"
+                           f"{drill.stderr[-4000:]}")
+    window = report["degradation_window_s"]
+    closed = window is not None and report["timeline"][-1]["second"] > window[1]
+    counts = _event_counts(sidecar)
+    if (report["server_exit"] != 0 or report["errors"] != 0 or window is None or not closed
+            or counts.get("fault") != 1 or counts.get("span:fault_stall") != 1):
+        raise RuntimeError(f"r.2: drill: server exit {report['server_exit']}, errors "
+                           f"{report['errors']}, window {window} (closed {closed}), sidecar "
+                           f"{counts}\n{drill.stderr[-4000:]}")
+    print(f"  r.2: {R_STALL}: degradation window {window} s of {report['wall_s']:.1f} s opened "
+          f"and closed; {report['done']} done, {report['shed']} shed, 0 errors; server exit 0; "
+          "the fault and its stall span in the sidecar")
+
+    engine = _serve_engine(model)
+    engine.faults = FaultSchedule.parse(f"step:{R_NAN_STEP}:nan")
+    engine.warmup()
+    poisoned = _serve_requests(windows, SERVE_SLOTS, seed=4)
+    for r in poisoned:
+        r.max_new_tokens = max(r.max_new_tokens, R_NAN_STEP + 2)
+        engine.submit(r)
+    engine.drain()
+    bad = [r.id for r in poisoned
+           if r.status != "error" or "non-finite logits" not in (r.error or "")]
+    if bad or engine.stats()["requests_failed"] != len(poisoned):
+        raise RuntimeError(f"r.2: step:{R_NAN_STEP}:nan left requests {bad} not failed cleanly")
+    first_logits = _spy_first_logits(engine)
+    fresh = _serve_requests(windows, 16, seed=5)
+    for r in fresh:
+        engine.submit(r)
+    engine.drain()
+    check = _check_served_tokens("r.2", model, fresh, first_logits, model.embed.device)
+    print(f"  r.2: step:{R_NAN_STEP}:nan failed all {len(poisoned)} in-flight requests cleanly "
+          f"(the poison written into the step graph's logits buffer); the next 16 requests' "
+          "tokens equal generate's")
+    return {"drill": {k: report[k] for k in ("done", "shed", "errors", "wall_s",
+                                             "degraded_seconds", "degradation_window_s",
+                                             "server_exit")},
+            "nan_failed": len(poisoned), "after_nan": check}
+
+
+def _card_memory() -> dict:
+    """``nvidia-smi``'s card memory now (MiB): the card's used memory and
+    each compute process's line (a container may show every process under
+    one pid, so the lines are kept as a list)."""
+    readings = {}
+    for key, query in (("used", "--query-gpu=memory.used"),
+                       ("processes", "--query-compute-apps=pid,used_memory")):
+        try:
+            out = subprocess.run(["nvidia-smi", query, "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=10).stdout
+        except (OSError, subprocess.TimeoutExpired):
+            continue
+        values = [line.split(",")[-1].strip() for line in out.strip().splitlines()]
+        values = [int(v) for v in values if v.isdigit()]
+        readings[key] = values[0] if key == "used" and values else values
+    return readings
+
+
+def _r_fleet(workdir: Path, k_args: list, ready_s: float, model) -> dict:
+    """r.3: the fleet drill through ``loadgen --spawn-fleet`` (in this
+    process, so that each reply's tokens can be held against ``generate``):
+    3 replicas of path k's server on the card behind the router, one
+    SIGKILLed mid-burst; the loadgen's default SLO (p95 2 s), as the
+    drill judges the kill, not the latency of three replicas sharing a
+    card and its host."""
+    from pytorch_distributed_rnn_tpu_torch.serving import cli
+    from pytorch_distributed_rnn_tpu_torch.serving.fleet import drill as fleet_drill
+    from pytorch_distributed_rnn_tpu_torch.serving.loadgen import plan_requests
+    from pytorch_distributed_rnn_tpu_torch.serving.scheduler import ServeRequest
+
+    d = workdir / "r3"
+    d.mkdir()
+    family, live_file, report_path = d / "fleet.jsonl", d / "live.port", d / "report.json"
+    # sized from r.1's server start (a respawn pays the same context start,
+    # load and warm-up captures): the router waits 4x that for its first
+    # pong, and the kill lands a third into the burst, leaving the survivors
+    # two thirds of it to show the window closed
+    ready_timeout = max(60.0, 4 * ready_s)
+    kill_after = R_FLEET_REQUESTS / R_FLEET_RATE / 3
+    argv = ["--spawn-fleet", str(R_FLEET),
+            "--replica-args", shlex.join([*k_args, "--slots", str(SERVE_SLOTS),
+                                          "--metrics", str(family)]),
+            "--router-args", shlex.join([*R_ROUTER, "--metrics", str(family),
+                                         "--live-port-file", str(live_file),
+                                         "--ready-timeout", f"{ready_timeout:g}"]),
+            "--fleet-kill-after-s", f"{kill_after:g}", "--fleet-kill-index", "1",
+            "--requests", str(R_FLEET_REQUESTS), "--rate", f"{R_FLEET_RATE:g}", *R_FLEET_LOAD,
+            "--report", str(report_path)]
+    seen = {}
+    run_load = fleet_drill.run_load
+
+    def keep_replies(cfg):
+        # the fleet is up: every replica warmed up, the router ready
+        seen["ready"] = _card_memory()
+        seen["cfg"] = cfg
+        seen["outcomes"] = []
+        return run_load(cfg, progress=seen["outcomes"].append)
+
+    fleet_drill.run_load = keep_replies
+    before = _card_memory()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.loadgen_main(argv)
+    finally:
+        fleet_drill.run_load = run_load
+    drill_s = time.perf_counter() - t0
+    report = json.loads(report_path.read_text())
+    fleet = report["fleet"]
+    print(f"  r.3: loadgen --spawn-fleet {R_FLEET} exit {rc} in {drill_s:.1f} s: {report['done']} "
+          f"done, {report['shed']} shed, {report['errors']} errors; {fleet['respawns']} "
+          f"respawn(s); router {fleet['router']['rerouted']} rerouted, "
+          f"{fleet['router']['retries']} retries; accounting "
+          f"{'OK' if fleet['accounting_ok'] else 'BROKEN'}; window "
+          f"{report['degradation_window_s']} {'closed' if fleet['window_closed'] else 'OPEN'}; "
+          f"router exit {fleet['router_exit']}; live {fleet.get('live')}")
+    if rc != 0 or not (fleet["accounting_ok"] and fleet["window_closed"]
+                       and fleet["respawns"] >= 1 and fleet["router_exit"] == 0):
+        raise RuntimeError(f"r.3: fleet drill verdict failed: {fleet}")
+    traces = _trace_check("r.3", family, cross=True)
+    # every completed greedy request against its single-request generate
+    plan = plan_requests(seen["cfg"], model.vocab_size, 128, SERVE_MAX_NEW)
+    greedy = []
+    for out in seen["outcomes"]:
+        spec = plan[out.index]
+        if out.status != "done" or spec["temperature"] != 0.0:
+            continue
+        r = ServeRequest(prompt=spec["prompt"], max_new_tokens=spec["max_new_tokens"],
+                         temperature=0.0, seed=spec["seed"], id=str(out.index))
+        r.status, r.tokens = "done", list(out._reply["tokens"])
+        greedy.append(r)
+    check = _check_served_tokens("r.3", model, greedy, None, model.embed.device)
+    ready = seen.get("ready", {})
+    per_replica = ((ready["used"] - before["used"]) / R_FLEET
+                   if "used" in ready and "used" in before else None)
+    print(f"  r.3: card memory (nvidia-smi, MiB): used {before.get('used')} before the fleet "
+          f"(this process), {ready.get('used')} with {R_FLEET} replicas warmed up: "
+          f"{per_replica} a replica; compute processes then {ready.get('processes')}, before "
+          f"{before.get('processes')}; all {R_FLEET} replicas share one card: no scaling figure")
+    return {"seconds": drill_s, "ready_timeout_s": ready_timeout, "kill_after_s": kill_after,
+            "report": {k: report[k] for k in ("done", "shed", "errors", "wall_s",
+                                              "degradation_window_s", "latency_ms")},
+            "fleet": {k: fleet[k] for k in ("respawns", "accounting_ok", "window_closed",
+                                            "router_exit", "router", "live")
+                      if k in fleet},
+            "trace": traces, "greedy_checked": len(greedy), "tokens": check,
+            "card_mib": {"before": before, "ready": ready, "per_replica": per_replica}}
+
+
+def phase_fleet_telemetry(workdir: Path, runs: dict, serving: dict) -> dict:
+    """Path r: serving's telemetry and chaos, then the fleet, on path k's
+    checkpoint (``serve``, ``loadgen`` and ``obs`` through their CLIs)."""
+    from pytorch_distributed_rnn_tpu_torch.serving import cli
+
+    t0 = time.perf_counter()
+    k_args = _serve_args("k", workdir / "models-char-lstm")
+    k_p95 = serving["k"]["tcp"]["report"]["latency_ms"]["p95"]
+    slo_ms = float(math.ceil(R_SLO_OVER_K * k_p95))
+    print(f"serving path r: telemetry, chaos and the fleet on path k's server (SLO p95 "
+          f"{slo_ms:g} ms = {R_SLO_OVER_K:g} x k's measured TCP latency p95 {k_p95} ms)")
+    _reset_launch_counts()
+    results = {"slo_p95_ms": slo_ms, "r1": _r_serve(workdir, k_args, slo_ms)}
+    model, _ = cli.load_served_model(cli.build_serve_parser().parse_args(k_args))
+    results["r1"]["step"] = _r_step_cost(workdir, model)
+    windows = runs["char_lstm"].trainer.test_set.features
+    results["r2"] = _r_chaos(workdir, k_args, slo_ms, model, windows)
+    results["r3"] = _r_fleet(workdir, k_args, results["r1"]["ready_s"], model)
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    if launches:
+        raise RuntimeError(f"r: serving launched the port's kernels: {launches}")
+    results["seconds"] = time.perf_counter() - t0
+    print(f"path r: {results['seconds']:.1f} s (no RNN or flash kernel launched)")
+    print("fleet_telemetry: " + json.dumps(results, default=str))
     return results
 
 
@@ -3517,7 +3937,8 @@ def main() -> int:
         phase_ps(workdir, dp_finals, native["finals"])
         phase_resilience(workdir, formatter)
         phase_telemetry(workdir, formatter)
-        phase_serving(workdir, runs)
+        serving = phase_serving(workdir, runs)
+        phase_fleet_telemetry(workdir, runs, serving)
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

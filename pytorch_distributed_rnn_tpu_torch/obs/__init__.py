@@ -18,12 +18,10 @@
   /metrics``, ``/health``, ``/events``, ``/fleet``); :mod:`.store`: its
   time series; :mod:`.watchdog`: stall, NaN streak and loss spike
   detection, and the SIGUSR2 stack dump.
-- :mod:`.tracectx`: the request trace context of the serving wire.
+- :mod:`.tracectx`: the request trace context of the serving wire;
+  :mod:`.trace`: the router's and replicas' spans of a traced request
+  joined into one tree across sidecars.
 - :mod:`.cli`: ``python -m pytorch_distributed_rnn_tpu_torch.obs``.
-
-Not ported yet: the serving engine's spans, its ``--metrics``, ``--live``,
-``--slo`` and ``--faults`` (``serving/cli.py``), and ``obs/trace.py``, the
-router and replica request trees (ROADMAP.md).
 """
 
 from pytorch_distributed_rnn_tpu_torch.obs.aggregator import (

@@ -1,12 +1,10 @@
 """``python -m pytorch_distributed_rnn_tpu_torch.obs``: summarize / diff /
-stragglers / timeline / attribute / health / ledger / regress / watch /
-top over metrics sidecars, the JAX package's ``pdrnn-metrics`` without
-its request-trace view (``trace``: the serving fleet's request trees,
-whose recorder half the port does not have yet).
+stragglers / timeline / trace / attribute / health / ledger / regress /
+watch / top over metrics sidecars, the JAX package's ``pdrnn-metrics``.
 
 Exit-code contract (pinned by tests and used as a CI gate):
 
-- ``0`` clean (summary/table printed; no regression; no
+- ``0`` clean (summary/trace/table printed; no regression; no
   straggler; every rank healthy)
 - ``1`` signal found (``diff``/``regress``: a regression past the
   threshold; ``stragglers``/``attribute``: a rank past the spread
@@ -20,6 +18,8 @@ Examples::
   pdrnn-metrics diff baseline.jsonl candidate.jsonl --threshold 10
   pdrnn-metrics stragglers metrics.jsonl   # picks up -r<k> siblings
   pdrnn-metrics timeline metrics.jsonl -o run.trace.json  # -> Perfetto
+  pdrnn-metrics trace router.jsonl replica.jsonl --slowest 3
+  pdrnn-metrics trace router.jsonl replica.jsonl --request 42
   pdrnn-metrics attribute metrics.jsonl    # phase fractions + blame
   pdrnn-metrics health metrics.jsonl --stale-after 30
   pdrnn-metrics watch 127.0.0.1:9100       # live fleet table (aggregator)
@@ -177,6 +177,24 @@ def main(argv=None) -> int:
                    help="print a machine summary of the export")
 
     p = sub.add_parser(
+        "trace",
+        help="assemble distributed request traces (obs/tracectx.py "
+        "span contexts recorded across router + replica sidecars) into "
+        "span trees with critical-path attribution",
+    )
+    p.add_argument("files", nargs="+",
+                   help="sidecar path(s) - pass the router's AND the "
+                   "replicas' families; -r<k> siblings are picked up "
+                   "automatically")
+    p.add_argument("--request", default=None, metavar="ID",
+                   help="only traces whose request id matches, or whose "
+                   "trace id starts with ID")
+    p.add_argument("--slowest", type=int, default=None, metavar="N",
+                   help="only the N slowest traces (default: all, "
+                   "slowest first)")
+    p.add_argument("--json", action="store_true", help="machine output")
+
+    p = sub.add_parser(
         "attribute",
         help="per-rank phase attribution: sampled step time decomposed "
         "into data-wait / dispatch / device / exchange fractions, plus "
@@ -322,6 +340,8 @@ def _dispatch(args) -> int:
 
     if args.cmd == "timeline":
         return _timeline(args)
+    if args.cmd == "trace":
+        return _trace(args)
     if args.cmd == "attribute":
         return _attribute(args)
     if args.cmd == "health":
@@ -402,6 +422,37 @@ def _timeline(args) -> int:
             f"{len(summary['ranks'])} rank(s) - open in "
             "https://ui.perfetto.dev or chrome://tracing"
         )
+    return 0
+
+
+def _trace(args) -> int:
+    from pytorch_distributed_rnn_tpu_torch.obs.trace import (
+        assemble_traces,
+        format_trace_tree,
+        format_traces_json,
+        validate_trace_tree,
+    )
+
+    trees = assemble_traces(args.files, request=args.request)
+    if args.slowest is not None:
+        trees = trees[:max(0, args.slowest)]
+    for tree in trees:
+        # self-check the assembly before presenting it: a tree that
+        # fails its own invariants is malformed input, not a finding
+        validate_trace_tree(tree)
+    if args.json:
+        print(format_traces_json(trees))
+        return 0
+    if not trees:
+        what = f" matching {args.request!r}" if args.request else ""
+        print(
+            f"no request trace{what} in the given sidecars (record "
+            "with tracing on: pdrnn-router --trace-sample / "
+            "pdrnn-loadgen --trace-sample, plus --metrics everywhere)"
+        )
+        return 0
+    for tree in trees:
+        print(format_trace_tree(tree))
     return 0
 
 

@@ -1,6 +1,5 @@
 """Continuous-batching inference serving, the counterpart of the JAX
-package's ``serving/`` (the single-process part; the fleet router is not
-ported yet).
+package's ``serving/``.
 
 Load a port checkpoint (``training/checkpoint.py``), accept generation
 requests over a JSON-lines TCP protocol, and decode them in continuously
@@ -17,10 +16,13 @@ Layering (each importable without the ones above it):
   shedding, FIFO slot assignment at step boundaries
 - :mod:`.adapters`  - per-family prefill / decode-step functions built
   from the functions the models' ``generate`` uses
-- :mod:`.engine`    - device buffers, CUDA-graph programs, sampling
+- :mod:`.engine`    - device buffers, CUDA-graph programs, sampling,
+  telemetry and chaos
 - :mod:`.server`    - the TCP JSON-lines server (``serve``)
 - :mod:`.loadgen`   - Poisson load generator + SLO report (``loadgen``),
-  the drill via ``--spawn-server`` (:mod:`.drill`)
+  the chaos SLO drill via ``--spawn-server`` (:mod:`.drill`)
+- :mod:`.fleet`     - the router over N replicas, its pool and the
+  kill-mid-burst drill (``router``, ``loadgen --spawn-fleet``)
 """
 
 from pytorch_distributed_rnn_tpu_torch.serving.buckets import BucketSpec

@@ -7,13 +7,16 @@ counterparts of the JAX package's ``pdrnn-serve`` and ``pdrnn-loadgen``
 Serve::
 
   python -m pytorch_distributed_rnn_tpu_torch.serving serve --checkpoint models/ \\
-      --model char --hidden-units 512 --stacked-layer 2 --port 7071
+      --model char --hidden-units 512 --stacked-layer 2 --port 7071 \\
+      --metrics serve-metrics.jsonl --live 0 --live-port-file live.port
 
 The model flags mirror the training CLI's: a checkpoint stores only
 tensors, so the server builds the architecture from the flags the
 training run used and loads the model section of the newest valid
 checkpoint (``--checkpoint`` is the file or the training
-``--checkpoint-directory``).
+``--checkpoint-directory``).  ``--faults`` takes the chaos grammar of
+``resilience/faults.py`` (the step index is the decode step): the SLO
+drill injects stalls and NaN through it.
 
 Load::
 
@@ -22,16 +25,22 @@ Load::
   python -m pytorch_distributed_rnn_tpu_torch.serving loadgen --spawn-server \\
       "--checkpoint models/ --model char --hidden-units 512" --requests 64
 
-``--spawn-server`` runs the drill: a server subprocess up, load through
-it, SIGTERM down, the report (with the server's exit code) out.  Exit
-codes: 0 = SLO pass, 1 = SLO fail or errors, 2 = usage or spawn failure.
+``--spawn-server`` runs the chaos SLO drill: a server subprocess up, load
+through it, SIGTERM down, the report (with the degradation window and the
+server's exit code) out.  Exit codes: 0 = SLO pass, 1 = SLO fail or
+errors, 2 = usage or spawn failure.
 
-Flags whose machinery is not ported yet are parsed and rejected when set:
-serving's telemetry and chaos flags (``--metrics``, ``--live``, ``--slo``,
-``--faults``, ...: the engine's spans and live source; the training CLI
-has its telemetry) with ROADMAP A5's serving part, the fleet's (``--replica-id``,
-``--drain-timeout``, loadgen's ``--spawn-fleet`` and its options, the
-``router`` subcommand) with the serving fleet, ``--model moe`` with A9.
+``--spawn-fleet N`` runs the kill-mid-burst fleet drill
+(``serving/fleet/drill.py``): N supervised replicas behind a router, one
+SIGKILLed mid-burst, and the verdict is graceful degradation - rerouting,
+exactly-once accounting, a closed degradation window - instead of a bare
+SLO pass::
+
+  python -m pytorch_distributed_rnn_tpu_torch.serving loadgen --spawn-fleet 3 \\
+      --replica-args "--checkpoint models/ --model char --hidden-units 512" \\
+      --fleet-kill-after-s 2 --requests 120 --rate 40
+
+``--model moe`` is parsed and rejected: the MoE LM comes with ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import shlex
 import signal
 import sys
@@ -47,17 +57,8 @@ from pathlib import Path
 
 log = logging.getLogger(__name__)
 
-NOT_PORTED_TELEMETRY = ("not ported yet for serving (ROADMAP.md A5, serving part: the engine's "
-                        "spans, its live source, the SLOs and chaos)")
-NOT_PORTED_FLEET = "not ported yet (ROADMAP.md A4: the serving fleet and its router)"
 MOE_NOT_PORTED = ("--model moe is not ported yet - the port serves --model char and "
                   "attention; the MoE LM and its adapter come with ROADMAP.md A9")
-
-
-def _reject(chosen: dict, reason: str):
-    flags = [flag for flag, on in chosen.items() if on]
-    if flags:
-        raise SystemExit(f"{', '.join(flags)}: {reason}")
 
 
 # ---------------------------------------------------------------------------
@@ -131,40 +132,59 @@ def build_serve_parser() -> argparse.ArgumentParser:
         help="capture no program at startup (each is captured at its first "
         "use; none is captured after that)",
     )
-    parser.add_argument("--faults", default=None, metavar="SPEC", help=NOT_PORTED_TELEMETRY)
-    parser.add_argument("--replica-id", default=None, type=int, metavar="K",
-                        help=NOT_PORTED_FLEET)
-    parser.add_argument("--drain-timeout", default=30.0, type=float, metavar="S",
-                        help=NOT_PORTED_FLEET)
-    parser.add_argument("--metrics", default=None, type=Path, metavar="PATH",
-                        help=NOT_PORTED_TELEMETRY)
-    parser.add_argument("--metrics-sample-every", default=None, type=int,
-                        help=NOT_PORTED_TELEMETRY)
-    parser.add_argument("--live", default=None, metavar="[HOST:]PORT", help=NOT_PORTED_TELEMETRY)
-    parser.add_argument("--live-port-file", default=None, type=Path, metavar="PATH",
-                        help=NOT_PORTED_TELEMETRY)
-    parser.add_argument("--slo", action="append", default=None, metavar="SPEC",
-                        help=NOT_PORTED_TELEMETRY)
-    parser.add_argument("--slo-windows", default=None, metavar="FAST,SLOW",
-                        help=NOT_PORTED_TELEMETRY)
+    parser.add_argument(
+        "--faults", default=None, metavar="SPEC",
+        help="chaos schedule on the decode loop (resilience/faults.py "
+        "grammar; step index = decode step): stall holds the loop, nan "
+        "poisons in-flight logits (affected requests fail cleanly), "
+        "exc is absorbed, kill preempts the process; net:flap:<s> "
+        "drops every open client connection each period",
+    )
+    parser.add_argument(
+        "--replica-id", default=None, type=int, metavar="K",
+        help="fleet membership (serving/fleet/): this server is "
+        "replica K (1..N) behind a router - it pushes its live digests "
+        "to the router's aggregator instead of anchoring one, announces "
+        "itself via register/drain heartbeats, and SIGTERM DRAINS "
+        "(finish in-flight, reject new) instead of aborting",
+    )
+    parser.add_argument(
+        "--drain-timeout", default=30.0, type=float, metavar="S",
+        help="bound on the SIGTERM drain wait (fleet replicas)",
+    )
+    parser.add_argument("--metrics", default=None, type=Path, metavar="PATH")
+    parser.add_argument("--metrics-sample-every", default=None, type=int)
+    parser.add_argument(
+        "--live", default=None, metavar="[HOST:]PORT",
+        help="live observability plane (obs/live.py; needs --metrics): "
+        "serve GET /metrics (Prometheus), /health, /events, /fleet and "
+        "/series on this address, with the time-series store and the "
+        "anomaly watchdog (stall / NaN / SLO breach + budget-burn "
+        "alerts, stack dumps) armed; also read from the PDRNN_LIVE env",
+    )
+    parser.add_argument(
+        "--live-port-file", default=None, type=Path, metavar="PATH",
+        help="write 'host port' of the live endpoint here once bound "
+        "(how scripts find a --live 0 ephemeral port)",
+    )
+    parser.add_argument(
+        "--slo", action="append", default=None, metavar="SPEC",
+        help="per-QoS SLO objective (repeatable, one per class): "
+        "'qos=high:p95_ms=250:availability=99.9'.  Arms the watchdog's "
+        "per-class SLO detector, and - on the live-plane anchor - the "
+        "store's multi-window error-budget burn alerts (slo_burn / "
+        "slo_burn_cleared on /events)",
+    )
+    parser.add_argument(
+        "--slo-windows", default=None, metavar="FAST,SLOW",
+        help="burn-rate window pair in seconds (default 300,3600 - the "
+        "Google SRE fast/slow pair); drills shrink it to fit a burst",
+    )
     parser.add_argument("--log", default="INFO")
     return parser
 
 
 def reject_unported_serve(args):
-    _reject({
-        "--metrics": args.metrics is not None,
-        "--metrics-sample-every": args.metrics_sample_every is not None,
-        "--live": args.live is not None,
-        "--live-port-file": args.live_port_file is not None,
-        "--slo": args.slo is not None,
-        "--slo-windows": args.slo_windows is not None,
-        "--faults": args.faults is not None,
-    }, NOT_PORTED_TELEMETRY)
-    _reject({
-        "--replica-id": args.replica_id is not None,
-        "--drain-timeout": args.drain_timeout != 30.0,
-    }, NOT_PORTED_FLEET)
     if args.model == "moe":
         raise SystemExit(MOE_NOT_PORTED)
 
@@ -223,28 +243,76 @@ def serve_main(argv=None) -> int:
     logging.basicConfig(level=args.log.upper())
     reject_unported_serve(args)
 
+    from pytorch_distributed_rnn_tpu_torch.obs.live import LivePlane
+    from pytorch_distributed_rnn_tpu_torch.obs.recorder import MetricsRecorder
+    from pytorch_distributed_rnn_tpu_torch.resilience.faults import FaultSchedule
     from pytorch_distributed_rnn_tpu_torch.serving.adapters import adapter_for
     from pytorch_distributed_rnn_tpu_torch.serving.buckets import BucketSpec
     from pytorch_distributed_rnn_tpu_torch.serving.engine import ServingEngine
     from pytorch_distributed_rnn_tpu_torch.serving.server import ServingServer
 
     model, _ = load_served_model(args)
+    replica_id = args.replica_id
+    recorder = MetricsRecorder.resolve(
+        args, rank=replica_id or 0,
+        meta={"role": "serve", "argv": sys.argv[1:]},
+    )
+    faults = FaultSchedule.resolve(args)
+    if faults is not None:
+        log.warning(f"serve: chaos schedule active: {faults}")
+    if recorder.enabled:
+        # on-demand hang diagnosis: kill -USR2 <pid> dumps all-thread
+        # stacks next to the sidecar (obs/watchdog.py)
+        from pytorch_distributed_rnn_tpu_torch.obs.watchdog import install_stack_dump_handler
+
+        install_stack_dump_handler(recorder.path)
     engine = ServingEngine(
         adapter_for(model), num_slots=args.slots,
         bucket_spec=BucketSpec.parse(args.prompt_buckets),
         max_new_tokens=args.max_new_tokens, max_queue=args.max_queue,
+        recorder=recorder, faults=faults,
     )
+    # live plane: /metrics + /health + /events served from this process
+    # (the serving engine is the rank-0 anchor), with the engine's gauge
+    # block riding every digest.  A fleet replica (--replica-id >= 1)
+    # pushes to the router's aggregator instead of anchoring its own -
+    # its digest doubles as the router's load signal
+    plane = LivePlane.resolve(args, recorder, rank=replica_id or 0, role="serve",
+                              faults=faults)
+    if plane is not None:
+        plane.exporter.add_source(engine.live_source)
+    pusher = None
+    if replica_id is not None:
+        # register/drain heartbeats ride the aggregator's /events feed
+        # (an alert-only EventPusher: a distinct id space from the digest
+        # exporter, so the announcements never collide with the
+        # replica's own gauge digests)
+        from pytorch_distributed_rnn_tpu_torch.obs.live import (
+            LIVE_ENV,
+            EventPusher,
+            parse_live_spec,
+            resolve_push_url,
+        )
+
+        spec = args.live or os.environ.get(LIVE_ENV)
+        if spec and recorder.enabled:
+            lhost, lport = parse_live_spec(spec)
+            pusher = EventPusher(lambda: resolve_push_url(args, lhost, lport),
+                                 role="replica", rank=replica_id).push
     if not args.no_warmup:
         engine.warmup()
-    server = ServingServer(engine, host=args.host, port=args.port, model_name=args.model)
+    server = ServingServer(engine, host=args.host, port=args.port, model_name=args.model,
+                           recorder=recorder, pusher=pusher, replica_id=replica_id)
     if args.port_file is not None:
         args.port_file.parent.mkdir(parents=True, exist_ok=True)
         args.port_file.write_text(f"{server.host} {server.port}\n")
 
     stop = threading.Event()
+    received = {"signum": None}
 
     def _on_signal(signum, _frame):
         log.info(f"serve: signal {signum}, shutting down")
+        received["signum"] = signum
         stop.set()
 
     signal.signal(signal.SIGTERM, _on_signal)
@@ -254,7 +322,17 @@ def serve_main(argv=None) -> int:
     print(f"serve: listening on {server.host}:{server.port}", flush=True)
     while not stop.is_set():
         stop.wait(timeout=0.5)
-    server.shutdown()
+    # a fleet replica DRAINS on SIGTERM: finish what it owns, reject new
+    # work, and mark its digests drained so the aggregator (and ``obs
+    # health``) classifies the coming silence as a voluntary exit
+    drain = replica_id is not None and received["signum"] == signal.SIGTERM
+    if drain and plane is not None:
+        plane.exporter.note_drained()
+    server.shutdown(drain=drain, drain_timeout_s=args.drain_timeout)
+    if plane is not None:
+        # after server.shutdown(): the recorder's close pushed the final
+        # finished digest, so the last scrape-able state is honest
+        plane.close()
     stats = engine.stats()
     log.info(
         f"serve: served {stats['requests']} requests "
@@ -283,17 +361,36 @@ def build_loadgen_parser() -> argparse.ArgumentParser:
     )
     target.add_argument(
         "--spawn-server", default=None, metavar="ARGS",
-        help="drill: spawn `serve ARGS` (shell-quoted string), load it, "
-        "SIGTERM it, and report - including the server's exit code",
+        help="chaos SLO drill: spawn `serve ARGS` (shell-quoted string), "
+        "load it, SIGTERM it, and report - including the degradation "
+        "window and the server's exit code",
     )
-    target.add_argument("--spawn-fleet", default=None, type=int, metavar="N",
-                        help=NOT_PORTED_FLEET)
-    parser.add_argument("--replica-args", default=None, metavar="ARGS", help=NOT_PORTED_FLEET)
-    parser.add_argument("--router-args", default="", metavar="ARGS", help=NOT_PORTED_FLEET)
-    parser.add_argument("--fleet-kill-after-s", default=None, type=float, metavar="S",
-                        help=NOT_PORTED_FLEET)
-    parser.add_argument("--fleet-kill-index", default=1, type=int, metavar="K",
-                        help=NOT_PORTED_FLEET)
+    target.add_argument(
+        "--spawn-fleet", default=None, type=int, metavar="N",
+        help="kill-mid-burst fleet drill: spawn N supervised replicas "
+        "(--replica-args) behind a router (--router-args), load "
+        "through the router, optionally SIGKILL one replica mid-burst "
+        "(--fleet-kill-after-s), and assert rerouting + exactly-once "
+        "accounting + a CLOSED degradation window",
+    )
+    parser.add_argument(
+        "--replica-args", default=None, metavar="ARGS",
+        help="serve flags shared by every --spawn-fleet replica "
+        "(shell-quoted; identity/port flags are added by the drill)",
+    )
+    parser.add_argument(
+        "--router-args", default="", metavar="ARGS",
+        help="extra router flags for --spawn-fleet (shell-quoted), e.g. "
+        "'--retries 2 --hedge-after-ms 250'",
+    )
+    parser.add_argument(
+        "--fleet-kill-after-s", default=None, type=float, metavar="S",
+        help="SIGKILL one replica this long after load start",
+    )
+    parser.add_argument(
+        "--fleet-kill-index", default=1, type=int, metavar="K",
+        help="which replica slot (1..N) the kill hits",
+    )
     parser.add_argument("--requests", default=50, type=int)
     parser.add_argument(
         "--rate", default=25.0, type=float,
@@ -356,13 +453,6 @@ def loadgen_main(argv=None) -> int:
 
     args = build_loadgen_parser().parse_args(argv)
     logging.basicConfig(level="INFO")
-    _reject({
-        "--spawn-fleet": args.spawn_fleet is not None,
-        "--replica-args": args.replica_args is not None,
-        "--router-args": args.router_args != "",
-        "--fleet-kill-after-s": args.fleet_kill_after_s is not None,
-        "--fleet-kill-index": args.fleet_kill_index != 1,
-    }, NOT_PORTED_FLEET)
     cfg = LoadConfig(
         requests=args.requests, rate=args.rate,
         prompt_len_min=args.prompt_len_min,
@@ -378,6 +468,9 @@ def loadgen_main(argv=None) -> int:
         slo_p95_ms=args.slo_p95_ms, slo_ttft_p95_ms=args.slo_ttft_p95_ms,
         trace_sample=args.trace_sample,
     )
+
+    if args.spawn_fleet is not None:
+        return _fleet_drill(args, cfg)
 
     if args.spawn_server is not None:
         from pytorch_distributed_rnn_tpu_torch.serving.drill import ServerSpawnError, run_drill
@@ -414,5 +507,66 @@ def loadgen_main(argv=None) -> int:
         and report["slo"].get("p95_ok", False)
         and report["slo"].get("ttft_p95_ok", True)
         and (server_exit in (None, 0))
+    )
+    return 0 if ok else 1
+
+
+def _fleet_drill(args, cfg) -> int:
+    """``loadgen --spawn-fleet N``: the fleet drill's report lines and
+    verdict, as JAX's ``pdrnn-loadgen`` prints and judges them."""
+    from pytorch_distributed_rnn_tpu_torch.serving.fleet.drill import (
+        FleetSpawnError,
+        run_fleet_drill,
+    )
+    from pytorch_distributed_rnn_tpu_torch.serving.loadgen import format_report
+
+    if args.replica_args is None:
+        print("loadgen: --spawn-fleet needs --replica-args", file=sys.stderr)
+        return 2
+    try:
+        report = run_fleet_drill(
+            shlex.split(args.replica_args), cfg, n=args.spawn_fleet,
+            kill_after_s=args.fleet_kill_after_s, kill_index=args.fleet_kill_index,
+            router_args=shlex.split(args.router_args),
+        )
+    except FleetSpawnError as exc:
+        print(f"loadgen: {exc}", file=sys.stderr)
+        return 2
+    if args.report is not None:
+        args.report.parent.mkdir(parents=True, exist_ok=True)
+        args.report.write_text(json.dumps(report, indent=1) + "\n")
+    fleet = report["fleet"]
+    if args.json:
+        print(json.dumps(report, indent=1))
+    else:
+        print(format_report(report))
+        print(
+            f"fleet: {fleet['replicas']} replicas, "
+            f"{fleet['respawns']} respawn(s), router rerouted "
+            f"{fleet['router']['rerouted']} "
+            f"({fleet['router']['retries']} retries, "
+            f"{fleet['router']['hedges']} hedges), accounting "
+            f"{'OK' if fleet['accounting_ok'] else 'BROKEN'}, "
+            f"window {'closed' if fleet['window_closed'] else 'OPEN'}"
+        )
+        if "live" in fleet:
+            live = fleet["live"]
+            rec = live["recommended_replicas"]
+            print(
+                f"fleet live: slo_burn "
+                f"{'fired' if live['burn_fired'] else 'quiet'}"
+                f"{'+cleared' if live['burn_cleared'] else ''}, "
+                f"recommended_replicas {rec['min']}->{rec['peak']} "
+                f"({rec['samples']} samples), series scrape "
+                f"{'ok' if live['series_scrape_ok'] else 'MISSING'}"
+            )
+    # the drill's gate: degradation bounded + nothing lost or duplicated
+    # + the kill actually respawned + clean teardown (a killed stream may
+    # legitimately error, so errors == 0 is not part of this verdict -
+    # accounting is)
+    ok = (
+        fleet["accounting_ok"] and fleet["window_closed"]
+        and fleet["router_exit"] == 0
+        and (args.fleet_kill_after_s is None or fleet["respawns"] >= 1)
     )
     return 0 if ok else 1

@@ -1,13 +1,25 @@
-"""SLO drill: a spawned server meets traffic (the counterpart of the JAX
-package's ``serving/drill.py``).
+"""Chaos SLO drill: a server under ``resilience/`` faults meets traffic
+(the counterpart of the JAX package's ``serving/drill.py``).
 
 ``spawn_server`` runs ``python -m pytorch_distributed_rnn_tpu_torch.serving
 serve ...`` as a subprocess (the deployment shape: the drill must prove
-the PROCESS serves and exits cleanly), waits for the port file, and tears
-it down with SIGTERM on exit.  ``run_drill`` is the scenario ``loadgen
---spawn-server`` runs: start a server, drive the configured load, and
-return ``(report, server_exit_code)``.  Fault injection (``--faults``)
-comes with the port's ``resilience/``.
+the PROCESS survives, so in-process threads would not do), waits for the
+port file, and tears it down with SIGTERM on exit - the caller asserts a
+clean exit code, because graceful shutdown under chaos is part of the
+contract.
+
+``run_drill`` is the scenario ``loadgen --spawn-server`` runs: start a
+server (typically with ``--faults 'step:N:stall:S'``), drive the
+configured load, and return ``(report, server_exit_code)``.  The report's
+per-second timeline shows the degradation window the fault opened; the
+drill's acceptance is that the window CLOSES - load is shed or queued
+while the fault holds, and service recovers when it passes.
+
+A failed drill is actionable, not just red: the report names the slowest
+and every SLO-violating request (``slowest`` / ``slo_violations``, each
+with its request id and - when tracing is on - trace id), and
+``trace_handles`` collects the distinct trace ids to pull with ``python
+-m pytorch_distributed_rnn_tpu_torch.obs trace``.
 """
 
 from __future__ import annotations
@@ -85,8 +97,8 @@ def run_drill(serve_args: list[str], cfg: LoadConfig,
 
 
 def trace_handles(report: dict) -> list[str]:
-    """The distinct trace ids a failed drill should pull with
-    ``pdrnn-metrics trace``: slowest requests first, then every SLO
+    """The distinct trace ids a failed drill should pull with the
+    ``obs trace`` subcommand: slowest requests first, then every SLO
     violation (order-preserving dedup)."""
     handles: list[str] = []
     for entry in [*report.get("slowest", ()),

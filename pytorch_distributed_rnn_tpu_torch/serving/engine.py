@@ -1,6 +1,5 @@
 """Continuous-batching decode engine, the counterpart of the JAX package's
-``serving/engine.py`` (without its recorder, chaos schedule and live
-source, which come with the port's telemetry).
+``serving/engine.py``.
 
 The engine owns a fixed batch of ``num_slots`` decode slots whose device
 state is allocated once: the adapter's slot state (RNN carries or KV
@@ -49,6 +48,23 @@ product and a single-row one may differ in the last bits).  Only the
 engine thread touches the device; ``submit`` and ``stats`` are
 host-only.  :class:`TorchCalls` counts the engine's Python->torch calls
 by phase.
+
+Telemetry rides the ``obs/`` recorder as in JAX: a ``step`` event a
+decode step (``dispatch_s``, which the step's copy of ``(tok, ok)`` to
+the host fences, ``fenced_s`` on sampled steps, the pre-step wait as
+``data_wait_s``, queue depth, active slots), ``prefill`` spans, a
+``request`` event a completion, a traced request's ``queue_wait``,
+``decode`` and ``stream_emit`` spans, and a ``run_summary`` at
+:meth:`close`.  The recorder is host-only, so telemetry adds no torch call
+to a step.  :meth:`live_source` gives the live plane the ``serving``
+block; it runs on the exporter's thread and reads host counters only.
+
+Chaos (``resilience/faults.py``) plugs in as on a trainer: ``stall``
+holds the decode loop, ``exc`` is absorbed and counted
+(``chaos_absorbed``), ``nan`` writes NaN into the persistent ``logits``
+buffer that the step program reads (so the poisoned slots fail their
+requests through ``ok``), ``kill`` preempts the process.  A step where no
+fault fires makes no extra torch call.
 """
 
 from __future__ import annotations
@@ -70,10 +86,13 @@ from pytorch_distributed_rnn_tpu_torch.obs.live import (
     RollingWindow,
     request_latency_histogram,
 )
+from pytorch_distributed_rnn_tpu_torch.obs.recorder import NULL_RECORDER
 from pytorch_distributed_rnn_tpu_torch.obs.summary import percentile
+from pytorch_distributed_rnn_tpu_torch.resilience.faults import ChaosError
 from pytorch_distributed_rnn_tpu_torch.serving.buckets import BucketSpec
 from pytorch_distributed_rnn_tpu_torch.serving.scheduler import ContinuousBatcher, ServeRequest
 from pytorch_distributed_rnn_tpu_torch.utils.graphs import CountedGraph
+from pytorch_distributed_rnn_tpu_torch.utils.profiling import _rss_mb
 
 log = logging.getLogger(__name__)
 
@@ -171,7 +190,8 @@ class ServingEngine:
     the model's."""
 
     def __init__(self, adapter, *, num_slots: int = 4, bucket_spec: BucketSpec | None = None,
-                 max_new_tokens: int = 64, max_queue: int = 64):
+                 max_new_tokens: int = 64, max_queue: int = 64, recorder=NULL_RECORDER,
+                 faults=None):
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
         self.adapter = adapter
@@ -187,6 +207,10 @@ class ServingEngine:
                     f"{adapter.max_context}"
                 )
         self.batcher = ContinuousBatcher(num_slots, max_queue)
+        self.recorder = recorder
+        self.faults = faults
+        if faults is not None and getattr(recorder, "enabled", False):
+            faults.recorder = recorder
         self._work = threading.Condition(threading.Lock())
         self._closed = False
         self.device = next(adapter.model.parameters()).device
@@ -204,6 +228,7 @@ class ServingEngine:
         self._tokens_out = 0
         self._requests_done = 0
         self._requests_failed = 0
+        self._chaos_exceptions = 0
         self._started_tm = time.perf_counter()
         # guards the stat deques and counters below: the engine thread
         # appends while connection threads read in stats()
@@ -485,6 +510,7 @@ class ServingEngine:
             return self._run_step(wait_s)
 
     def _run_step(self, wait_s: float) -> bool:
+        wait_t0 = time.perf_counter()
         with self._work:
             if not self.batcher.has_work:
                 self._work.wait(timeout=wait_s)
@@ -497,17 +523,35 @@ class ServingEngine:
             return False
 
         with self._stats_lock:
+            step_index = self._steps
             self._steps += 1
+        if self.faults is not None:
+            self._apply_faults(step_index)
+        t0 = time.perf_counter()
         toks, ok = self._advance([slot for slot, request in active if request.temperature > 0])
+        step_s = time.perf_counter() - t0  # fenced: _advance copied (tok, ok) to the host
         self._phase = "join"
+        depth = self.batcher.queue_depth
         with self._stats_lock:
-            self._queue_depths.append(self.batcher.queue_depth)
+            self._queue_depths.append(depth)
+        rec = self.recorder
+        if rec.enabled:
+            rec.record(
+                "step", step=step_index, dispatch_s=step_s,
+                fenced_s=step_s if rec.is_sample_step(step_index) else None,
+                # pre-step wait: idle + joins (prefill is serving's input
+                # pipeline, so it lands in the data phase)
+                data_wait_s=max(0.0, t0 - wait_t0), tm=t0,
+                queue_depth=depth, active=len(active),
+            )
+            rec.note_progress(step_index)
 
         now = time.perf_counter()
         for slot, request in active:
             if not ok[slot]:
                 self._finish(slot, request, now,
-                             error="non-finite logits during decode (poisoned checkpoint)")
+                             error="non-finite logits during decode (chaos fault or poisoned "
+                                   "checkpoint)")
                 continue
             token = toks[slot]
             request.tokens.append(token)
@@ -520,11 +564,21 @@ class ServingEngine:
         return True
 
     def _do_join(self, slot: int, request: ServeRequest):
-        request.service_tm = time.perf_counter()
+        t0 = time.perf_counter()
+        request.service_tm = t0
         seq_state, logits = self._prefill(request.prompt, slot, request.temperature)
         self._join(slot, seq_state, logits, len(request.prompt), request.temperature,
                    request.seed)
         request.prefill_done_tm = time.perf_counter()
+        if self.recorder.enabled:
+            # a traced request threads its context into the span so the
+            # cross-process assembler (obs/trace.py) can re-join it
+            extra = {} if request.trace is None else request.trace.child().span_fields()
+            self.recorder.emit_span(
+                "prefill", t0, request.prefill_done_tm - t0, cat="serving",
+                request=request.id or request.seq, bucket=request.bucket,
+                prompt_len=len(request.prompt), slot=slot, **extra,
+            )
 
     def _finish(self, slot: int, request: ServeRequest, now: float, error: str | None = None):
         with self._work:
@@ -552,8 +606,73 @@ class ServingEngine:
                 request.latency_s,
                 trace_id=None if request.trace is None else request.trace.trace_id,
             )
+        if self.recorder.enabled:
+            self.recorder.record(
+                "request", request=request.id or request.seq,
+                status=request.status, tokens=len(request.tokens),
+                latency_s=request.latency_s, ttft_s=request.ttft_s,
+                queue_s=request.queue_wait_s, bucket=request.bucket,
+                error=request.error,
+            )
+            if request.trace is not None:
+                self._emit_trace_spans(request, now)
         if request.on_done is not None:
             request.on_done(request)
+
+    def _emit_trace_spans(self, request: ServeRequest, now: float):
+        """The replica's lifecycle spans of one traced request, emitted at
+        completion as children of the router's dispatch-attempt span
+        (``request.trace``): queue_wait (admission -> slot), decode
+        (prefill end -> done; prefill itself is the cat="serving" span
+        ``_do_join`` stamps with its own child context), and stream_emit
+        (first token -> done) under decode for streamed requests.  Only
+        reachable when the request arrived traced and the engine records,
+        so the untraced path allocates nothing."""
+        ctx = request.trace
+        ident = request.id or request.seq
+        if request.arrival_tm is not None and request.service_tm is not None:
+            self.recorder.emit_span(
+                "queue_wait", request.arrival_tm,
+                request.service_tm - request.arrival_tm, cat="trace",
+                request=ident, **ctx.child().span_fields(),
+            )
+        decode_start = (request.prefill_done_tm if request.prefill_done_tm is not None
+                        else request.service_tm)
+        if decode_start is not None:
+            decode_ctx = ctx.child()
+            self.recorder.emit_span(
+                "decode", decode_start, max(0.0, now - decode_start),
+                cat="trace", request=ident, slot=request.slot,
+                tokens=len(request.tokens), status=request.status,
+                **decode_ctx.span_fields(),
+            )
+            if request.stream and request.first_token_tm is not None:
+                self.recorder.emit_span(
+                    "stream_emit", request.first_token_tm,
+                    max(0.0, now - request.first_token_tm), cat="trace",
+                    request=ident, tokens=len(request.tokens),
+                    **decode_ctx.child().span_fields(),
+                )
+
+    def _apply_faults(self, step_index: int):
+        """Trainer-style chaos hooks on the decode loop: stall holds the
+        loop, exc is absorbed (the server must survive), nan poisons the
+        in-flight logits (caught per slot by this step's ``ok``), kill
+        preempts.  The poison is written into ``self.logits`` in place:
+        the step program reads that buffer, never a new tensor.  Torch
+        calls happen only where a fault fires (phase ``faults``)."""
+        self._phase = "faults"
+        try:
+            self.faults.on_producer_item(step_index)
+        except ChaosError as exc:
+            with self._stats_lock:
+                self._chaos_exceptions += 1
+            log.warning(f"serving: absorbed injected failure: {exc}")
+        if self.faults.has_step_events:
+            logits, _ = self.faults.corrupt_batch(step_index, (self.logits, None))
+            if logits is not self.logits:
+                self.logits.copy_(logits)
+        self.faults.maybe_kill(step=step_index)
 
     def serve_forever(self, stop_event: threading.Event):
         """The engine loop: one request's failure fails that request,
@@ -601,6 +720,7 @@ class ServingEngine:
             requests_done = self._requests_done
             requests_failed = self._requests_failed
             tokens_out = self._tokens_out
+            chaos_absorbed = self._chaos_exceptions
         elapsed = time.perf_counter() - self._started_tm
         return {
             "steps": steps,
@@ -625,12 +745,38 @@ class ServingEngine:
             "queue_depth_p50": percentile(depths, 0.50) if depths else None,
             "queue_depth_p95": percentile(depths, 0.95) if depths else None,
             "queue_depth_max": depths[-1] if depths else None,
+            "chaos_absorbed": chaos_absorbed,
             "trace_counts": dict(self._trace_counts),
         }
 
+    def live_source(self) -> dict:
+        """Digest contribution for the live exporter
+        (``LiveExporter.add_source``): the serving gauge block behind the
+        aggregator's ``pdrnn_serving_*`` series and the watchdog's SLO
+        detector - the numbers the ``stats`` op serves, under one
+        ``serving`` key.  Runs on the exporter's thread: host counters
+        only, no device access."""
+        stats = self.stats()
+        block = {
+            k: stats.get(k) for k in (
+                "requests", "requests_shed", "requests_failed",
+                "tokens_out", "queue_depth", "active",
+                "req_per_s_60s", "tokens_per_s_60s", "shed_per_s_60s",
+                "latency_s_p50", "latency_s_p95",
+                "ttft_s_p50", "ttft_s_p95",
+            )
+        }
+        # the slot count rides the digest so the store can derive slot
+        # utilization and size the fleet (recommended_replicas)
+        block["num_slots"] = self.batcher.num_slots
+        hist = self._latency_hist.snapshot()
+        if hist is not None:
+            block["latency_hist"] = hist
+        return {"serving": block}
+
     def close(self):
         """Abort queued and in-flight requests (their clients get an error
-        event, not a dead socket); idempotent."""
+        event, not a dead socket), emit the run summary; idempotent."""
         if self._closed:
             return
         self._closed = True
@@ -643,3 +789,13 @@ class ServingEngine:
         now = time.perf_counter()
         for slot, request in active:
             self._finish(slot, request, now, error="server shut down mid-decode")
+        if self.recorder.enabled:
+            stats = self.stats()
+            self.recorder.record(
+                "run_summary",
+                duration_s=time.perf_counter() - self._started_tm,
+                memory_mb=_rss_mb() or None,
+                **{k: v for k, v in stats.items()
+                   if k not in ("queue_depth", "active", "trace_counts")},
+            )
+            self.recorder.flush()

@@ -11,12 +11,23 @@ request still completes and is accounted - its slot must free either
 way).
 
 Graceful shutdown (``shutdown()``, wired to SIGTERM/SIGINT by the CLI):
-stop accepting, fail queued requests, finish nothing mid-step.
-``shutdown(drain=True)`` instead stops accepting and rejects new
-generates, but lets the engine finish everything already queued or
-decoding before the loop stops.  The fleet's members (``replica_id``,
-the register/drain heartbeats) and the ``net:flap`` chaos action are not
-ported yet.
+stop accepting, fail queued requests, finish nothing mid-step, emit the
+``run_summary`` telemetry event and close the recorder - so a drill's
+``kill -TERM`` still yields a summarizable metrics sidecar.  Fleet
+replicas drain instead (``shutdown(drain=True)``): stop accepting and
+reject new generates, but let the engine finish everything already
+queued or decoding before the loop stops - the router reroutes fresh
+traffic while this replica completes what it owns.
+
+Fleet membership (``serving/fleet/``): with a ``pusher`` (the live
+plane's :class:`~pytorch_distributed_rnn_tpu_torch.obs.live.EventPusher`
+``push``) the server announces ``replica_register`` on start and
+``replica_drain`` on teardown through the aggregator's ``/events``, so
+the router's pool view and ``obs watch`` agree on who is in the fleet.
+``flap_s`` (the ``net:flap:<s>`` chaos action via ``PDRNN_FAULT_FLAP_S``)
+drops every open client connection each period - the flaky-replica mode,
+distinct from kill: the process and its engine survive, its connections
+do not.
 """
 
 from __future__ import annotations
@@ -24,11 +35,13 @@ from __future__ import annotations
 import itertools
 import json
 import logging
+import os
 import socket
 import threading
 import time
 
 from pytorch_distributed_rnn_tpu_torch.obs.tracectx import TraceContext
+from pytorch_distributed_rnn_tpu_torch.resilience.faults import FAULT_FLAP_ENV
 from pytorch_distributed_rnn_tpu_torch.serving.protocol import (
     encode_line,
     text_to_tokens,
@@ -43,9 +56,16 @@ class ServingServer:
     """JSONL-over-TCP front end for one :class:`ServingEngine`."""
 
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 0,
-                 model_name: str = "?"):
+                 model_name: str = "?", recorder=None, pusher=None,
+                 replica_id: int | None = None, flap_s: float | None = None):
         self.engine = engine
         self.model_name = model_name
+        self.recorder = recorder
+        self.pusher = pusher
+        self.replica_id = replica_id
+        if flap_s is None:
+            flap_s = float(os.environ.get(FAULT_FLAP_ENV, 0) or 0)
+        self.flap_s = float(flap_s)
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         try:
             self._listener.setsockopt(
@@ -79,18 +99,31 @@ class ServingServer:
             target=self._accept_loop, name="pdrnn-serve-accept", daemon=True,
         )
         self._threads = [engine_thread, accept_thread]
+        if self.flap_s > 0:
+            log.warning(f"serve: net:flap:{self.flap_s:g} active - dropping every open "
+                        f"connection each {self.flap_s:g}s")
+            self._threads.append(threading.Thread(
+                target=self._flap_loop, name="pdrnn-serve-flap", daemon=True,
+            ))
         for thread in self._threads:
             thread.start()
+        if self.pusher is not None:
+            self.pusher(
+                "replica_register", severity="info",
+                replica=self.replica_id, host=self.host, port=self.port,
+                model=self.model_name,
+            )
         log.info(f"serve: listening on {self.host}:{self.port}")
 
     def shutdown(self, drain: bool = False,
                  drain_timeout_s: float = 30.0):
-        """Stop accepting, stop the engine loop; idempotent and safe from
-        signal handlers' main thread.
+        """Stop accepting, stop the engine loop, flush telemetry;
+        idempotent and safe from signal handlers' main thread.
 
-        With ``drain=True``: reject new generates, keep the engine
-        stepping until everything queued or in-flight completes (bounded
-        by ``drain_timeout_s``), then stop."""
+        With ``drain=True`` (the fleet replica's SIGTERM path): reject
+        new generates, keep the engine stepping until everything queued
+        or in-flight completes (bounded by ``drain_timeout_s``), then
+        stop - and deregister through the ``replica_drain`` heartbeat."""
         if self._stop.is_set():
             return
         self._draining.set()
@@ -106,6 +139,7 @@ class ServingServer:
             while self.engine.batcher.has_work \
                     and time.monotonic() < deadline:
                 time.sleep(0.05)
+        drained_clean = not self.engine.batcher.has_work
         self._stop.set()
         for thread in self._threads:
             thread.join(timeout=10.0)
@@ -120,6 +154,14 @@ class ServingServer:
                 sock.close()
             except OSError:  # pragma: no cover - already closed
                 pass
+        if self.pusher is not None:
+            self.pusher(
+                "replica_drain", severity="info",
+                replica=self.replica_id, host=self.host, port=self.port,
+                drained_clean=drained_clean,
+            )
+        if self.recorder is not None:
+            self.recorder.close()
 
     def __enter__(self):
         self.start()
@@ -143,6 +185,22 @@ class ServingServer:
                 name="pdrnn-serve-conn", daemon=True,
             )
             handler.start()
+
+    def _flap_loop(self):
+        """The ``net:flap:<s>`` chaos action: every period, drop every open
+        client connection (mid-request or idle) while the listener keeps
+        accepting - peers see ECONNRESET/EOF, what a flaky replica or link
+        looks like from the router's side."""
+        while not self._stop.wait(timeout=self.flap_s):
+            with self._conns_lock:
+                victims = list(self._conns)
+            for sock in victims:
+                try:
+                    sock.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+            if victims:
+                log.warning(f"serve: net:flap dropped {len(victims)} connection(s)")
 
     def _handle(self, conn: socket.socket):
         wlock = threading.Lock()

@@ -59,7 +59,9 @@ def test_port_imports_with_jax_blocked():
     "serving/protocol.py", "serving/scheduler.py", "serving/server.py", "obs/__init__.py",
     "obs/live.py", "obs/summary.py", "obs/tracectx.py", "models/attention_lm.py",
     "examples/example_generate.py", "resilience/faults.py", "resilience/guard.py",
-    "data/prefetch.py",
+    "data/prefetch.py", "obs/trace.py", "launcher/__init__.py", "launcher/supervisor.py",
+    "serving/fleet/__init__.py", "serving/fleet/__main__.py", "serving/fleet/cli.py",
+    "serving/fleet/drill.py", "serving/fleet/pool.py", "serving/fleet/router.py",
 ])
 def test_new_modules_are_checked(relative):
     assert PORT / relative in FILES

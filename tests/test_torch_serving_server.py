@@ -1,8 +1,8 @@
 """The port's serving over TCP on the CPU (``pytorch_distributed_rnn_tpu_
 torch/serving/{server,protocol,cli,drill}.py``): a checkpoint of a char LM
 that the port trained a few Adam steps behind the JSON-lines server, the
-JAX package's socket-level cases (``tests/test_serving_server.py``)
-without its telemetry ones.  Each served request matches the port's
+JAX package's socket-level cases (``tests/test_serving_server.py``;
+its telemetry ones are in ``tests/test_torch_serving_telemetry.py``).  Each served request matches the port's
 single-request ``generate``.  No JAX here: the ``cuda`` case runs on the
 card with ``python -m pytest --noconftest -m cuda
 tests/test_torch_serving_server.py``."""
@@ -300,7 +300,7 @@ def test_request_ids_are_unique_and_traces_ride_the_request(trained_checkpoint):
 
 
 # ---------------------------------------------------------------------------
-# the CLI: the drill, rejected flags, the device
+# the CLI: the drill, the rejected model family, the device
 
 
 def test_drill_through_the_loadgen_cli(trained_checkpoint, tmp_path):
@@ -324,30 +324,16 @@ def test_drill_through_the_loadgen_cli(trained_checkpoint, tmp_path):
 
 
 @pytest.mark.parametrize("argv,reason", [
-    (["--metrics", "m.jsonl"], "A5"), (["--metrics-sample-every", "4"], "A5"),
-    (["--live", "0"], "A5"), (["--live-port-file", "p"], "A5"),
-    (["--slo", "qos=high:p95_ms=250"], "A5"), (["--slo-windows", "30,60"], "A5"),
-    (["--faults", "step:4:stall:1"], "A5"), (["--replica-id", "1"], "fleet"),
-    (["--drain-timeout", "5"], "fleet"), (["--model", "moe"], "A9"),
+    (["--model", "moe"], "A9"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_serve_rejects_unported_flags(argv, reason, tmp_path):
     with pytest.raises(SystemExit, match=reason):
         cli.serve_main(["--device", "cpu", "--checkpoint", str(tmp_path), *argv])
 
 
-@pytest.mark.parametrize("argv", [
-    ["--spawn-fleet", "3"], ["--connect", "h:1", "--replica-args", "x"],
-    ["--connect", "h:1", "--router-args", "x"], ["--connect", "h:1", "--fleet-kill-after-s", "2"],
-    ["--connect", "h:1", "--fleet-kill-index", "2"],
-], ids=lambda v: v[-2])
-def test_loadgen_rejects_fleet_flags(argv):
-    with pytest.raises(SystemExit, match="fleet"):
-        cli.loadgen_main(argv)
-
-
 def test_router_is_rejected():
-    with pytest.raises(SystemExit, match="fleet"):
-        serving_main(["router"])
+    """The usage check: no subcommand is a usage error (``router`` itself
+    runs the fleet router, ``tests/test_torch_fleet.py``)."""
     assert serving_main([]) == 2
 
 

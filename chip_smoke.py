@@ -162,6 +162,32 @@ Phases, in order; any failure raises and the script exits nonzero:
       answers, ``/health`` goes stalled then ok, ``/events`` holds the stall
       alert and its clearing; the parameters equal the same run's without
       telemetry bit for bit.
+   s. checkpoints that cross frameworks (``phase_interop``, after
+      ``phase_telemetry``): s.1 the JAX-written fixture
+      (``tests/data/jax_checkpoints``: the JAX trainer's ``local`` at path
+      a's model, one epoch, on the seeded HAR cache its ``expected.json``
+      names) resumed with ``--resume auto`` on the graph path for epochs
+      2-3: the losses within 1e-4 of the JAX trainer's continuation, the
+      LSTM kernels' launches counted as ``_check_path`` counts them; s.2
+      the ``checkpoint-epoch-3.ckpt`` the port wrote: JAX's header fields,
+      no trainer section, both sections decoded by the port's codec into
+      the fixture's keys, order, shapes and dtypes; s.3 from that file at
+      ``--max-bad-steps 3 --dropout 0.1``, killed by ``epoch:4:kill``
+      (exit -9) and resumed: the uninterrupted run's parameters and Adam
+      state bit for bit.
+   t. the parameter server's checkpoints and elastic membership
+      (``phase_ps_elastic``, after phase s), at n's flags: t.1 sync at
+      world 2 with ``--ps-checkpoint-rounds 5``: each write's ms; t.2
+      ``--elastic --min-workers 1 --faults step:6:respawn@1`` at world 3
+      in spawn mode: exit 0, one respawn and one rejoin, the rejoiner's
+      STATE_SYNC parameters equal to the master's at that update (the
+      sha256 either side logs), every push in one round (the master's
+      sidecar), the LSTM kernels on both workers, the respawn's process
+      start to its first applied push; t.3 the world restarted on t.1's
+      checkpoints with ``--resume auto``, elastic at world 3 with
+      ``step:6:preempt@2``: the master's bootstrap ordinal and the sha256
+      of its first flat vector equal to the last checkpoint's parameters,
+      then worker 2 deregisters, the roster drains it, the run completes.
    k. serving (``phase_serving``, the smoke's last phase, after phase 6):
       path f's trained checkpoint through the serving CLI's loader, an engine of 8
       slots (prompt buckets 16-128, 128 new tokens at most) whose prefill
@@ -2274,14 +2300,15 @@ def _ps_check_launches(name: str, launches: dict, steps: int, cell: str, layers:
 
 
 def _ps_world(workdir: Path, name: str, flags: list, world: int, mode: str,
-              profile: bool = False, cell: str = "lstm") -> dict:
+              profile: bool = False, cell: str = "lstm", ps_flags=()) -> dict:
     """One ``parameter-server`` world through the CLI in rank mode on the
     card: rank 1 in this process (its launch counts reset just before it
     and read just after, under ``torch.profiler`` with ``profile``), the
     master and the other workers as CLI processes with ``--rank`` set.  A
     failed rank fails the phase.  Checks every worker's launches against
     its steps and, in sync mode, that every rank ends on the master's
-    parameters bit for bit (the sha256 of their bytes)."""
+    parameters bit for bit (the sha256 of their bytes).  ``ps_flags`` are
+    the subcommand's own."""
     from pytorch_distributed_rnn_tpu_torch import main as port_main
     from pytorch_distributed_rnn_tpu_torch.param_server.runner import (
         flat_parameters,
@@ -2295,7 +2322,7 @@ def _ps_world(workdir: Path, name: str, flags: list, world: int, mode: str,
     cwd = workdir / "ps" / name
     cwd.mkdir(parents=True)
     argv = [*flags, "parameter-server", "--world-size", str(world), "--ps-mode", mode,
-            "--master-port", str(port)]
+            "--master-port", str(port), *ps_flags]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
     procs = {rank: subprocess.Popen(
@@ -2365,6 +2392,7 @@ def _ps_world(workdir: Path, name: str, flags: list, world: int, mode: str,
         device_ms = device_us / 1e3 / steps
     run = {"workers": workers, "master": master, "history": history, "device_ms": device_ms,
            "kernels": kernels, "launches": launches, "log": capture.messages,
+           "master_log": outs[0][1].splitlines(),
            "state": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}}
     print(f"  {name}: world {world} {mode}: {steps} steps a worker, history {history}; ms a "
           "step, mean / median after the first: "
@@ -3238,6 +3266,298 @@ def phase_telemetry(workdir: Path, formatter) -> dict:
     return out
 
 
+# phase s: checkpoints that cross frameworks; phase t: the parameter
+# server's checkpoints and elastic membership
+FIXTURE = ROOT / "tests" / "data" / "jax_checkpoints"
+INTEROP_RTOL = 1e-4  # the port's continuation of the JAX fixture against JAX's (PERF.md §2)
+JAX_HEADER = ["epoch", "loss", "model_len", "opt_len", "crcs", "extra"]
+PS_BOOTSTRAP = re.compile(r"master bootstrap: restored (\S+) \(checkpoint ordinal (\d+)\); "
+                          r"parameters sha256 (\w+)")
+PS_CKPT = re.compile(r"master checkpoint: \S+ @ update (\d+) \(([\d.]+) ms\)")
+PS_SYNC_SENT = re.compile(r"state sync: worker-id (\d+) \(rank \d+, incarnation (\d+)\) <- \d+ "
+                          r"params @ update (\d+), push-seq watermark (\d+); parameters sha256 "
+                          r"(\w+)")
+PS_SYNC_ADOPTED = re.compile(r"ps worker (\d+): state sync at update (\d+), push seq (\d+), "
+                             r"epoch (\d+); parameters sha256 (\w+); first push (\S+) s after")
+PS_DONE = re.compile(r"parameter server done: (\d+) updates applied, roster (\{.*?\})"
+                     r"(?:, \d+ degraded round\(s\))?(?:, (\d+) rejoin\(s\))?")
+PS_VERDICT = re.compile(r"elastic supervisor verdict: (\{.*\})")
+
+
+def _sections(path: Path) -> tuple:
+    """A checkpoint's header and its two sections decoded by the port's
+    codec."""
+    from pytorch_distributed_rnn_tpu_torch.utils import flax_msgpack
+
+    head, rest = path.read_bytes().split(b"\n", 1)
+    header = json.loads(head)
+    model_len = header["model_len"]
+    return (header, flax_msgpack.restore(rest[:model_len]),
+            flax_msgpack.restore(rest[model_len:model_len + header["opt_len"]]))
+
+
+def _tree_layout(tree, prefix: str = "") -> list:
+    """``(path, shape, dtype)`` of every leaf, in the tree's order."""
+    out = []
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.extend(_tree_layout(value, f"{prefix}{key}."))
+        else:
+            out.append((f"{prefix}{key}", tuple(value.shape), str(value.dtype)))
+    return out
+
+
+def _s_argv(workdir: Path, expected: dict, name: str, epochs: int, *extra) -> list:
+    return ["--dataset-path", str(workdir / "s" / "data"), "--checkpoint-directory",
+            str(workdir / "s" / name), "--epochs", str(epochs), *expected["flags"], *extra,
+            "--resume", "auto", "local"]
+
+
+def _fixture_maker():
+    """The fixture's ``make.py`` (its signature helpers; it imports JAX only
+    when run)."""
+    sys.path.insert(0, str(FIXTURE))
+    try:
+        import make
+    finally:
+        sys.path.remove(str(FIXTURE))
+    return make
+
+
+def phase_interop(workdir: Path) -> dict:
+    """Phase s: s.1 the JAX-written fixture (path a's model, one epoch)
+    resumed with ``--resume auto`` on the card for epochs 2-3 on the graph
+    path: its losses and its final parameters' signature against the JAX
+    trainer's (``expected.json``), the LSTM kernels' launches as
+    ``_check_path`` counts them; s.2 the
+    ``checkpoint-epoch-3.ckpt`` the port wrote: JAX's header fields and no
+    trainer section, its sections decoded by the port's codec into the
+    fixture's keys, key order, shapes and dtypes; s.3 from that file at
+    ``--max-bad-steps 3 --dropout 0.1``, a run killed by ``epoch:4:kill``
+    (exit -9) and resumed with ``--resume auto`` against the uninterrupted
+    run bit for bit (the guard's ``apply_if_finite`` tree and the dropout
+    streams through the file)."""
+    import shutil
+
+    from pytorch_distributed_rnn_tpu_torch.data.synthetic import write_synthetic_har_cache
+
+    print("phase s: checkpoints that cross frameworks (a JAX-written checkpoint resumed on the "
+          "card; the port's file in JAX's format)")
+    t0 = time.perf_counter()
+    expected = json.loads((FIXTURE / "expected.json").read_text())
+    root = workdir / "s"
+    write_synthetic_har_cache(root / "data", **expected["data"])
+    (root / "models").mkdir()
+    shutil.copy(FIXTURE / expected["checkpoint"], root / "models")
+    (root / "run").mkdir()
+    trainer, history, launches, _ = _drive(root / "run", _s_argv(
+        workdir, expected, "models", expected["epochs"]))
+    _check_path("s.1", trainer, history, launches, ("lstm_fwd", "lstm_bwd"), MAIN_BATCH)
+    for key in ("train_history", "validation_history"):
+        got, want = np.asarray(history[key]), np.asarray(expected[key])
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        print(f"  s.1 {key} {history[key]} vs JAX {expected[key]}: max rel err {rel:.3e}, "
+              f"rtol {INTEROP_RTOL:g}")
+        if not rel <= INTEROP_RTOL:
+            raise RuntimeError(f"s.1: {key} disagrees with the JAX trainer's continuation")
+    # the losses barely move on this fixture (a resume with fresh Adam state
+    # stays within 1e-4 of them); the final parameters' signature does not
+    make = _fixture_maker()
+    errors = make.signature_errors({k: v.detach().cpu() for k, v in
+                                    trainer.model.state_dict().items()},
+                                   expected["final_parameters"])
+    worst = max(errors, key=errors.get)
+    print(f"  s.1 final parameters' signature vs JAX's: max error {errors[worst]:.3e} of the L1 "
+          f"norm ({worst}), rtol {make.SIGNATURE_RTOL:g}")
+    if not errors[worst] <= make.SIGNATURE_RTOL:
+        raise RuntimeError(f"s.1: the final parameters differ from the JAX trainer's: {errors}")
+
+    header, model, opt = _sections(root / "models" / "checkpoint-epoch-3.ckpt")
+    jax_header, jax_model, jax_opt = _sections(FIXTURE / expected["checkpoint"])
+    if list(header) != JAX_HEADER or "trainer_len" in header or header["epoch"] != 3:
+        raise RuntimeError(f"s.2: header {sorted(header)} is not JAX's")
+    for what, ours, theirs in (("model", model, jax_model), ("opt", opt, jax_opt)):
+        if _tree_layout(ours) != _tree_layout(theirs):
+            raise RuntimeError(f"s.2: the {what} section's layout differs from the fixture's:\n"
+                               f"{_tree_layout(ours)}\n{_tree_layout(theirs)}")
+    print(f"  s.2 checkpoint-epoch-3.ckpt: header {list(header)}, extra "
+          f"{sorted(header['extra'])}; model {len(_tree_layout(model))} leaves and opt "
+          f"{len(_tree_layout(opt))} leaves in the fixture's keys, order, shapes and dtypes")
+
+    for name in ("s3-ref", "s3"):
+        (root / name).mkdir()
+        shutil.copy(root / "models" / "checkpoint-epoch-3.ckpt", root / name)
+    s3 = ["--max-bad-steps", "3", "--dropout", "0.1"]
+    reference = _cli_trainer(root / "run", _s_argv(workdir, expected, "s3-ref", 5, *s3), epochs=5)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-m", "pytorch_distributed_rnn_tpu_torch.main",
+                           *_s_argv(workdir, expected, "s3", 5, *s3, "--faults", "epoch:4:kill")],
+                          cwd=root / "run", env=env, capture_output=True, text=True,
+                          timeout=P_TIMEOUT)
+    if proc.returncode != -9 or not (root / "s3" / "checkpoint-epoch-4.ckpt").exists():
+        print(proc.stderr[-4000:])
+        raise RuntimeError(f"s.3: the killed run exited {proc.returncode}")
+    guard_header, _, guard_opt = _sections(root / "s3" / "checkpoint-epoch-4.ckpt")
+    if list(guard_opt) != ["notfinite_count", "last_finite", "total_notfinite", "inner_state"]:
+        raise RuntimeError(f"s.3: the guarded optimizer tree is {list(guard_opt)}")
+    resumed = _cli_trainer(root / "run", _s_argv(workdir, expected, "s3", 5, *s3), epochs=5)
+    _same_bits("s.3 killed and resumed vs uninterrupted", reference, resumed)
+    print(f"  s.3 killed at epoch 4 (exit -9), its checkpoint's optimizer tree "
+          f"{list(guard_opt)}, {len(guard_header['extra']['trainer']['dropout_generators'])} "
+          "dropout stream(s) in extra; resumed: parameters and Adam state equal the "
+          "uninterrupted run's bit for bit")
+    seconds = time.perf_counter() - t0
+    print(f"  phase s: {seconds:.1f} s")
+    return {"history": history, "seconds": seconds}
+
+
+def _t_spawn(workdir: Path, name: str, flags: list, world: int) -> tuple:
+    """A spawn-mode ``parameter-server`` world through the CLI (a process
+    a rank, every rank on the card): ``(returncode, stderr, seconds)``."""
+    from pytorch_distributed_rnn_tpu_torch.utils.worlds import free_ports
+
+    cwd = workdir / "t" / name
+    cwd.mkdir(parents=True)
+    (port,) = free_ports(1)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pytorch_distributed_rnn_tpu_torch.main",
+                           *flags, "parameter-server", "--world-size", str(world),
+                           "--ps-mode", "sync", "--master-port", str(port), "--elastic",
+                           "--min-workers", "1", "--ps-join-timeout", "60"],
+                          cwd=cwd, capture_output=True, text=True, timeout=PS_TIMEOUT,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:])
+        raise RuntimeError(f"{name}: the elastic world exited {proc.returncode}")
+    return proc.stderr, seconds, cwd
+
+
+def _t_rounds(path: Path) -> tuple:
+    """The master's sidecar: its ``ps_round`` spans and ``run_summary``."""
+    rows = [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+    rounds = [r for r in rows if r.get("kind") == "span" and r.get("name") == "ps_round"]
+    summary = next(r for r in reversed(rows) if r.get("kind") == "run_summary")
+    return rounds, summary
+
+
+def phase_ps_elastic(workdir: Path) -> dict:
+    """Phase t, at phase n's flags (path a's width, 2 epochs, ``--dropout 0
+    --no-validation``): t.1 sync at world 2 with ``--ps-checkpoint-rounds
+    5``: each write's ms; t.2 ``--elastic --min-workers 1 --faults
+    step:6:respawn@1`` at world 3 in spawn mode: exit 0, one respawn, one
+    rejoin on the roster, the rejoiner's STATE_SYNC parameters equal to the
+    master's at that update (the sha256 either side logs), every push in
+    exactly one round (the master's sidecar: each worker's push seqs 1..n
+    once, one update a round), the pushes and updates JAX's rule gives
+    (the rejoiner resumes at its watermark's epoch), the LSTM kernels on
+    both workers, and the
+    respawn's process start to its first push; t.3 the world restarted on
+    t.1's checkpoints with ``--resume auto``, elastic at world 3 with
+    ``step:6:preempt@2``: the master's bootstrap ordinal and the sha256 of
+    its first flat vector against the last checkpoint's parameters in the
+    wire order, then a DEREGISTER, a drained member, the rest completing."""
+    from pytorch_distributed_rnn_tpu_torch import interop
+    from pytorch_distributed_rnn_tpu_torch.models import MotionModel
+    from pytorch_distributed_rnn_tpu_torch.param_server.runner import parameters_digest
+    from pytorch_distributed_rnn_tpu_torch.training.checkpoint import (
+        find_latest_checkpoint,
+        load_checkpoint,
+    )
+
+    print("phase t: parameter-server checkpoints (--ps-checkpoint-rounds, --resume auto) and "
+          "elastic membership (--elastic, respawn, preempt)")
+    t0 = time.perf_counter()
+    data = ["--dataset-path", str(workdir / "data")]
+    ckpt_dir = workdir / "t" / "models"
+    first = _ps_world(workdir, "t1", [*data, *PS_FLAGS, "--checkpoint-directory", str(ckpt_dir)],
+                      2, "sync", ps_flags=["--ps-checkpoint-rounds", "5"])
+    writes = [(int(m[1]), float(m[2])) for m in PS_CKPT.finditer("\n".join(first["master_log"]))]
+    if not writes:
+        raise RuntimeError("t.1: the master wrote no checkpoint")
+    write_ms = [ms for _, ms in writes]
+    print(f"  t.1 {len(writes)} master checkpoints at updates {[u for u, _ in writes]}, write ms "
+          f"{write_ms} (mean {np.mean(write_ms):.3f}; off the round lock, the last one after "
+          "the run)")
+
+    err, spawn_s, cwd = _t_spawn(workdir, "t2", [
+        *data, *PS_FLAGS, "--checkpoint-directory", str(workdir / "t" / "models-t2"),
+        "--faults", "step:6:respawn@1", "--metrics", "m.jsonl"], 3)
+    verdict = json.loads(PS_VERDICT.search(err)[1].replace("'", '"'))
+    done = PS_DONE.search(err)
+    sent = {(int(m[1]), int(m[3])): m[5] for m in PS_SYNC_SENT.finditer(err)}
+    adopted = {(int(m[1]), int(m[2])): (m[5], m[6], int(m[3]), int(m[4]))
+               for m in PS_SYNC_ADOPTED.finditer(err)}
+    rounds, summary = _t_rounds(cwd / "m.jsonl")
+    contributions = [(w, s) for r in rounds for w, s in r["seqs"].items()]
+    seqs = {w: sorted(s for v, s in contributions if v == w) for w in ("1", "2")}
+    workers = {int(m[1]): m for m in PS_WORKER.finditer(err)}
+    if (verdict.get("respawns") != 1 or verdict.get("failed") != 0 or done is None
+            or int(done[3] or 0) != 1 or summary["rejoins"] != 1):
+        raise RuntimeError(f"t.2: verdict {verdict}, master {done and done.groups()}, "
+                           f"summary {summary}")
+    if len(sent) != 1 or set(sent) != set(adopted) or any(
+            sent[k] != adopted[k][0] for k in sent):
+        raise RuntimeError(f"t.2: state sync sent {sent}, adopted {adopted}")
+    if (len(contributions) != len(set(contributions)) or summary["steps"] != len(rounds)
+            or any(s != list(range(1, len(s) + 1)) for s in seqs.values())):
+        raise RuntimeError(f"t.2: a push applied twice or lost: {len(rounds)} rounds for "
+                           f"{summary['steps']} updates, seqs {seqs}")
+    if sorted(workers) != [1, 2]:
+        raise RuntimeError(f"t.2: worker summaries {sorted(workers)}")
+    for rank, m in workers.items():
+        _ps_check_launches(f"t.2 worker {rank}", json.loads(m[7]), int(m[2]), "lstm")
+    (key, (digest, first_push, watermark, start_epoch)), = adopted.items()
+    # JAX's rule (its worker's _state_sync): the rejoiner resumes at epoch
+    # watermark // steps a epoch and pushes on from its watermark; the
+    # survivor's rounds close alone while the respawn starts (seconds
+    # against its milliseconds a step), then the rejoiner's; one update a round
+    epochs = int(PS_FLAGS[PS_FLAGS.index("--epochs") + 1])
+    per_epoch = int(workers[2][2]) // epochs
+    rule_pushes = {"1": watermark + (epochs - watermark // per_epoch) * per_epoch,
+                   "2": epochs * per_epoch}
+    rule_updates = rule_pushes["2"] + (epochs - watermark // per_epoch) * per_epoch
+    if (start_epoch != watermark // per_epoch or summary["steps"] != rule_updates
+            or {w: len(s) for w, s in seqs.items()} != rule_pushes):
+        raise RuntimeError(f"t.2: {summary['steps']} updates and pushes "
+                           f"{ {w: len(s) for w, s in seqs.items()} } against JAX's rule: "
+                           f"{rule_updates} and {rule_pushes} (watermark {watermark}, resumed "
+                           f"at epoch {start_epoch}, {per_epoch} steps an epoch)")
+    print(f"  t.2 exit 0 in {spawn_s:.1f} s; supervisor {verdict}; master {done[1]} updates, "
+          f"roster {done[2]}, {summary['rejoins']} rejoin; worker-id {key[0]} state-synced at "
+          f"update {key[1]}: sha256 {digest[:16]}... sent == adopted; {len(rounds)} rounds take "
+          f"pushes {len(seqs['1'])} (worker 1, its two incarnations) + {len(seqs['2'])} "
+          f"(worker 2), each once, as JAX's rule gives (watermark {watermark}, resumed at "
+          f"epoch {start_epoch}); LSTM launches on both workers "
+          f"{[json.loads(m[7]) for m in workers.values()]}; respawn to first push "
+          f"{float(first_push):.3f} s (the new process's start to its first applied push)")
+
+    latest = find_latest_checkpoint(ckpt_dir)
+    names = [n for n, _ in MotionModel().named_parameters()]
+    last_params, _, meta = load_checkpoint(latest, names=names)
+    want = parameters_digest(interop.state_dict_to_flat(last_params, names))
+    err3, preempt_s, _ = _t_spawn(workdir, "t3", [
+        *data, *PS_FLAGS, "--checkpoint-directory", str(ckpt_dir), "--resume", "auto",
+        "--faults", "step:6:preempt@2"], 3)
+    boot = PS_BOOTSTRAP.search(err3)
+    done3 = PS_DONE.search(err3)
+    roster = json.loads(done3[2].replace("'", '"')) if done3 else {}
+    if boot is None or int(boot[2]) != meta["epoch"] or boot[3] != want:
+        raise RuntimeError(f"t.3: bootstrap {boot and boot.groups()}, last checkpoint {latest} "
+                           f"(epoch {meta['epoch']}, sha256 {want})")
+    if roster != {"joined": 0, "drained": 1, "dead": 0, "done": 1} or \
+            "worker-id 2 (rank 2) deregistered" not in err3:
+        raise RuntimeError(f"t.3: roster {roster}:\n{err3[-4000:]}")
+    print(f"  t.3 exit 0 in {preempt_s:.1f} s: the restarted master bootstrapped from "
+          f"{Path(boot[1]).name} (ordinal {boot[2]}), its first flat vector's sha256 "
+          f"{boot[3][:16]}... equal to the last checkpoint's; worker 2 deregistered after its "
+          f"push, roster {roster}, master {done3[1]} updates")
+    seconds = time.perf_counter() - t0
+    print(f"  phase t: {seconds:.1f} s")
+    return {"write_ms": write_ms, "respawn_to_first_push_s": float(first_push),
+            "t2_seconds": spawn_s, "seconds": seconds}
+
 def _long_context_trainer(fuse_run: bool = False):
     """Path e's trainer: the long-context classifier (bench.py's
     attention_seq1024_dim512 bf16 row) on ``LONG_STEPS`` batches of
@@ -3937,6 +4257,8 @@ def main() -> int:
         phase_ps(workdir, dp_finals, native["finals"])
         phase_resilience(workdir, formatter)
         phase_telemetry(workdir, formatter)
+        phase_interop(workdir)
+        phase_ps_elastic(workdir)
         serving = phase_serving(workdir, runs)
         phase_fleet_telemetry(workdir, runs, serving)
     print(f"smoke: {time.perf_counter() - t0:.1f} s")

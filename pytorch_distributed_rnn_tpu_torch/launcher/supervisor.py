@@ -1,13 +1,15 @@
-"""Process supervisors: watch, respawn (the part of the JAX package's
-``launcher/supervisor.py`` that the serving fleet uses).
+"""Process supervisors: watch, respawn, rejoin (the part of the JAX
+package's ``launcher/supervisor.py`` that the parameter server and the
+serving fleet use).
 
 :class:`RespawnSupervisor` watches spawned processes on one machine - the
 local analogue of a k8s restart policy or a preemptible-VM instance
 group:
 
 - each slot keeps its stable **worker-id** across respawns: the
-  relaunched process re-enters under the same identity (a fleet replica
-  rebinds the port its slot was launched on);
+  relaunched process re-enters under the same identity (a PS worker
+  star-joins and REGISTERs under its id; a fleet replica rebinds the port
+  its slot was launched on);
 - a process exiting **0** is terminal (normal completion or a SIGTERM
   drain) - never respawned;
 - a nonzero/signal exit is a death: respawned with ``rejoin=True`` up
@@ -20,20 +22,55 @@ group:
 The supervisor is deliberately dumb about *state*: everything a respawn
 needs to continue correctly lives outside it, which is what makes the
 kill -> respawn path drillable with the chaos actions in
-``resilience/faults.py``.  :class:`ReplicaSupervisor` is the serving
-fleet's flavor.  The parameter server's elastic flavor, the pipeline
-stages' and the streaming actors' (``ElasticSupervisor``,
-``StageSupervisor``, ``ActorSupervisor`` in the JAX package) come with
-their strategies (ROADMAP.md A7, A8).
+``resilience/faults.py``.  :class:`ElasticSupervisor` is the parameter
+server's flavor and :class:`ReplicaSupervisor` the serving fleet's.  The
+pipeline stages' and the streaming actors' (``StageSupervisor``,
+``ActorSupervisor`` in the JAX package) come with their strategies
+(ROADMAP.md A7, A8).
 """
 
 from __future__ import annotations
 
 import logging
+import signal
+import subprocess
 import time
 from dataclasses import dataclass, field
 
 log = logging.getLogger(__name__)
+
+
+class PopenProcess:
+    """Adapts :class:`subprocess.Popen` to the process contract the
+    supervisors poll (``is_alive``/``exitcode``/``terminate``/``join``)."""
+
+    def __init__(self, proc: subprocess.Popen):
+        self.proc = proc
+
+    @property
+    def pid(self) -> int:
+        return self.proc.pid
+
+    def is_alive(self) -> bool:
+        return self.proc.poll() is None
+
+    @property
+    def exitcode(self):
+        return self.proc.poll()
+
+    def terminate(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+
+    def join(self, timeout: float | None = None) -> None:
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            pass
 
 
 @dataclass
@@ -241,6 +278,14 @@ def supervision_alert_hook(recorder=None, push=None):
             push(kind, **fields)
 
     return on_event
+
+
+class ElasticSupervisor(RespawnSupervisor):
+    """PS flavor: supervises the WORKER processes around an
+    unsupervised master (the master owns the state; its exit anchors
+    :meth:`supervise`).  A respawned worker star-joins the transport on
+    the same rank and REGISTERs under the same worker-id, so the
+    master's push-seq watermark and data shard carry over."""
 
 
 class ReplicaSupervisor(RespawnSupervisor):

@@ -1,6 +1,5 @@
 """The ``parameter-server`` strategy: coordinator-owned parameters, remote
-updates.  The counterpart of the JAX package's ``param_server/``, without
-elastic membership.
+updates.  The counterpart of the JAX package's ``param_server/``.
 
 The master process (rank 0) owns the flat parameters and Adam's state;
 workers (ranks 1..W-1) compute local gradients, push them and pull fresh
@@ -16,24 +15,21 @@ rank, every role on ``--device``; ranks share the card):
       parameter-server --world-size 3 --ps-mode sync
 
 or one role a process with ``--rank R --world-size W --master-address
-HOST --master-port PORT``.  The flags of the elastic world and of the
-master's checkpoints, and the fault actions that need the elastic roster
-(``respawn``, ``preempt``), are parsed with JAX's defaults and rejected
-when set (:func:`reject_unported`).
+HOST --master-port PORT``.  ``--ps-checkpoint-rounds N`` makes the master
+write its state every N updates, and ``--resume`` (``auto`` or a path)
+bootstraps it from the newest valid checkpoint under
+``--checkpoint-directory``, in the JAX package's format
+(``runner.py:MasterCheckpoints``).  ``--elastic`` supervises the workers
+of a spawn-mode world (``--min-workers``, ``--ps-max-respawns``): a dead
+one is respawned and rejoins through REGISTER within the master's
+``--ps-join-timeout``; ``--ps-rejoin [--ps-worker-id ID]`` re-enters a
+running elastic world by hand.  The ``respawn`` and ``preempt`` fault
+actions drive that path, as in JAX.
 """
 
 from __future__ import annotations
 
-# the reasons main.py:reject_unported gives
-ELASTIC_REJECTED = ("not ported yet: elastic membership comes with the elastic half of "
-                    "ROADMAP A7 (the transport's star and listener entries and the supervisor)")
-CHECKPOINT_REJECTED = ("not ported yet: the master's checkpoints and its bootstrap from them "
-                       "(--resume, and --resume auto, under parameter-server) come with the "
-                       "rest of ROADMAP A5")
-FAULTS_ELASTIC_REJECTED = (
-    "not ported yet under parameter-server: JAX handles these fault actions with the "
-    "elastic roster (a respawned or preempted worker rejoins it), which comes with the "
-    "elastic half of ROADMAP A7")
+# the reason main.py:reject_unported gives
 FUSE_RUN_REJECTED = (
     "--fuse-run: parameter-server workers push gradients and pull parameters over the host's "
     "TCP transport every step, so the host handles every batch and the run cannot be one "
@@ -64,55 +60,55 @@ def add_sub_command(sub_parser):
         "--ps-transport-retries", type=int, default=3, metavar="N",
         help="worker-side retries (exponential backoff + jitter) for a failed push/pull "
         "exchange before giving up; the whole retry storm is capped at --ps-sync-timeout")
-    parser.add_argument("--elastic", action="store_true", help=ELASTIC_REJECTED)
-    parser.add_argument("--min-workers", type=int, default=1, metavar="N",
-                        help=ELASTIC_REJECTED)
+    parser.add_argument(
+        "--elastic", action="store_true",
+        help="elastic membership: the master accepts REGISTER (re)joins mid-run on the "
+        "rendezvous listener, and (in spawn mode) a supervisor respawns dead workers with the "
+        "same WORKER-ID - the stable membership identity, decoupled from the transport RANK "
+        "(the socket slot a respawn plugs back into).  A rejoiner receives a STATE_SYNC "
+        "(current params + its push-seq watermark) and enters the next sync round")
+    parser.add_argument(
+        "--min-workers", type=int, default=1, metavar="N",
+        help="elastic spawn mode: the supervisor keeps the run alive while at least N workers "
+        "are live or completed; below the floor (respawn budgets exhausted) it tears the world "
+        "down")
     parser.add_argument("--ps-max-respawns", type=int, default=3, metavar="N",
-                        help=ELASTIC_REJECTED)
-    parser.add_argument("--ps-join-timeout", type=float, default=60.0, metavar="SECONDS",
-                        help=ELASTIC_REJECTED)
-    parser.add_argument("--ps-rejoin", action="store_true", help=ELASTIC_REJECTED)
-    parser.add_argument("--ps-worker-id", type=int, default=None, metavar="ID",
-                        help=ELASTIC_REJECTED)
-    parser.add_argument("--ps-checkpoint-rounds", type=int, default=0, metavar="N",
-                        help=CHECKPOINT_REJECTED)
+                        help="elastic spawn mode: respawn budget per worker slot")
+    parser.add_argument(
+        "--ps-join-timeout", type=float, default=60.0, metavar="SECONDS",
+        help="elastic: how long the master holds a dead member on the roster awaiting its "
+        "REGISTER rejoin before abandoning it (an abandoned loss is what counts against "
+        "--ps-quorum)")
+    parser.add_argument(
+        "--ps-rejoin", action="store_true",
+        help="multi-node rank mode: (re)enter a running --elastic world - star-join the "
+        "transport at --rank and REGISTER instead of the initial rendezvous (the manual "
+        "analogue of the spawn-mode supervisor's respawn)")
+    parser.add_argument(
+        "--ps-worker-id", type=int, default=None, metavar="ID",
+        help="with --ps-rejoin: the stable worker-id to register under (default: the "
+        "transport rank).  The id keys the data shard, dropout stream and push-seq watermark; "
+        "the rank is just the socket slot")
+    parser.add_argument(
+        "--ps-checkpoint-rounds", type=int, default=0, metavar="N",
+        help="master: write a crash-safe checkpoint of the authoritative params + optimizer "
+        "state to --checkpoint-directory every N applied updates (and once at the end); with "
+        "--resume auto a restarted master bootstraps from the newest valid one.  0 disables")
     parser.set_defaults(func=execute, strategy="parameter-server")
 
 
 def reject_unported(args):
-    """Exit loudly on the flags whose machinery the port's parameter
-    server does not have yet."""
-    elastic = [flag for flag, on in (
-        ("--elastic", args.elastic),
-        ("--min-workers", args.min_workers != 1),
-        ("--ps-max-respawns", args.ps_max_respawns != 3),
-        ("--ps-join-timeout", args.ps_join_timeout != 60.0),
-        ("--ps-rejoin", args.ps_rejoin),
-        ("--ps-worker-id", args.ps_worker_id is not None),
-    ) if on]
-    reasons = []
-    if elastic:
-        reasons.append(f"{', '.join(elastic)}: {ELASTIC_REJECTED}")
-    checkpoint = [flag for flag, on in (
-        ("--ps-checkpoint-rounds", args.ps_checkpoint_rounds > 0),
-        ("--resume under parameter-server", args.resume is not None),
-    ) if on]
-    if checkpoint:
-        reasons.append(f"{', '.join(checkpoint)}: {CHECKPOINT_REJECTED}")
+    """Exit loudly on what the port's parameter server does not run, and
+    on a bad ``--faults`` spec before any process starts."""
     if args.fuse_run:
-        reasons.append(FUSE_RUN_REJECTED)
+        raise SystemExit(FUSE_RUN_REJECTED)
     if args.faults:
         from pytorch_distributed_rnn_tpu_torch.resilience.faults import FaultSchedule
 
         try:
-            events = FaultSchedule.parse(args.faults).events
+            FaultSchedule.parse(args.faults)
         except ValueError as exc:
             raise SystemExit(str(exc)) from None
-        elastic_actions = sorted({e.action for e in events if e.action in ("respawn", "preempt")})
-        if elastic_actions:
-            reasons.append(f"--faults {', '.join(elastic_actions)}: {FAULTS_ELASTIC_REJECTED}")
-    if reasons:
-        raise SystemExit("; ".join(reasons))
 
 
 def execute(args):

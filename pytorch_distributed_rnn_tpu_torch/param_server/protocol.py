@@ -10,6 +10,13 @@ Messages (worker -> master):
   PULL       - request the current flat params
   PUSH       - gradient vector; the master replies with fresh params
   DONE       - the worker finished all epochs
+  REGISTER   - a new or respawned worker announces its stable WORKER-ID
+               (the seq header slot); the master replies with a
+               STATE_SYNC: ``[STATE_SYNC, master update count, the
+               worker's push-seq watermark]`` then the current flat
+               params, so the joiner adopts authoritative state and
+               numbers its pushes above everything already applied (a
+               stale in-flight push then dedupes away)
   DEREGISTER - voluntary leave (preemption-aware drain): the seq slot
                carries the worker's last push seq; the master shrinks
                the roster without burning the quorum budget
@@ -23,10 +30,9 @@ re-runs the whole push when only the reply leg failed) is idempotent:
 the master sees a duplicate PUSH seq, skips the re-apply and resends the
 current params.  float32 carries step counts exactly up to 2^24.
 
-REGISTER, STATE_SYNC, EXPERIENCE and PARAMS_AT keep the reference's
-codes so that the wire stays the same; their messages come with the
-elastic half of ROADMAP A7 (REGISTER, STATE_SYNC) and with the streaming
-actor/learner of A8 (EXPERIENCE, PARAMS_AT).
+EXPERIENCE and PARAMS_AT keep the JAX package's codes so that the wire
+stays the same; their messages come with the streaming actor/learner of
+ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -74,3 +80,23 @@ def recv_params(comm, num_params: int, out: torch.Tensor | None = None) -> torch
     """Worker side: the master's flat params (into ``out``, a contiguous
     float32 CPU tensor of ``num_params`` elements, when given)."""
     return comm.recv(0, (num_params,), torch.float32, out=out)
+
+
+def send_state_sync(comm, worker: int, flat_params, step: int, seq: int):
+    """Master side: the REGISTER reply - ``[STATE_SYNC, step watermark
+    (the master's update count), the worker's push-seq watermark]`` then
+    the current params."""
+    comm.send(worker, np.array([float(OP_STATE_SYNC), float(step), float(seq)],
+                               dtype=np.float32))
+    send_params(comm, worker, flat_params)
+
+
+def recv_state_sync(comm, num_params: int, out: torch.Tensor | None = None):
+    """Worker side: the REGISTER reply.  Returns ``(flat_params,
+    step_watermark, seq_watermark)``."""
+    header = comm.recv(0, (3,), torch.float32)
+    opcode = int(header[0])
+    if opcode != OP_STATE_SYNC:
+        raise RuntimeError(f"expected a STATE_SYNC reply to REGISTER, got opcode {opcode}")
+    flat = recv_params(comm, num_params, out=out)
+    return flat, int(header[1]), int(header[2])

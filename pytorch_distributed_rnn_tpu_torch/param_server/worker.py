@@ -1,5 +1,5 @@
 """Parameter-server worker: local data and gradients, remote parameters.
-The non-elastic part of the JAX package's ``param_server/worker.py``.
+The counterpart of the JAX package's ``param_server/worker.py``.
 
 The worker keeps the data pipeline and the loss; the parameters and the
 optimizer live on the master.  Each step runs forward and backward on the
@@ -8,11 +8,19 @@ flat gradient with a sequence number, and adopts the parameters the
 master sends back.  Evaluation, the test set and checkpointing are off on
 workers, as in the reference.
 
-- The shard is ``DistributedSampler(num_replicas=workers, rank=worker_id
-  - 1, seed)`` and the batch ``batch_size // workers`` (the global batch
-  split over the workers).
+- The worker-id (``worker_id``, default the rank) is the stable
+  membership identity; the rank is the transport slot a respawn plugs
+  back into.  The shard is ``DistributedSampler(num_replicas=workers,
+  rank=(worker_id - 1) % workers, seed)`` (a late joiner beyond the launch
+  world wraps onto an existing shard) and the batch ``batch_size //
+  workers`` (the global batch split over the workers).
 - Dropout draws from a generator seeded as ``training/distributed.py``
   seeds rank ``worker_id - 1``'s, so worker 1 draws ``local``'s masks.
+- ``register=True`` (a respawned or late worker of an elastic world,
+  star-joined) enters through REGISTER instead of the initial pull: the
+  STATE_SYNC reply carries the master's parameters, its update count and
+  this worker-id's push-seq watermark; the pushes number on above it and
+  training resumes at the epoch the watermark reaches.
 - The flat order on the wire is ``torch.cat([p.reshape(-1) for p in
   model.parameters()])``, the order ``native_ddp._broadcast_params``
   uses; the master shares it.
@@ -34,18 +42,21 @@ workers, as in the reference.
 Telemetry (``recorder``, the worker's ``-r<rank>`` sidecar): the
 trainer's step and epoch events, a ``ps_exchange`` event an exchange
 (what, step, push seq, seconds, retries; ``failed`` before a failure
-propagates) and ``member_drain`` on a drain, as the JAX worker records
-them.
+propagates), a ``state_sync`` span on a REGISTER and ``member_drain`` on
+a drain, as the JAX worker records them.
 
 ``exchange_log`` keeps each step's exchange as two ``perf_counter``
 stamps: the push's first byte, and the copies that adopt the reply
 queued on the device; ``train_started`` is the stamp training started
-at.
+at, ``first_push_s`` the seconds from the process start to the first
+applied push (a respawned worker's recovery time).
 """
 
 from __future__ import annotations
 
 import logging
+import math
+import os
 import time
 
 import torch
@@ -58,6 +69,20 @@ from pytorch_distributed_rnn_tpu_torch.training.base import Trainer
 from pytorch_distributed_rnn_tpu_torch.training.distributed import _RANK_SEED_STRIDE
 
 log = logging.getLogger(__name__)
+
+
+def process_age_s() -> float | None:
+    """Seconds since this process started (Linux ``/proc``), or None where
+    that is not readable."""
+    try:
+        with open("/proc/self/stat") as f:
+            # the fields after the command name; starttime is the 22nd field
+            start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return None
+    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
 
 
 class ParameterServerWorkerTrainer(Trainer):
@@ -74,9 +99,9 @@ class ParameterServerWorkerTrainer(Trainer):
     def __init__(self, model, training_set, batch_size: int, learning_rate: float,
                  comm=None, worker_rank: int = 1, num_workers: int = 1,
                  seed: int | None = None, device="cuda", transport_retries: int = 3,
-                 transport_deadline_s: float | None = None,
-                 drain_signal: DrainSignal | None = None, grad_accum: int = 1, faults=None,
-                 recorder=None, profile_steps=None):
+                 transport_deadline_s: float | None = None, worker_id: int | None = None,
+                 register: bool = False, drain_signal: DrainSignal | None = None,
+                 grad_accum: int = 1, faults=None, recorder=None, profile_steps=None):
         if comm is None:
             raise ValueError("ParameterServerWorkerTrainer needs the transport (comm=)")
         # no guard here: the optimizer that applies updates is the master's,
@@ -89,9 +114,12 @@ class ParameterServerWorkerTrainer(Trainer):
         self.comm = comm
         self.rank = self.worker_rank = int(worker_rank)
         self.num_workers = int(num_workers)
-        self.worker_id = self.worker_rank  # a fixed world: the id is the rank
+        # the stable membership identity: survives respawns, while the rank
+        # is the transport slot it plugs back into
+        self.worker_id = int(worker_id) if worker_id is not None else self.worker_rank
         self.sampler = DistributedSampler(len(training_set), num_replicas=self.num_workers,
-                                          rank=self.worker_id - 1, seed=seed)
+                                          rank=(self.worker_id - 1) % max(1, self.num_workers),
+                                          seed=seed)
         self.dropout_generator.manual_seed(
             (seed ^ 0x5EED) + (self.worker_id - 1) * _RANK_SEED_STRIDE)
         self._drain = drain_signal
@@ -104,9 +132,15 @@ class ParameterServerWorkerTrainer(Trainer):
         self.num_params = sum(p.numel() for p in self._params)
         self.exchange_log: list[tuple[float, float]] = []
         self.train_started = None
+        self.first_push_s = None  # seconds from the process start to the first push
         self._pinned = {}
-        # the initial pull: adopt the master's authoritative parameters
-        self._adopt(self._exchange(self._pull_params, what="initial pull"))
+        self.state_sync = None  # the STATE_SYNC this worker entered with
+        if register:
+            # the join protocol (respawn or late join)
+            self._state_sync()
+        else:
+            # the initial pull: adopt the master's authoritative parameters
+            self._adopt(self._exchange(self._pull_params, what="initial pull"))
 
     def _collective_ops(self) -> dict:
         """A step's exchange with the master: the flat gradient pushed,
@@ -136,6 +170,34 @@ class ParameterServerWorkerTrainer(Trainer):
     def _pull_params(self) -> torch.Tensor:
         protocol.send_request(self.comm, protocol.OP_PULL)
         return protocol.recv_params(self.comm, self.num_params, out=self._host("reply"))
+
+    def _state_sync(self) -> None:
+        """REGISTER -> STATE_SYNC: adopt the master's parameters and this
+        worker-id's push-seq watermark, and resume at the epoch the
+        watermark reaches (the seq is this worker's own step count; the
+        dead incarnation's partial epoch is pushed again, its gradients
+        averaging into live rounds like a straggler's)."""
+
+        def register():
+            protocol.send_request(self.comm, protocol.OP_REGISTER, seq=self.worker_id)
+            return protocol.recv_state_sync(self.comm, self.num_params,
+                                            out=self._host("reply"))
+
+        t0 = time.perf_counter()
+        flat, step_wm, seq_wm = self._exchange(register, what="register")
+        self._adopt(flat)
+        self._push_seq = int(seq_wm)
+        steps_per_epoch = max(1, math.ceil(len(self.sampler) / self.batch_size))
+        self._start_epoch = int(seq_wm) // steps_per_epoch
+        self.state_sync = {"step": int(step_wm), "seq": int(seq_wm),
+                           "epoch": self._start_epoch, "params": flat.clone()}
+        log.info(f"state sync: worker-id {self.worker_id} rejoined at master update {step_wm}, "
+                 f"push-seq watermark {seq_wm} -> resuming at epoch {self._start_epoch}")
+        if self.recorder.enabled:
+            self.recorder.emit_span("state_sync", t0, time.perf_counter() - t0, cat="member",
+                                    worker_id=self.worker_id, rank_slot=self.worker_rank,
+                                    step=int(step_wm), seq=int(seq_wm),
+                                    resume_epoch=self._start_epoch)
 
     def _exchange(self, fn, what: str, seq: int | None = None):
         """One protocol exchange under the retry policy, retried WHOLE
@@ -201,6 +263,10 @@ class ParameterServerWorkerTrainer(Trainer):
         t0 = time.perf_counter()
         self._adopt(self._exchange(push_pull, what="gradient push", seq=seq))
         self.exchange_log.append((t0, time.perf_counter()))
+        if self.first_push_s is None:
+            # a respawned worker's recovery: its process start to its
+            # first applied push
+            self.first_push_s = process_age_s()
         if self._drain is not None:
             # the step's exchange is complete (gradient applied, params
             # adopted): a pending SIGTERM drain is honoured HERE, so the

@@ -11,13 +11,11 @@
   wall-clock deadline for a transport exchange (the parameter-server
   worker's push and pull);
 - ``membership``: the master's :class:`Roster` of workers (stable
-  worker-ids, the joined/drained/dead/done lifecycle, push-seq watermarks
-  that make a retried push idempotent) and the worker's
+  worker-ids, the joined/drained/dead/done lifecycle, a respawn's
+  REGISTER rejoin with its incarnation, push-seq watermarks that make a
+  retried or stale push idempotent) and the worker's
   :class:`DrainSignal` (SIGTERM as a preemption notice: flush the
   in-flight exchange, deregister, exit 0).
-
-The roster's elastic entries (``join`` of a respawn,
-``restore_watermarks``) come with the elastic half of ROADMAP A7.
 """
 
 from pytorch_distributed_rnn_tpu_torch.resilience.faults import (

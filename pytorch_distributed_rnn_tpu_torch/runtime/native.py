@@ -29,10 +29,15 @@ bfloat16 2.  Any other dtype raises ``TypeError`` before anything is
 posted; a reduce-scatter whose length the world does not divide raises
 ``ValueError``.
 
-The star, listener and elastic entries of the library (``pdrnn_init_star``,
-``pdrnn_init_listener``, ``reserve``, ``accept_peer``, ``close_peer``) are
-not bound here yet: the parameter server and the MPMD pipelines that use
-them are not ported.
+The elastic entries of the library serve the parameter server's
+membership (``param_server/master.py``): ``Communicator(..., star=True)``
+star-joins a running world as a worker rank (``pdrnn_init_star``: it dials
+rank 0 only), and the master grows its peer table (:meth:`Communicator.
+reserve`), accepts (re)joins on its rendezvous listener
+(:meth:`Communicator.accept_peer`) and closes a peer's socket
+(:meth:`Communicator.close_peer`).  :meth:`Communicator.listener`
+(``pdrnn_init_listener``) is rank 0 of an empty world on a known port,
+the host end of the JAX package's MPMD pipeline links.
 """
 
 from __future__ import annotations
@@ -104,6 +109,11 @@ def wait_for_library(timeout: float = 300.0) -> Path:
 _VOID, _INT, _I64, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {  # name: (restype, argtypes)
     "pdrnn_init": (_VOID, [ctypes.c_char_p, _INT, _INT, _INT]),
+    "pdrnn_init_star": (_VOID, [ctypes.c_char_p, _INT, _INT, _INT]),
+    "pdrnn_init_listener": (_VOID, [_INT, _INT]),
+    "pdrnn_reserve": (_INT, [_VOID, _INT]),
+    "pdrnn_accept_peer": (_INT, [_VOID, _INT]),
+    "pdrnn_close_peer": (_INT, [_VOID, _INT]),
     "pdrnn_set_fault": (None, [_VOID, _DBL, _DBL]),
     "pdrnn_send": (_INT, [_VOID, _INT, _VOID, _I64]),
     "pdrnn_recv": (_INT, [_VOID, _INT, _VOID, _I64]),
@@ -177,24 +187,70 @@ class CollectiveHandle:
 
 class Communicator:
     """One rank of a ring world over TCP (host-side transport).  A world of
-    1 opens no socket.  ``PDRNN_FAULT_DELAY_MS`` / ``PDRNN_FAULT_LOSS_PROB``
-    in the environment set the fault injection at construction."""
+    1 opens no socket.  ``star=True`` (a worker rank, the elastic (re)join)
+    dials rank 0 only, whose acceptor must install it (:meth:`accept_peer`).
+    ``PDRNN_FAULT_DELAY_MS`` / ``PDRNN_FAULT_LOSS_PROB`` in the environment
+    set the fault injection at construction."""
 
     def __init__(self, master_addr: str = "127.0.0.1", master_port: int = 29500,
-                 rank: int = 0, world_size: int = 1):
+                 rank: int = 0, world_size: int = 1, star: bool = False):
         self._lib = _load()
-        self._handle = self._lib.pdrnn_init(master_addr.encode(), int(master_port), int(rank),
-                                            int(world_size))
+        if star and rank < 1:
+            raise ValueError("star join is for worker ranks (>= 1)")
+        init = self._lib.pdrnn_init_star if star else self._lib.pdrnn_init
+        self._handle = init(master_addr.encode(), int(master_port), int(rank), int(world_size))
         if not self._handle:
             raise RuntimeError(f"rendezvous failed (rank {rank}/{world_size} via "
-                               f"{master_addr}:{master_port})")
+                               f"{master_addr}:{master_port}{', star join' if star else ''})")
         self.rank = int(rank)
         self.world_size = int(world_size)
+        self._fault_from_env()
+
+    def _fault_from_env(self) -> None:
         # the netem analogue: a fault sweep exports these before the ranks start
         delay_ms = float(os.environ.get("PDRNN_FAULT_DELAY_MS", "0") or 0)
         loss_prob = float(os.environ.get("PDRNN_FAULT_LOSS_PROB", "0") or 0)
         if delay_ms or loss_prob:
             self.set_fault(delay_ms, loss_prob)
+
+    @classmethod
+    def listener(cls, port: int, capacity: int = 2) -> "Communicator":
+        """Rank 0 of an empty world bound to the known ``port``, with a
+        ``capacity``-slot peer table: peers arrive later through
+        :meth:`accept_peer` star joins."""
+        self = cls.__new__(cls)
+        self._lib = _load()
+        self._handle = self._lib.pdrnn_init_listener(int(port), int(capacity))
+        if not self._handle:
+            raise RuntimeError(f"listener world failed to bind port {port}")
+        self.rank = 0
+        self.world_size = 1
+        self._fault_from_env()
+        return self
+
+    # -- elastic membership (master side) ----------------------------------------
+
+    def reserve(self, capacity: int) -> None:
+        """Grow the peer table to ``capacity`` rank slots, so that accepting
+        a new rank never reallocates it under a concurrent send or recv.
+        Call once, before the acceptor thread starts."""
+        self._lib.pdrnn_reserve(self._handle, int(capacity))
+
+    def accept_peer(self, timeout_s: float = 0.5) -> int | None:
+        """Accept one elastic (re)join on the rendezvous listener (rank 0):
+        the joining rank, or None on a timeout or a stray connection.  A
+        rank whose slot is taken has its old socket shut down and
+        replaced; ``world_size`` grows with a new rank."""
+        rank = self._lib.pdrnn_accept_peer(self._handle, int(timeout_s * 1000))
+        if rank < 0:
+            return None
+        self.world_size = max(self.world_size, rank + 1)
+        return rank
+
+    def close_peer(self, rank: int) -> None:
+        """Shut down and close one peer's socket; a later accept of the
+        same rank installs a fresh one."""
+        self._lib.pdrnn_close_peer(self._handle, int(rank))
 
     def set_fault(self, delay_ms: float = 0.0, loss_prob: float = 0.0):
         """A delay before every send, and a probability that a send pays a

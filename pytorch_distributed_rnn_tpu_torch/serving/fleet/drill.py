@@ -47,6 +47,7 @@ import time
 from pathlib import Path
 
 from pytorch_distributed_rnn_tpu_torch.launcher.supervisor import (
+    PopenProcess,
     ReplicaSupervisor,
 )
 from pytorch_distributed_rnn_tpu_torch.serving.drill import trace_handles
@@ -61,40 +62,6 @@ log = logging.getLogger(__name__)
 
 class FleetSpawnError(RuntimeError):
     """A fleet process died or never became ready."""
-
-
-class _PopenProc:
-    """Adapts :class:`subprocess.Popen` to the process contract
-    :class:`RespawnSupervisor` polls (``is_alive``/``exitcode``/
-    ``terminate``/``join``)."""
-
-    def __init__(self, proc: subprocess.Popen):
-        self.proc = proc
-
-    @property
-    def pid(self) -> int:
-        return self.proc.pid
-
-    def is_alive(self) -> bool:
-        return self.proc.poll() is None
-
-    @property
-    def exitcode(self):
-        return self.proc.poll()
-
-    def terminate(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.send_signal(signal.SIGTERM)
-
-    def kill(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.kill()
-
-    def join(self, timeout: float | None = None) -> None:
-        try:
-            self.proc.wait(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            pass
 
 
 def _await_file(path: Path, what: str, timeout_s: float,
@@ -280,7 +247,7 @@ def spawn_fleet(replica_args: list[str], n: int, *,
         learned: dict[int, tuple[str, int]] = {}
 
         def spawn_replica(rank: int, worker_id: int,
-                          rejoin: bool) -> _PopenProc:
+                          rejoin: bool) -> PopenProcess:
             cmd = [
                 sys.executable, "-m",
                 "pytorch_distributed_rnn_tpu_torch.serving", "serve",
@@ -295,7 +262,7 @@ def spawn_fleet(replica_args: list[str], n: int, *,
             else:
                 cmd += ["--port", "0", "--port-file",
                         str(port_files[worker_id])]
-            return _PopenProc(subprocess.Popen(cmd))
+            return PopenProcess(subprocess.Popen(cmd))
 
         supervisor = ReplicaSupervisor(
             spawn_replica, min_workers=1, max_respawns=max_respawns,

@@ -41,11 +41,13 @@ its ``local`` path:
   producer thread (the data faults fire there) and whose consumer runs
   the kills and the NaN batches.  Step addresses are run-relative.
 - Validation every epoch writes ``best-model.ckpt`` on a new best;
-  ``checkpoint_every`` adds ``checkpoint-epoch-N.ckpt``; ``resume_from``
-  restores model and optimizer (and, from the checkpoint's trainer
-  section, the dropout generator's state and the guard's counters;
-  ``advance_epoch`` continues at the checkpoint's epoch); the test set is
-  evaluated at the end.
+  ``checkpoint_every`` adds ``checkpoint-epoch-N.ckpt``, in the JAX
+  package's format (``training/checkpoint.py``); ``resume_from``
+  restores model and optimizer (and, from the header's
+  ``extra["trainer"]``, the dropout generator's state, and from the
+  optimizer tree the guard's counters; ``advance_epoch`` continues at the
+  checkpoint's epoch), from a file the port or the JAX package wrote;
+  the test set is evaluated at the end.
 - The loop runs under :func:`measure_memory_and_time`, logging the perf
   line and, on the card, a "Device HBM peaks (MiB)" line.
 - Telemetry (``recorder``, ``--metrics``; ``obs/recorder.py``), the JAX
@@ -852,10 +854,11 @@ class Trainer:
         return [self.dropout_generator.get_state()]
 
     def _trainer_state(self) -> dict:
-        """The checkpoint's trainer section: every rank's dropout
-        generator state (``dropout_generators``, in rank order) with the
-        world and the kind of device they belong to, and the guard's
-        counters where the run has a guard."""
+        """The checkpoint's trainer state: every rank's dropout generator
+        state (``dropout_generators``, in rank order) with the world and
+        the kind of device they belong to (the header's
+        ``extra["trainer"]``), and the guard's counters where the run has a
+        guard (the optimizer tree's ``apply_if_finite`` state)."""
         state = {"world": self.world_size, "device": self.device.type,
                  "dropout_generators": self._dropout_states()}
         if self.guard is not None:
@@ -863,12 +866,13 @@ class Trainer:
         return state
 
     def _restore_trainer_state(self, path, state) -> None:
-        """Adopt a checkpoint's trainer section: this rank's dropout
-        stream, where the checkpoint's world has this one's size and kind
-        of device (a CPU generator's state is not a card's), and the
-        guard's counters, so that a resumed run draws the masks and counts
-        the skips of an uninterrupted one.  A checkpoint from another
-        world or device starts the masks fresh from the seed, and says so."""
+        """Adopt a checkpoint's trainer state: this rank's dropout stream,
+        where the checkpoint's world has this one's size and kind of
+        device (a CPU generator's state is not a card's), and the guard's
+        counters, so that a resumed run draws the masks and counts the
+        skips of an uninterrupted one.  A checkpoint from another world or
+        device, or one the JAX package wrote, starts the masks fresh from
+        the seed, and says so."""
         streams = None if state is None else state.get("dropout_generators")
         if (streams is None or state.get("world") != self.world_size
                 or len(streams) != self.world_size or state.get("device") != self.device.type):
@@ -880,6 +884,15 @@ class Trainer:
             self.optimizer.nonfinite.load_state_dict(state["nonfinite"])
             self.guard.total_skipped = state["nonfinite"]["total_notfinite"]
 
+    def _with_hyperparameters(self, opt_state: dict) -> dict:
+        """``opt_state`` with this optimizer's hyperparameters in its group
+        where the checkpoint has none (JAX's format keeps them out of the
+        state; an older port file's own win, as they did)."""
+        adam = getattr(self.optimizer, "optimizer", self.optimizer)
+        live = {k: v for k, v in adam.param_groups[0].items() if k != "params"}
+        return {"state": opt_state["state"],
+                "param_groups": [{**live, **group} for group in opt_state["param_groups"]]}
+
     def resume_from(self, checkpoint_path, advance_epoch: bool = False):
         """Restore model and optimizer state from a checkpoint file.  Returns
         the checkpoint's ``{"epoch", "loss", "trainer"}``.  The run then
@@ -889,9 +902,10 @@ class Trainer:
         if Path(checkpoint_path).is_dir():
             raise ValueError(f"{checkpoint_path} is a directory - pass the .ckpt file")
         t0 = time.perf_counter()
-        model_state, opt_state, meta = load_checkpoint(checkpoint_path)
+        model_state, opt_state, meta = load_checkpoint(
+            checkpoint_path, names=[name for name, _ in self.model.named_parameters()])
         self.model.load_state_dict(model_state)
-        self.optimizer.load_state_dict(opt_state)
+        self.optimizer.load_state_dict(self._with_hyperparameters(opt_state))
         self._restore_trainer_state(checkpoint_path, meta["trainer"])
         self.graphs = {}  # the loaded optimizer state lives in new tensors
         self._resume_best_loss = meta["loss"]

@@ -302,14 +302,19 @@ class NativeDDPTrainer(Trainer):
     def _train_epoch(self, formatter, eager=None):
         result = super()._train_epoch(formatter, eager)
         if self._ckpt_world:
-            # every rank gathers (collectives); rank 0 writes the result
-            if self.sharded_update:
-                self._ckpt_cache = self.optimizer.state_dict()
-            state = self.dropout_generator.get_state()
-            gathered = self.comm.allgather(state.double())  # bytes, exact in float64
-            self._dropout_cache = [row.to(torch.uint8) for row in
-                                   gathered.reshape(self.world_size, -1)]
+            self._gather_checkpoint_state()
         return result
+
+    def _gather_checkpoint_state(self) -> None:
+        """The state an epoch's checkpoint writes: the unsharded Adam state
+        (sharded update) and every rank's dropout stream.  Collectives:
+        every rank gathers at each epoch end; rank 0 writes the result."""
+        if self.sharded_update:
+            self._ckpt_cache = self.optimizer.state_dict()
+        state = self.dropout_generator.get_state()
+        gathered = self.comm.allgather(state.double())  # bytes, exact in float64
+        self._dropout_cache = [row.to(torch.uint8) for row in
+                               gathered.reshape(self.world_size, -1)]
 
     def _dropout_states(self) -> list:
         if self._dropout_cache is None:

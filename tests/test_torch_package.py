@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: no module of it, and not
-``chip_smoke.py``, imports JAX, flax, optax or the JAX package."""
+``chip_smoke.py``, imports JAX, flax, optax, msgpack or the JAX package
+(the card has none of them; the port reads and writes the JAX package's
+checkpoints with its own codec, ``utils/flax_msgpack.py``)."""
 
 import ast
 import subprocess
@@ -10,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "pytorch_distributed_rnn_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytorch_distributed_rnn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "pytorch_distributed_rnn_tpu")
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -62,6 +64,8 @@ def test_port_imports_with_jax_blocked():
     "data/prefetch.py", "obs/trace.py", "launcher/__init__.py", "launcher/supervisor.py",
     "serving/fleet/__init__.py", "serving/fleet/__main__.py", "serving/fleet/cli.py",
     "serving/fleet/drill.py", "serving/fleet/pool.py", "serving/fleet/router.py",
+    "utils/flax_msgpack.py", "interop.py", "training/checkpoint.py",
+    "resilience/membership.py", "param_server/master.py", "param_server/worker.py",
 ])
 def test_new_modules_are_checked(relative):
     assert PORT / relative in FILES

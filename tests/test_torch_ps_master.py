@@ -139,8 +139,8 @@ def test_pull_replies_with_the_current_params_and_deregister_drains():
     assert master.roster.round_ranks() == set()
 
 
-def test_an_elastic_opcode_is_refused_loudly():
-    comm = ScriptedComm([_t([float(protocol.OP_REGISTER), 1.0])])
+def test_an_unknown_opcode_is_refused_loudly():
+    comm = ScriptedComm([_t([float(protocol.OP_EXPERIENCE), 1.0])])
     master = ParameterServerMaster(comm, torch.zeros(2), lambda g: g)
     with pytest.raises(RuntimeError, match="does not handle"):
         master._serve_worker(1)

@@ -898,11 +898,17 @@ def test_ps_nan_push_is_refused_by_the_master_as_jax_refuses_it(motion_arrays):
         theirs._serve_worker(1)
 
 
-@pytest.mark.parametrize("spec,refused", [("epoch:1:respawn@1", "respawn"),
-                                          ("step:2:preempt", "preempt")])
-def test_ps_refuses_the_fault_actions_of_the_elastic_roster(spec, refused):
-    with pytest.raises(SystemExit, match=f"--faults {refused}: .*elastic half of ROADMAP A7"):
-        port_main.main(["--device", "cpu", "--faults", spec, "parameter-server"])
+@pytest.mark.parametrize("spec,action", [("epoch:1:respawn@1", "respawn"),
+                                         ("step:2:preempt", "preempt")])
+def test_ps_takes_the_fault_actions_of_the_elastic_roster(spec, action):
+    """The elastic roster's fault actions pass the CLI's checks and bind to
+    their worker (the drills that run them: tests/test_torch_elastic.py)."""
+    args = port_main.build_parser().parse_args(
+        ["--device", "cpu", "--faults", spec, "parameter-server", "--elastic"])
+    port_main.reject_unported(args)
+    from pytorch_distributed_rnn_tpu_torch.resilience import FaultSchedule
+
+    assert FaultSchedule.parse(spec).for_rank(1 if action == "respawn" else 3).has_action(action)
 
 
 def test_ps_max_bad_steps_warns_and_changes_nothing(caplog):

@@ -4,7 +4,7 @@ torch/serving/{adapters,engine}.py``) on the CPU, in process.
 Against the JAX package (weights carried over by ``interop``): the
 adapters' prefill and step, and ``masked_rnn_prefill``, within 1e-5 of
 JAX's; the port engine's greedy tokens equal to the JAX engine's on the
-same requests; a JAX-written checkpoint refused.  Within the port (the
+same requests, also from a JAX-written checkpoint.  Within the port (the
 JAX engine's cases, ``tests/test_serving.py``): every request served
 through 4 slots has the tokens of its single-request ``generate``, greedy
 and sampled, with its first-step logits within 1e-5 of ``generate``'s;
@@ -38,10 +38,7 @@ from pytorch_distributed_rnn_tpu_torch.serving.adapters import adapter_for, mask
 from pytorch_distributed_rnn_tpu_torch.serving.buckets import BucketSpec
 from pytorch_distributed_rnn_tpu_torch.serving.engine import ServingEngine, TorchCalls, _flat
 from pytorch_distributed_rnn_tpu_torch.serving.scheduler import ServeRequest
-from pytorch_distributed_rnn_tpu_torch.training.checkpoint import (
-    CheckpointCorruptError,
-    load_model_params,
-)
+from pytorch_distributed_rnn_tpu_torch.training.checkpoint import load_model_params
 
 F32_FWD = 1e-5
 VOCAB = 48
@@ -181,11 +178,30 @@ def test_greedy_tokens_match_the_jax_engine(family):
     assert served[1] == served[0]
 
 
-def test_jax_written_checkpoint_is_refused(tmp_path):
-    jax_model, params, model = _pair("char-lstm")
+def test_jax_written_checkpoint_serves_the_jax_engines_tokens(tmp_path):
+    """A checkpoint the JAX package wrote loads into a fresh port model
+    (its own random weights replaced), whose engine then serves the JAX
+    engine's greedy tokens on the JAX weights."""
+    jax_model, params, _ = _pair("char-lstm", seed=8)
     path = jax_save(tmp_path, 0, params, optax.adam(1e-3).init(params), 1.0)
-    with pytest.raises(CheckpointCorruptError, match="A6"):
-        load_model_params(path, model)
+    _, _, model = _pair("char-lstm", seed=9)
+    meta = load_model_params(path, model)
+    assert meta == {"epoch": 1, "loss": 1.0}
+    specs = [(r.prompt, r.max_new_tokens) for r in
+             mixed_requests(8, np.random.RandomState(10))]
+    jax_engine = JaxServingEngine(jax_adapters.adapter_for(jax_model), params, num_slots=4,
+                                  bucket_spec=JaxBucketSpec((8, 16)), max_new_tokens=12)
+    served = []
+    for eng, cls in ((jax_engine, JaxServeRequest), (make_engine(model.eval()), ServeRequest)):
+        eng.warmup()
+        requests = [cls(prompt=p, max_new_tokens=n, temperature=0.0, id=str(i))
+                    for i, (p, n) in enumerate(specs)]
+        for r in requests:
+            assert eng.submit(r), r.error
+        eng.drain()
+        assert all(r.status == "done" for r in requests)
+        served.append([r.tokens for r in requests])
+    assert served[1] == served[0]
 
 
 # ---------------------------------------------------------------------------

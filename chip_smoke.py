@@ -67,15 +67,26 @@ Phases, in order; any failure raises and the script exits nonzero:
       and ``flash_dkv``, no ``flash_dqkv``;
    g. the data-parallel strategies through ``torchrun`` and the CLI
       (``parallel/launch.py`` running ``main ... distributed|horovod`` on
-      every rank) at path a's width with ``--dropout 0``: world 1 on NCCL
-      (``distributed`` with and without ``--sharded-update``, and ``--cell
-      gru``), and h. world 2, two ranks sharing the card over gloo
-      (``distributed`` and ``horovod``, each with and without
-      ``--sharded-update``).  Every rank must end with rank 0's parameters
-      bit for bit, sharded with replicated bit for bit, ``distributed``
-      with ``horovod`` within 1e-5 and each world with a ``local`` run of
-      the same flags within 1e-4; each rank's kernel launches are counted
-      (reset before its run, read after) against the steps it took.
+      every rank) at path a's width with ``--dropout 0``: world 1 on NCCL,
+      under a deadline sized to its work (``G_DEADLINE_S``), on the graph
+      path (each batch shape's step, its collectives included, captured
+      once and replayed): ``distributed`` with and without
+      ``--sharded-update`` and ``horovod``, each equal bit for bit to its
+      per-batch-loop twin (``--log DEBUG``: history, parameters, the last
+      Adam state, launches a step), ``--cell gru``, and ``--fuse-run``
+      under both strategies within 1e-5 of their per-epoch runs with the
+      same launches a step; then, in a child process on a world of 1 over
+      NCCL, g's host and device ms a step on the graph path and the
+      per-batch loop in turns (``phase_step_profile``) and the fused run's
+      replay ms a step.  h. world 2, two ranks sharing the card over gloo,
+      run beside g's world (``distributed`` and ``horovod``, each with and
+      without ``--sharded-update``): the step body uncaptured, which every
+      rank logs once.  Every rank must end with rank 0's parameters bit for
+      bit, sharded with replicated bit for bit, ``distributed`` with
+      ``horovod`` within 1e-5 and each world with a ``local`` run of the
+      same flags within 1e-4; each rank's kernel launches are counted
+      (reset before its run, read after) against the steps it took, and
+      its step path read from its graphs' replays.
    i. ``distributed-native`` over the TCP ring (``runtime/native.py``)
       through ``torchrun`` and the CLI at path a's width with ``--dropout
       0 --no-validation``, at world 1 and at world 2 (two ranks sharing the
@@ -279,8 +290,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    the kernel its wrapper runs there, and the layout work left around one
    forward call.
 
-Prints a ``{"kernels": [...]}`` line and ends with
-``{"ok": true, "device": {...}}`` as its last line.
+Prints every phase's wall seconds on one line (``smoke phases (s)``), a
+``{"kernels": [...]}`` line, and ends with ``{"ok": true, "device":
+{...}}`` as its last line.
 """
 
 from __future__ import annotations
@@ -1961,25 +1973,55 @@ def phase_graph(workdir: Path, formatter) -> dict:
 
 DP_TOL_LOCAL = 1e-4  # a world's final parameters against local's, float32 on the card
 DP_TOL_FLAVOURS = 1e-5  # distributed against horovod
+TORCHRUN_TIMEOUT = 600  # a torchrun world's deadline, where none is sized to its work
+G_DEADLINE_S = 120  # the g world's: about 3x its 28.4-42.4 s on an H100 80GB (PERF.md §6)
+UNCAPTURED = "gloo collectives cannot be captured: the step body runs uncaptured"
+# the g world's runs: each graph run's per-batch-loop twin adds --log DEBUG,
+# and --checkpoint-every 2 keeps the last Adam state; the fused runs and
+# their per-epoch twins take --no-validation
+G_RUNS = {
+    "sharded": ["--sharded-update", "--checkpoint-every", "2", "distributed"],
+    "replicated": ["--no-sharded-update", "--checkpoint-every", "2", "distributed"],
+    "horovod": ["--checkpoint-every", "2", "horovod"],
+    "gru": ["--cell", "gru", "distributed"],
+    "fused": ["--no-validation", "--fuse-run", "distributed"],
+    "epochs": ["--no-validation", "distributed"],
+    "horovod fused": ["--no-validation", "--fuse-run", "horovod"],
+    "horovod epochs": ["--no-validation", "horovod"],
+}
+G_TWINS = ("sharded", "replicated", "horovod")  # each with a "<name> loop" run
 
 
-def _torchrun(ranks: int, jobs: list, workdir: Path, name: str) -> tuple:
+def _torchrun(ranks: int, jobs: list, workdir: Path, name: str,
+              timeout: float = TORCHRUN_TIMEOUT) -> tuple:
     """``jobs`` (``parallel/launch.py``) on a ``torchrun`` world of ``ranks``
-    processes on the card; a failure in any rank fails the phase.  Returns
-    the wall seconds and the launcher's standard error."""
+    processes on the card; a failure in any rank fails the phase, and so
+    does a world that outlives ``timeout`` seconds (its process group is
+    killed: the launcher and every rank).  Returns the wall seconds and the
+    launcher's standard error."""
     spec = workdir / f"{name}.json"
     spec.write_text(json.dumps({"device": "cuda", "jobs": jobs}))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                           "--nproc-per-node", str(ranks), "-m",
-                           "pytorch_distributed_rnn_tpu_torch.parallel.launch", str(spec)],
-                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc-per-node", str(ranks), "-m",
+                             "pytorch_distributed_rnn_tpu_torch.parallel.launch", str(spec)],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+        print(stdout[-4000:])
+        print(stderr[-8000:])
+        raise RuntimeError(f"{name}: the torchrun world ran past its {timeout:g} s deadline "
+                           "(a hung capture or collective)") from None
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        print(proc.stdout[-4000:])
-        print(proc.stderr[-8000:])
+        print(stdout[-4000:])
+        print(stderr[-8000:])
         raise RuntimeError(f"{name}: torchrun exited {proc.returncode}")
-    return wall, proc.stderr
+    return wall, stderr
 
 
 def _dp_job(workdir: Path, name: str, flags: list) -> dict:
@@ -2005,7 +2047,8 @@ def _dp_results(job: dict, ranks: int, epochs: int = 2) -> tuple:
         raise RuntimeError(f"{job['dir']}: perf lines {perf}")
     print(f"  {Path(job['dir']).name}: train_history={history['train_history']}, "
           f"validation_history={history['validation_history']}, perf lines "
-          f"{[p[0] for p in perf]}, rank 0 launches {results[0]['launches']}")
+          f"{[p[0] for p in perf]}, rank 0 launches {results[0]['launches']}, step path "
+          f"{results[0]['buffers'] or 'per-batch loop'}, graph replays {results[0]['graphs']}")
     return results, history
 
 
@@ -2029,6 +2072,35 @@ def _check_dp_launches(name: str, results: list, cell: str, layers: int = 2,
             bwd: results[0]["launches"][bwd] / steps}
 
 
+def _check_step_path(name: str, results: list, path: str):
+    """Each rank took ``path``: ``"graph"`` the per-epoch step captured and
+    replayed (a graph a batch shape; each step after a shape's first is a
+    replay), ``"fused"`` the fused run's one graph, ``"loop"`` the per-batch
+    loop, ``"uncaptured"`` the step body uncaptured, said once in the log."""
+    for rank, result in enumerate(results):
+        replays = sum(result["graphs"].values())
+        said = sum(UNCAPTURED in m for m in result["log"])
+        ok = {"graph": result["buffers"] == ["epoch"] and result["graphs"]
+              and replays == result["steps"] - len(result["graphs"]) and not said,
+              "fused": result["buffers"] == ["run"] and len(result["graphs"]) == 1
+              and replays == result["steps"] - 1 and not said,
+              "loop": result["buffers"] == [] and not result["graphs"] and not said,
+              "uncaptured": result["buffers"] == ["epoch"] and not result["graphs"]
+              and said == 1}[path]
+        if not ok:
+            raise RuntimeError(f"{name}: rank {rank} did not take the {path} path: buffers "
+                               f"{result['buffers']}, graphs {result['graphs']}, {said} "
+                               "uncaptured lines")
+
+
+def _final_adam_state(job: dict) -> dict:
+    from pytorch_distributed_rnn_tpu_torch.training.checkpoint import load_checkpoint
+
+    _, opt_state, _ = load_checkpoint(Path(job["dir"]) / "rank0" / "models" /
+                                      "checkpoint-epoch-2.ckpt")
+    return opt_state["state"]
+
+
 def _state_err(a: dict, b: dict) -> float:
     return max((a[k].float() - b[k].float().cpu()).abs().max().item() for k in a)
 
@@ -2046,49 +2118,146 @@ def _dp_compare(what: str, a: tuple, b: tuple, tol: float):
         raise RuntimeError(f"{what}: disagree")
 
 
+G_TIMING_TIMEOUT = 180  # the g timing's child process: about 30 s on an H100
+
+
+def _g_timing_child(workdir: str) -> None:
+    """g's step times, in a process of its own on a world of 1 over NCCL
+    (the group made here outlives each CLI run, so that its trainer can
+    train on after it): ``distributed`` (sharded, ``--no-validation``)
+    trained 2 epochs through the CLI, then the per-batch loop and the
+    graph path in turns with one profiled epoch of each
+    (``phase_step_profile``); and the ``--fuse-run`` trainer's graph
+    replayed over 2 more epochs on the host clock.  Prints its results as
+    a JSON line, the last."""
+    from pytorch_distributed_rnn_tpu_torch.parallel import collectives
+    from pytorch_distributed_rnn_tpu_torch.training.formatter import TrainingMessageFormatter
+
+    workdir = Path(workdir)
+    argv = ["--dataset-path", str(workdir / "data"), "--checkpoint-directory",
+            str(workdir / "models-g"), "--seed", "0", "--dropout", "0", "--no-validation"]
+    group = collectives.init_process_group("cuda")
+    try:
+        trainer = _cli_trainer(workdir, [*argv, "distributed"], epochs=2)
+        out = phase_step_profile(PathRun("g, distributed at world 1 on NCCL", trainer, MAIN_BATCH,
+                                         ("lstm_fwd", "lstm_bwd"), {}, {}),
+                                 TrainingMessageFormatter(1), PROFILE_ROUNDS)
+        fused = _cli_trainer(workdir, [*argv, "--fuse-run", "distributed"], epochs=2)
+        steps = 2 * len(fused._epoch_index_batches())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused._train_run_fused(2)
+        torch.cuda.synchronize()
+        out["fused_replay_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+        (graph,) = fused.graphs.values()
+        print(f"  g --fuse-run: 2 more epochs replayed: {out['fused_replay_ms']:.3f} ms a step on "
+              f"the host clock; capture {graph.capture_s * 1e3:.1f} ms")
+    finally:
+        collectives.destroy(group)
+    print(json.dumps(out), flush=True)
+
+
+def _g_timing(workdir: Path) -> dict:
+    """``_g_timing_child`` in a child process, so that this process keeps
+    no NCCL group and runs no profile for g: in a smoke that ran them here,
+    phase p.1's profile later lost one kernel record in all three
+    attempts."""
+    proc = subprocess.run([sys.executable, "-c",
+                           "import sys, chip_smoke; chip_smoke._g_timing_child(sys.argv[1])",
+                           str(workdir)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=G_TIMING_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-8000:])
+        raise RuntimeError(f"g timing: the child process exited {proc.returncode}")
+    return json.loads(lines[-1])
+
+
 def phase_distributed(workdir: Path) -> dict:
     """The data-parallel strategies through ``torchrun`` and the CLI at
     path a's width (2 x 32 LSTM, batch 1440, 2 epochs, ``--dropout 0`` so
-    that worlds compare with local): world 1 on NCCL (``distributed`` with
-    and without ``--sharded-update``, and ``--cell gru``), world 2 sharing
-    the card over gloo (``distributed`` and ``horovod``, each with and
-    without ``--sharded-update``), held against a ``local`` run from the
-    same seed, against each other, and the kernels' launches counted on
-    every rank."""
+    that worlds compare with local).  g, world 1 on NCCL (``G_RUNS``, under
+    ``G_DEADLINE_S``): ``distributed`` with and without
+    ``--sharded-update`` and ``horovod`` on the graph path, each equal bit
+    for bit to its per-batch-loop twin (``--log DEBUG``: history,
+    parameters, the last Adam state, launches), ``--cell gru``, and
+    ``--fuse-run`` of both strategies within ``FUSE_RTOL`` of their
+    per-epoch runs; then g's step times (``_g_timing``).  h, world 2
+    sharing the card over gloo (``distributed`` and ``horovod``, each with
+    and without ``--sharded-update``), at the same time as g: the step body
+    uncaptured.  Each held
+    against a ``local`` run from the same seed and against the others, and
+    the kernels' launches counted on every rank."""
+    from concurrent.futures import ThreadPoolExecutor
+
     print("main path: distributed (g: world 1 on NCCL; h: world 2 on one card over gloo)")
     trainer, local_history, _, _ = _drive(workdir, _dp_job(workdir, "local", ["local"])["argv"])
     local = ({k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}, local_history)
 
-    g_jobs = {name: _dp_job(workdir, f"g-{name}", flags) for name, flags in (
-        ("sharded", ["--sharded-update", "distributed"]),
-        ("replicated", ["--no-sharded-update", "distributed"]),
-        ("gru", ["--cell", "gru", "distributed"]))}
-    wall, _ = _torchrun(1, list(g_jobs.values()), workdir, "g")
-    print(f"  world 1 on NCCL: {len(g_jobs)} runs in {wall:.2f} s (one torchrun)")
-    g = {name: _dp_results(job, 1) for name, job in g_jobs.items()}
-    per_step = {"g": _check_dp_launches("g sharded", g["sharded"][0], "lstm")}
-    _check_dp_launches("g replicated", g["replicated"][0], "lstm")
-    per_step["g gru"] = _check_dp_launches("g gru", g["gru"][0], "gru")
-
+    runs = dict(G_RUNS)
+    for name in G_TWINS:
+        runs[f"{name} loop"] = [*G_RUNS[name][:-1], "--log", "DEBUG", G_RUNS[name][-1]]
+    g_jobs = {name: _dp_job(workdir, "g-" + name.replace(" ", "-"), flags)
+              for name, flags in runs.items()}
     h_jobs = {(flavour, sharding): _dp_job(workdir, f"h-{flavour}-{sharding}",
                                            [f"--{sharding}", flavour])
               for flavour in ("distributed", "horovod")
               for sharding in ("sharded-update", "no-sharded-update")}
-    wall, stderr = _torchrun(2, list(h_jobs.values()), workdir, "h")
-    print(f"  world 2 sharing the card over gloo: {len(h_jobs)} runs in {wall:.2f} s "
-          "(one torchrun)")
+    # the two worlds at once: neither is timed (g's step times come after)
+    with ThreadPoolExecutor(2) as pool:
+        g_world = pool.submit(_torchrun, 1, list(g_jobs.values()), workdir, "g", G_DEADLINE_S)
+        h_world = pool.submit(_torchrun, 2, list(h_jobs.values()), workdir, "h")
+        (g_wall, _), (h_wall, stderr) = g_world.result(), h_world.result()
+    print(f"  world 1 on NCCL: {len(g_jobs)} runs in {g_wall:.2f} s (one torchrun, deadline "
+          f"{G_DEADLINE_S} s); beside it, world 2 sharing the card over gloo: {len(h_jobs)} "
+          f"runs in {h_wall:.2f} s (one torchrun)")
+    g = {name: _dp_results(job, 1) for name, job in g_jobs.items()}
+    per_step = {}
+    for name, (results, _) in g.items():
+        cell = "gru" if name == "gru" else "lstm"
+        per_step[f"g {name}"] = _check_dp_launches(f"g {name}", results, cell,
+                                                   evaluations=0 if "--no-validation" in
+                                                   runs[name] else 3)
+        _check_step_path(f"g {name}", results, "loop" if name.endswith("loop") else
+                         "fused" if name.endswith("fused") else "graph")
+
     if "ranks share 1 card(s) over gloo" not in stderr:
         raise RuntimeError("h: rank 0 did not log the shared-card backend")
     h = {key: _dp_results(job, 2) for key, job in h_jobs.items()}
     for key, (results, _) in h.items():
         per_step[f"h {'/'.join(key)}"] = _check_dp_launches(f"h {key}", results, "lstm")
+        _check_step_path(f"h {key}", results, "uncaptured")
     print(f"  launches a train step (rank 0): {per_step}")
+    print(f"  h: every rank logged once that its gloo world runs the step body uncaptured")
 
     def final(run):
         results, history = run
         return results[0]["state"], history
 
+    for name in G_TWINS:
+        _dp_compare(f"g {name}: graph path vs per-batch loop", final(g[name]),
+                    final(g[f"{name} loop"]), 0)
+        want = _final_adam_state(g_jobs[f"{name} loop"])
+        for i, state in _final_adam_state(g_jobs[name]).items():
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                if not torch.equal(state[key], want[i][key]):
+                    raise RuntimeError(f"g {name}: Adam state {i} {key} differs from the "
+                                       "per-batch loop's")
+        if per_step[f"g {name}"] != per_step[f"g {name} loop"]:
+            raise RuntimeError(f"g {name}: launches a step {per_step[f'g {name}']}, the loop's "
+                               f"{per_step[f'g {name} loop']}")
+    print("  g: the graph path's histories, parameters, Adam states and launches equal the "
+          "per-batch loop's bit for bit (distributed sharded and replicated, horovod)")
+    for prefix in ("", "horovod "):
+        (fused,), history = g[f"{prefix}fused"]
+        _fused_check(f"g {prefix or 'distributed '}".strip(), history["train_history"],
+                     fused["launches"], fused["steps"], g[f"{prefix}epochs"][1]["train_history"],
+                     per_step[f"g {prefix}epochs"])
     _dp_compare("g: sharded vs replicated", final(g["sharded"]), final(g["replicated"]), 0)
+    _dp_compare("g: distributed vs horovod", final(g["sharded"]), final(g["horovod"]),
+                DP_TOL_FLAVOURS)
     _dp_compare("g vs local", final(g["sharded"]), local, DP_TOL_LOCAL)
     for flavour in ("distributed", "horovod"):
         _dp_compare(f"h {flavour}: sharded vs replicated",
@@ -2097,6 +2266,14 @@ def phase_distributed(workdir: Path) -> dict:
                 final(h["horovod", "no-sharded-update"]), DP_TOL_FLAVOURS)
     _dp_compare("h distributed vs local", final(h["distributed", "sharded-update"]), local,
                 DP_TOL_LOCAL)
+    timing = _g_timing(workdir)
+    medians = {mode: sorted(timing["host_ms"][mode])[len(timing["host_ms"][mode]) // 2]
+               for mode in ("graph", "eager")}
+    print(f"  g step times: graph path host {medians['graph']:.3f} ms (median) / device "
+          f"{timing['graph']['device_ms']:.3f} ms a step, idle {100 * timing['graph']['idle']:.1f}%; "
+          f"per-batch loop host {medians['eager']:.3f} / device "
+          f"{timing['eager']['device_ms']:.3f} ms, idle {100 * timing['eager']['idle']:.1f}%; "
+          f"--fuse-run replay {timing['fused_replay_ms']:.3f} ms a step")
     return {"local": local, "g sharded": final(g["sharded"]),
             "g replicated": final(g["replicated"]),
             "h sharded": final(h["distributed", "sharded-update"]),
@@ -2843,7 +3020,7 @@ def phase_resilience(workdir: Path, formatter) -> dict:
 
 Q_EPOCHS = 3  # q.1: path a's runs
 Q_SAMPLE_EVERY = 5  # q.1: --metrics-sample-every
-Q_TURNS = ("plain", "metrics", "metrics", "plain") * 2  # q.1: its runs, in turns
+Q_TURNS = ("plain", "metrics", "metrics", "plain")  # q.1: its runs, in turns
 Q_PROFILE_STEPS = (3, 6)  # q.2: --profile-steps on path a
 H100_F32_PEAK = 67e12  # utils/hw.py's H100 entry for --precision f32
 # q.4: path f's stall (step, seconds), longer than the watchdog's threshold,
@@ -3599,12 +3776,16 @@ def phase_long_context() -> PathRun:
 
 
 def _device_profile():
-    """``torch.profiler`` over the host and the card, with host-only margins
-    around the body (``utils/ab.py:device_profile``: late in a process a
-    plain window loses device records)."""
+    """``torch.profiler`` over the card's activity alone (every reader here
+    takes the device records only, and a window without the host's
+    operator events has far fewer events to process), with
+    host-only margins around the body (``utils/ab.py:device_profile``: late
+    in a process a plain window loses device records)."""
+    from torch.profiler import ProfilerActivity
+
     from pytorch_distributed_rnn_tpu_torch.utils.ab import device_profile
 
-    return device_profile()
+    return device_profile([ProfilerActivity.CUDA])
 
 
 def _device_events(prof) -> list:
@@ -4222,45 +4403,59 @@ def phase_flash_timing(runs: dict, errs: dict) -> list:
     return rows
 
 
+PHASE_SECONDS: dict = {}  # each phase's wall seconds, in order
+
+
+def _timed(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds kept under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+    print(f"phase {name}: {PHASE_SECONDS[name]} s", flush=True)
+    return out
+
+
 def main() -> int:
     from pytorch_distributed_rnn_tpu_torch.data.synthetic import write_synthetic_har_cache
 
     from pytorch_distributed_rnn_tpu_torch.training.formatter import TrainingMessageFormatter
 
     t0 = time.perf_counter()
-    phase_device()
-    phase_build()
-    errs = phase_kernels()
-    errs.update(phase_flash_kernels())
+    _timed("device", phase_device)
+    _timed("build", phase_build)
+    errs = _timed("kernels", phase_kernels)
+    errs.update(_timed("flash kernels", phase_flash_kernels))
     formatter = TrainingMessageFormatter(1)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         workdir = Path(tmp)
         write_synthetic_har_cache(workdir / "data", num_train=7352, num_test=2947, seed=0)
         runs = {
-            "motion_lstm": phase_motion(workdir, "lstm"),
-            "motion_gru": phase_motion(workdir, "gru"),
-            "char_gru": phase_char(workdir, "gru"),
-            "char_lstm": phase_char(workdir, "lstm"),
-            "attention": phase_attention(workdir),
+            "motion_lstm": _timed("a", phase_motion, workdir, "lstm"),
+            "motion_gru": _timed("b", phase_motion, workdir, "gru"),
+            "char_gru": _timed("c", phase_char, workdir, "gru"),
+            "char_lstm": _timed("f", phase_char, workdir, "lstm"),
+            "attention": _timed("d", phase_attention, workdir),
         }
-        dp_finals = phase_distributed(workdir)
-        native = phase_native(workdir, dp_finals)
-        phase_graph(workdir, formatter)
-        runs["long"] = phase_long_context()
+        dp_finals = _timed("g, h", phase_distributed, workdir)
+        native = _timed("i, j", phase_native, workdir, dp_finals)
+        _timed("graph", phase_graph, workdir, formatter)
+        runs["long"] = _timed("e", phase_long_context)
         for key in ("motion_lstm", "motion_gru", "char_gru", "char_lstm", "attention", "long"):
-            phase_step_profile(runs[key], formatter, PROFILE_ROUNDS)
-        phase_scan_profile(runs["char_lstm"], formatter)
-        rows = phase_timing(runs, errs) + phase_flash_timing(runs, errs)
+            _timed(f"5 {key}", phase_step_profile, runs[key], formatter, PROFILE_ROUNDS)
+        _timed("5 scan", phase_scan_profile, runs["char_lstm"], formatter)
+        rows = (_timed("6 timing", phase_timing, runs, errs)
+                + _timed("6 flash timing", phase_flash_timing, runs, errs))
         # after the step profiles, as serving: with a phase that profiled in
         # this process before them, a step profile missed one kernel record in
         # all three attempts (serving once, this phase once)
-        phase_ps(workdir, dp_finals, native["finals"])
-        phase_resilience(workdir, formatter)
-        phase_telemetry(workdir, formatter)
-        phase_interop(workdir)
-        phase_ps_elastic(workdir)
-        serving = phase_serving(workdir, runs)
-        phase_fleet_telemetry(workdir, runs, serving)
+        _timed("n, o", phase_ps, workdir, dp_finals, native["finals"])
+        _timed("p", phase_resilience, workdir, formatter)
+        _timed("q", phase_telemetry, workdir, formatter)
+        _timed("s", phase_interop, workdir)
+        _timed("t", phase_ps_elastic, workdir)
+        serving = _timed("k, l, m", phase_serving, workdir, runs)
+        _timed("r", phase_fleet_telemetry, workdir, runs, serving)
+    print(f"smoke phases (s): {json.dumps(PHASE_SECONDS)}")
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

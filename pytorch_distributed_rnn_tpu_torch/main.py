@@ -9,9 +9,10 @@ the framework's C++ TCP ring (``--bucketed-comm`` and ``--bucket-mb``
 bucket its gradient traffic); ``--sharded-update``, on by default, shards
 the Adam step of all three.  ``--model`` takes ``rnn``, ``char`` and
 ``attention``.
-``local`` trains each epoch through CUDA-graph replays of its train step
-unless DEBUG logging asks for each batch's values, and ``--fuse-run``
-replays it over the whole run (``training/base.py``).  The resilience and
+``local``, ``distributed`` and ``horovod`` train each epoch through
+CUDA-graph replays of their train step unless DEBUG logging asks for each
+batch's values, and ``--fuse-run`` replays it over the whole run
+(``training/base.py``; a gloo world runs the same step uncaptured).  The resilience and
 memory flags: ``--max-bad-steps K`` (skip a step with non-finite
 gradients on the device, abort past K in a row), ``--faults SPEC`` (the
 ``resilience/faults.py`` schedule, also ``PDRNN_CHAOS``), ``--resume
@@ -137,12 +138,13 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["gathered", "sharded"], help=f"sharded is {NOT_PORTED}")
     parser.add_argument("--checkpoint-async", action="store_true", help=NOT_PORTED)
     parser.add_argument("--fuse-run", action="store_true",
-                        help="local: run the whole training as one device program (a CUDA "
-                        "graph of the train step replayed over every batch of every epoch) "
-                        "even at INFO logging; needs --no-validation, no --checkpoint-every "
-                        "and, with dropout, a batch size dividing the training set; "
-                        f"distributed and horovod: {NOT_PORTED}; distributed-native: "
-                        "rejected (the host handles every batch)")
+                        help="local, distributed and horovod: run the whole training as one "
+                        "device program (a CUDA graph of the train step replayed over every "
+                        "batch of every epoch) even at INFO logging; needs --no-validation, "
+                        "no --checkpoint-every and, with dropout, a batch size dividing the "
+                        "training set (distributed, horovod: each rank's shard); "
+                        "distributed-native and parameter-server: rejected (the host "
+                        "handles every batch)")
     parser.add_argument("--profile", default=None, type=Path, metavar="DIR",
                         help="write a torch.profiler Chrome trace (host, and the card's "
                         "kernels) of the training run into DIR")
@@ -192,8 +194,6 @@ def reject_unported(args):
         if reasons:
             raise SystemExit("; ".join(reasons))
     unported = {
-        "--fuse-run under distributed and horovod": (
-            args.fuse_run and args.strategy in ("distributed", "horovod")),
         "--checkpoint-format sharded": args.checkpoint_format != "gathered",
         "--checkpoint-async": args.checkpoint_async,
     }

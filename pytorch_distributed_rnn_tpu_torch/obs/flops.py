@@ -220,7 +220,6 @@ def _count_step(trainer, rows: int, length: int | None) -> FlopCountMode:
     model = _fake_model(trainer.model, fake_mode)
     clone = copy.copy(trainer)
     clone.model = model
-    clone._ddp = None
     clone.device = torch.device("cpu")
     clone.dropout_generator = torch.Generator().manual_seed(0)
     model.train()

@@ -56,7 +56,9 @@ def adam_update_(params, grads, exp_avgs, exp_avg_sqs, step, lr: float,
     the host).  The device form computes them in float64, as the host
     form's Python floats are, and rounds them to the parameters' float32
     as the host form's division does: on the CPU both forms give the same
-    bits.
+    bits.  On the card they round apart, so every update of the port that
+    a bitwise comparison meets takes the device form: the trainers', the
+    sharded update's and the parameter server's.
 
     ``finite`` (a 0-d bool tensor on the device, or None: unguarded) is
     the guarded update's verdict: the step is computed into new tensors

@@ -14,9 +14,12 @@ in the environment for the job's run, e.g. the ``MASTER_PORT`` of a
 ``distributed-native`` job's own ring.  The launch counts of the kernels
 are set to 0 just before the run and read just after.  Each rank writes
 ``DIR/rank<r>.pt``: the final ``state_dict`` of the model, the launch
-counts, the train steps the rank took, its INFO log lines, the run's
-wall seconds, and for ``distributed-native`` every step's
-``(comm_wait_s, comm_active_s)``.  With ``"profile": true`` (on the card)
+counts, the train steps the rank took, the device-resident step's runs it
+made (``buffers``: ``"epoch"`` the per-epoch path, ``"run"`` the fused
+run; none: the per-batch loop) and its captured graphs' replays by
+``"<kind> <rows>"`` (``graphs``), its INFO log lines, the run's wall
+seconds, and for ``distributed-native`` every step's ``(comm_wait_s,
+comm_active_s)``.  With ``"profile": true`` (on the card)
 the run goes under ``torch.profiler``: ``device_ms`` holds its device time
 (kernels, copies, sets) a train step and ``kernels`` their counts by name.
 ``{"dir": DIR, "module": NAME, "argv": [...]}`` runs ``NAME.main(argv)``
@@ -141,6 +144,8 @@ def _run_cli(group, directory: Path, job: dict):
         "state": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()},
         "launches": launches,
         "steps": steps,
+        "buffers": sorted(trainer._buffers),
+        "graphs": {f"{kind} {rows}": g.replays for (kind, rows), g in trainer.graphs.items()},
         "log": capture.messages,
         "wall": wall,
         "comm": getattr(trainer, "comm_log", None),

@@ -39,9 +39,14 @@ a step another applies and the replicas would part.  As the JAX package
 syncs a 1-element any-non-finite flag (``sharded_update.py:57-67``), every
 rank's verdict on its slice is summed over the world
 (:meth:`ShardedUpdate.global_verdict`) and all ranks take the one verdict:
-skip, or apply.  The count is then a device tensor (a skipped step leaves
-it as it was, and nothing syncs with the host), with the guard's counters
-(``ops/adam.py:NonFiniteCounters``) beside it.
+skip, or apply.  A skipped step leaves the count as it was, and the
+guard's counters (``ops/adam.py:NonFiniteCounters``) count it.
+
+The count is a float64 device tensor, guarded or not, as
+``ops/adam.py:DeviceStepAdam``'s is: a CUDA graph that captured the step
+sees each replay's count in Adam's bias corrections, which a host count
+would freeze at its value during the capture.  Checkpoints still hold
+``torch.optim.Adam``'s integer step.
 """
 
 from __future__ import annotations
@@ -78,8 +83,7 @@ class ShardedUpdate:
         self.shard = self.padded // self.world
         self.dtype = self.params[0].dtype
         device = self.params[0].device
-        # the count: a host int, or under the guard a float64 device tensor
-        self.steps = torch.zeros((), dtype=torch.float64, device=device) if guarded else 0
+        self.steps = torch.zeros((), dtype=torch.float64, device=device)
         self.nonfinite = NonFiniteCounters(device) if guarded else None
         self.exp_avg = torch.zeros(self.shard, dtype=self.dtype, device=device)
         self.exp_avg_sq = torch.zeros(self.shard, dtype=self.dtype, device=device)
@@ -148,10 +152,7 @@ class ShardedUpdate:
     def advance(self, finite=None) -> None:
         """Add this step to the count before its first update: 1, or under
         the guard 1 where ``finite`` holds and 0 where not."""
-        if finite is None:
-            self.steps += 1
-        else:
-            self.steps.add_(finite.double())
+        self.steps.add_(1.0 if finite is None else finite.double())
 
     def record(self, finite=None) -> None:
         """Count the step's verdict in the guard's counters."""
@@ -223,10 +224,7 @@ class ShardedUpdate:
         self.optimizer.param_groups[0].update(
             {k: v for k, v in std_state["param_groups"][0].items() if k != "params"})
         flat = self.flat_opt_state(std_state)
-        if self.nonfinite is None:
-            self.steps = flat["step"]
-        else:
-            self.steps.fill_(float(flat["step"]))
+        self.steps.fill_(float(flat["step"]))
         device = self.exp_avg.device
         self.exp_avg = self.shard_slice(flat["exp_avg"], self.rank).to(device, copy=True)
         self.exp_avg_sq = self.shard_slice(flat["exp_avg_sq"], self.rank).to(device, copy=True)

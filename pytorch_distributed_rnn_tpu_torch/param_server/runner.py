@@ -133,8 +133,9 @@ class AsyncCheckpointWriter:
 
 
 class FlatAdam:
-    """The master's update: Adam (``ops/adam.py:adam_update_`` in its host
-    step form, betas (0.9, 0.999), eps 1e-8) on the one flat float32
+    """The master's update: Adam (``ops/adam.py:adam_update_`` with its count
+    on the device, as the trainers' updates keep it: the two forms round
+    apart on the card; betas (0.9, 0.999), eps 1e-8) on the one flat float32
     parameter vector on ``device``.  Each call copies the gradient host ->
     device, steps, and copies the parameters back into a host buffer
     (pinned on the card), which it returns.  ``seconds`` keeps each call's
@@ -151,7 +152,8 @@ class FlatAdam:
         self.host = torch.empty(self.params.shape, dtype=torch.float32,
                                 pin_memory=self.device.type == "cuda")
         self.host.copy_(self.params)
-        self.steps = 0
+        self.steps = 0  # the count on the host, and on the device
+        self.device_steps = torch.zeros((), dtype=torch.float64, device=self.device)
         self.seconds = {"h2d": [], "adam": [], "d2h": []}
 
     @torch.no_grad()
@@ -167,6 +169,7 @@ class FlatAdam:
                              (self.exp_avg_sq, exp_avg_sq)):
             mine.copy_(theirs)
         self.steps = int(steps)
+        self.device_steps.fill_(float(self.steps))
         self.host.copy_(self.params)
 
     def _sync(self):
@@ -180,8 +183,9 @@ class FlatAdam:
         self._sync()
         t1 = time.perf_counter()
         self.steps += 1
-        adam_update_([self.params], [self.grad], [self.exp_avg], [self.exp_avg_sq], self.steps,
-                     self.learning_rate, 0.9, 0.999, 1e-8)
+        self.device_steps.add_(1.0)
+        adam_update_([self.params], [self.grad], [self.exp_avg], [self.exp_avg_sq],
+                     self.device_steps, self.learning_rate, 0.9, 0.999, 1e-8)
         self._sync()
         t2 = time.perf_counter()
         self.host.copy_(self.params)

@@ -15,7 +15,8 @@ its ``local`` path:
   every step of the epoch or run on the device, a device counter that
   picks each step's rows, per-step losses and ``correct`` written there),
   captured as a CUDA graph once per batch shape and replayed
-  (:meth:`Trainer._run_step`); on the CPU the same body runs directly.
+  (:meth:`Trainer._run_step`); on the CPU (and in a gloo world,
+  ``training/distributed.py``) the same body runs directly.
   The first step of each shape runs eagerly as the capture's warm-up, so
   the run takes no extra optimizer step or dropout draw.  The per-epoch
   path runs when per-batch progress logging (DEBUG) is off; the per-batch
@@ -168,8 +169,9 @@ class Trainer:
     device program (``--fuse-run``), and raises where the run cannot be.
 
     ``GRAPH_STEP``: whether the trainer has the device-resident fast
-    paths (the JAX trainer's ``DEVICE_DATA`` switch); the data-parallel
-    strategies keep the per-batch loop.  ``SUPPORTS_GRAD_ACCUM``: whether
+    paths (the JAX trainer's ``DEVICE_DATA`` switch); the strategies that
+    move gradients over the host (``distributed-native``, a
+    parameter-server worker) keep the per-batch loop.  ``SUPPORTS_GRAD_ACCUM``: whether
     it takes ``grad_accum`` above 1 (the JAX trainers' flag).
     ``UPDATES_LOCALLY``: whether the Adam update runs in this process (a
     parameter-server worker's runs on the master)."""
@@ -296,8 +298,7 @@ class Trainer:
     # -- loss ----------------------------------------------------------------
 
     def _net(self):
-        """The module a batch goes through: ``model`` itself here; a
-        data-parallel wrapper of it in train mode where a strategy has one."""
+        """The module a batch goes through: ``model`` itself."""
         return self.model
 
     def _loss_and_metrics(self, x, y, generator=None):
@@ -611,7 +612,8 @@ class Trainer:
         self._steps_done += len(order)
         self._guard_check()  # the fused run's one host visit
         n = len(self.training_set)
-        history = [_loss_sum(losses[e * steps:(e + 1) * steps]) / n for e in range(epochs)]
+        history = [self._epoch_sums(_loss_sum(losses[e * steps:(e + 1) * steps]), 0.0)[0] / n
+                   for e in range(epochs)]
         # the fused run visits the host once: its telemetry is per epoch,
         # after the fact
         for epoch, loss in enumerate(history):
@@ -639,21 +641,25 @@ class Trainer:
         idx = run.order[rows]
         x, y = features[idx], labels[idx]
         loss, correct = self._gradients(x, y, None if run.weights is None else run.weights[rows])
-        self.optimizer.step()
+        self._optimizer_step()
         at = run.step.view(1)
         run.losses.index_copy_(0, at, loss.float().view(1))
         run.corrects.index_copy_(0, at, correct.float().view(1))
         run.position.add_(size)
         run.step.add_(1)
 
+    def _captures(self) -> bool:
+        """Whether the step body is captured as a CUDA graph: on the card."""
+        return self.device.type == "cuda"
+
     def _run_step(self, run: StepBuffers, size: int) -> bool:
-        """The next step of ``run``: on the CPU the body itself; on the
-        card the replay of its graph for this shape.  The first step of a
-        shape runs the body eagerly on the capture stream (the capture's
-        warm-up, and this step of the run), then captures it (which runs
-        nothing); a capture that fails raises.  Returns whether it
-        captured."""
-        if self.device.type != "cuda":
+        """The next step of ``run``: where nothing is captured
+        (:meth:`_captures`) the body itself; else the replay of its graph
+        for this shape.  The first step of a shape runs the body eagerly on
+        the capture stream (the capture's warm-up, and this step of the
+        run), then captures it (which runs nothing); a capture that fails
+        raises.  Returns whether it captured."""
+        if not self._captures():
             self._step_body(run, size)
             return False
         key = (run.kind, size)
@@ -789,9 +795,9 @@ class Trainer:
                                  fenced_s=fenced_s, tm=t0, **extra)
 
     def _optimizer_step(self) -> None:
-        """The update of the per-batch loop, after the backward: the
-        optimizer's step here; a strategy that moves the gradients itself
-        (``distributed-native``) runs its schedule."""
+        """The update after the backward, in the per-batch loop and the step
+        body: the optimizer's step here; a strategy that moves the
+        gradients itself (``distributed-native``) runs its schedule."""
         self.optimizer.step()
 
     def _epoch_sums(self, total_loss, total_correct) -> tuple[float, float]:

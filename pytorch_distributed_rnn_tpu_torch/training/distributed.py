@@ -20,38 +20,53 @@ JAX ``SpmdTrainer`` is one controller whose "ranks" are positions on a
   sharded checkpoint);
 - tags its log lines with its rank (``0: Memory Usage: ...``).
 
+Each epoch runs the device-resident step of ``training/base.py`` (the
+per-batch loop stays for ``--log DEBUG`` and step-addressed faults), and
+``--fuse-run`` the whole run, each rank over its own sampler shard.  On
+NCCL, one rank a card, each batch shape's step, its collectives included,
+is captured as a CUDA graph once and replayed, as ``local``'s is.
+Gloo's collectives (on the CPU, or through pinned host buffers where
+ranks share a card) cannot be captured: there the same body runs
+uncaptured, and the first step says so.  Both paths run the bare model:
+under ``distributed`` with the replicated update the trainer averages
+the gradients after the backward with the one ``pmean_`` that
+``dp.flat_mean_hook`` makes inside DDP (the same bits), so that no
+reducer, bucket rebuild or DDP warm-up rule meets a capture.
+
 Checkpoints hold the unwrapped module's ``state_dict`` and
 ``torch.optim.Adam``'s unsharded per-parameter state, so a checkpoint of
 any strategy resumes in any other, and every rank's dropout generator
 state, gathered to rank 0 (a world of the same size and device resumes
 each rank's stream).  The update is the optax formula
-(``ops/adam.py``) on every path here, replicated or sharded.
+(``ops/adam.py``) on every path here, replicated or sharded, its count
+on the device (``DeviceStepAdam``, ``ShardedUpdate.steps``).
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
 
 from pytorch_distributed_rnn_tpu_torch.data.sampler import DistributedSampler
-from pytorch_distributed_rnn_tpu_torch.ops.adam import Adam, DeviceStepAdam
+from pytorch_distributed_rnn_tpu_torch.ops.adam import DeviceStepAdam
 from pytorch_distributed_rnn_tpu_torch.parallel import dp
 from pytorch_distributed_rnn_tpu_torch.parallel.collectives import padded_size
 from pytorch_distributed_rnn_tpu_torch.parallel.sharded_update import ShardedUpdate
 from pytorch_distributed_rnn_tpu_torch.training.base import Trainer
+
+log = logging.getLogger(__name__)
 
 # the generator seeds of the ranks: rank r adds r times this odd constant
 _RANK_SEED_STRIDE = 0x9E3779B1
 
 
 def _adam(params, learning_rate: float, guarded: bool = False):
-    """The strategies' Adam: the host-count ``Adam``, or the guarded
-    ``DeviceStepAdam`` (its count on the device, so a skipped step leaves
-    it without a host sync)."""
-    if guarded:
-        return DeviceStepAdam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                              guarded=True)
-    return Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    """The strategies' Adam: ``DeviceStepAdam`` (its count on the device,
+    so that a captured step sees each replay's count), guarded or not."""
+    return DeviceStepAdam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                          guarded=guarded)
 
 
 class SpmdTrainer(Trainer):
@@ -66,9 +81,6 @@ class SpmdTrainer(Trainer):
     ``DeviceStepAdam``."""
 
     SYNC = "backward"
-    # the per-batch loop only: the graph path under the strategies (NCCL
-    # collectives inside a capture) is still to be ported
-    GRAPH_STEP = False
     # as the JAX trainer (training/distributed.py): the step is built
     # around the strategy's collectives
     SUPPORTS_GRAD_ACCUM = False
@@ -102,22 +114,39 @@ class SpmdTrainer(Trainer):
         self.sharded_update = bool(sharded_update)
         adam = _adam(self.model.parameters(), learning_rate,
                      guarded=guarded and not self.sharded_update)
-        self._ddp = None
+        # distributed, replicated: the gradients averaged after the backward
+        self._pmean_grads = self.SYNC == "backward" and not self.sharded_update
+        self._said_uncaptured = False
+        if self.SYNC == "backward":
+            # what DDP's construction does: rank 0's weights everywhere
+            dp.broadcast_params(self.model.parameters(), group)
         if self.sharded_update:
             self.optimizer = ShardedUpdate(adam, group.size, group.rank, group, guarded=guarded)
-            if self.SYNC == "backward":
-                # what DDP's construction would do: rank 0's weights everywhere
-                dp.broadcast_params(self.model.parameters(), group)
         elif self.SYNC == "backward":
             self.optimizer = adam
-            self._ddp = dp.wrap_ddp(self.model, group)
         else:
             self.optimizer = dp.DistributedOptimizer(adam, group)
 
-    def _net(self):
-        if self._ddp is not None and self.model.training:
-            return self._ddp
-        return self.model
+    def _optimizer_step(self) -> None:
+        """The update after the backward, in the per-batch loop and the
+        step body alike.  Under ``distributed`` with the replicated update,
+        first the average that ``dp.flat_mean_hook`` makes at DDP's last
+        bucket: the gradients in ``parameters()`` order, one ``pmean_``."""
+        if self._pmean_grads:
+            self.group.pmean_([p.grad for p in self.model.parameters()])
+        self.optimizer.step()
+
+    def _captures(self) -> bool:
+        """NCCL's collectives are captured with the step; gloo's cannot be
+        (host tensors, or pinned host buffers on a shared card), so its
+        world runs the body uncaptured, and says so once."""
+        if self.group.backend == "nccl":
+            return True
+        if not self._said_uncaptured:
+            self._said_uncaptured = True
+            log.info(f"{self.rank}: {self.group.backend} collectives cannot be captured: "
+                     f"the step body runs uncaptured on {self.device}")
+        return False
 
     def _dropout_states(self) -> list:
         """Every rank's generator state, all-gathered (the ranks' states
@@ -131,8 +160,8 @@ class SpmdTrainer(Trainer):
     def _collective_ops(self) -> dict:
         """A step's collectives: the sharded update's reduce-scatter and
         all-gather of the padded flat vector (and the guard's one-flag
-        sum), or one coalesced allreduce of the gradients (DDP's hook and
-        Horovod's optimizer alike)."""
+        sum), or one coalesced allreduce of the gradients (the replicated
+        ``distributed`` update and Horovod's optimizer alike)."""
         params = list(self.model.parameters())
         itemsize = params[0].element_size()
         flat = padded_size(sum(p.numel() for p in params), self.world_size) * itemsize
@@ -171,9 +200,10 @@ class SpmdTrainer(Trainer):
 
 
 class DDPTrainer(SpmdTrainer):
-    """``distributed``: gradients averaged during ``backward()`` by
-    ``DistributedDataParallel`` (reference ``trainer/ddp.py:19``), whose
-    construction broadcasts rank 0's parameters."""
+    """``distributed``: gradients averaged as ``DistributedDataParallel``
+    (reference ``trainer/ddp.py:19``) with ``dp.flat_mean_hook`` averages
+    them, in one allreduce after ``backward()``, and rank 0's parameters
+    broadcast at construction, as DDP's construction does."""
 
     SYNC = "backward"
 

@@ -5,6 +5,7 @@
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab tc
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab fwd --other DIR [--rounds N]
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab step --other DIR [--rounds N] [--path P]
+    python -m pytorch_distributed_rnn_tpu_torch.utils.ab step --other DIR [--rounds N] --path g|g0|h|h0
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab step --graph [--rounds N] [--path P]
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab dp [--rounds N]
     python -m pytorch_distributed_rnn_tpu_torch.utils.ab drift
@@ -62,7 +63,10 @@ synthetic motif corpus; ``c``, the same with ``--cell gru``; ``e``, the
 long-context classifier (dim 512, 4 heads, depth 2, bf16, T=1024)
 through the local trainer, Adam at 1e-3, 10 steps of batch 16 an epoch
 on 160 seeded random windows.  Each step's device copy kernels are
-counted too.
+counted too.  A data-parallel path (``g``, ``g0``, ``h``, ``h0``, as
+under ``dp``) runs in a ``torchrun`` world of its ranks for each tree and
+times its per-batch loop, the strategies' only path before their graph
+path, so that two trees compare on the same loop.
 
 ``step --graph``: a main path of this tree only, the local trainer's
 per-batch loop (eager) and its per-epoch graph path (CUDA-graph replays of
@@ -324,16 +328,22 @@ def device_events(prof) -> list:
 # and none after, and a late window of the smoke lost one kernel in 3 of 3
 # tries (``ab drift``, ``chip_smoke.py``).  A window opened this long before
 # the body's first launch and closed this long after its last sync kept all
-# 5 in 7 windows of 9, and no profile of a whole smoke run lost one.
-PROFILE_MARGIN_S = 0.1
+# 5 in 7 windows of 9 at 0.1 s.  Later whole smoke runs, longer, lost one
+# LSTM forward record of a late window in 3 of 3 tries again at 0.1 s
+# (phase p.1's epoch, then p.4's; a forward, whose first is the body's
+# earliest port kernel, never a backward), and none with 0.5 s on both
+# sides or with 0.3 s before and 0.1 s after: the margin before the body is
+# three times the one that failed.
+PROFILE_MARGIN_S = 0.3
+PROFILE_TAIL_S = 0.1
 
 
 @contextlib.contextmanager
 def device_profile(activities=None):
     """``torch.profiler.profile`` over the host and the card (or
-    ``activities``), with ``PROFILE_MARGIN_S`` of host-only time before and
-    after the body, so no device record of the body falls outside the
-    window."""
+    ``activities``), with ``PROFILE_MARGIN_S`` of host-only time before the
+    body and ``PROFILE_TAIL_S`` after it, so no device record of the body
+    falls outside the window."""
     from torch.profiler import ProfilerActivity, profile
 
     if activities is None:
@@ -341,7 +351,7 @@ def device_profile(activities=None):
     with profile(activities=activities) as prof:
         time.sleep(PROFILE_MARGIN_S)
         yield prof
-        time.sleep(PROFILE_MARGIN_S)
+        time.sleep(PROFILE_TAIL_S)
 
 
 def _copy_kernels(prof, calls: int) -> tuple:
@@ -425,7 +435,7 @@ def _device_ms(fn, calls: int) -> float:
 def _time_step(path: str = "d") -> dict:
     """A main path with the tree's package: 2 epochs, then 4 on the host
     clock and one profiled.  A data-parallel path (``DP_PATHS``) runs on
-    each rank of its ``torchrun`` world."""
+    each rank of its ``torchrun`` world, and times its per-batch loop."""
     import torch
 
     formatter = _own("training.formatter").TrainingMessageFormatter(1)
@@ -442,7 +452,7 @@ def _time_step(path: str = "d") -> dict:
         steps = len(trainer._epoch_index_batches())
 
         def epoch():
-            trainer._train_epoch(formatter)
+            trainer._train_epoch(formatter, True if path in DP_PATHS else None)
 
         host_ms = []
         for _ in range(4):
@@ -605,7 +615,7 @@ def _parse(argv: list) -> tuple:
     """``(mode, other tree or None, rounds, path)``; raises SystemExit on
     misuse."""
     usage = ("usage: ab rows | ab split | ab tc | ab fwd --other DIR [--rounds N] | "
-             "ab step --other DIR [--rounds N] [--path a|b|c|d|e|f] | "
+             "ab step --other DIR [--rounds N] [--path a|b|c|d|e|f|g|g0|h|h0] | "
              "ab step --graph [--rounds N] [--path a|b|c|d|e|f] | ab dp [--rounds N] | "
              "ab drift")
     if argv in (["rows"], ["split"], ["tc"], ["drift"]):
@@ -625,7 +635,7 @@ def _parse(argv: list) -> tuple:
     if mode == "graph" and not options and path in PATHS:
         return mode, None, int(rounds), path
     if (mode in ("step", "fwd") and "--other" in options and len(options) == 1
-            and (path is None or path in PATHS)):
+            and (path is None or path in PATHS or mode == "step" and path in DP_PATHS)):
         return mode, Path(options["--other"]).resolve(), int(rounds), path
     raise SystemExit(usage)
 
@@ -665,7 +675,10 @@ def main(argv=None) -> int:
             result = _run(root, what, label, ranks=ranks)
             print(json.dumps({"run": label, "ranks": result if ranks else [result]}), flush=True)
             continue
-        result = _run(root, what, *([path] if path else []))
+        if path in DP_PATHS:
+            result = {"ranks": _run(root, what, path, ranks=DP_PATHS[path][1])}
+        else:
+            result = _run(root, what, *([path] if path else []))
         if mode == "rows" and str(result["rows"]) != label:
             raise RuntimeError(f"the copy for {label} rows ran {result['rows']}")
         print(json.dumps({"run": label, **result}), flush=True)

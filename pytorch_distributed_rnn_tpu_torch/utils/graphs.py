@@ -53,7 +53,13 @@ class CountedGraph:
         t0 = time.perf_counter()
         _TALLIES.append(self.tally)
         try:
-            with torch.cuda.graph(self.graph, stream=stream):
+            # "thread_local": only this thread's unsafe calls break the
+            # capture.  Under the default "global", a CUDA call from any
+            # thread would: NCCL's watchdog thread queries the events of
+            # the collectives that ran before (the warm-up's), which
+            # torch.cuda.graph's synchronize has finished but the watchdog
+            # may not have dropped yet.
+            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
                 out = fn()
         finally:
             _TALLIES.pop()

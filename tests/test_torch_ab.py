@@ -29,6 +29,9 @@ from pytorch_distributed_rnn_tpu_torch.utils import ab
     (["fwd", "--rounds", "2", "--other", "x"], ("fwd", Path("x").resolve(), 2, None)),
     (["dp"], ("dp", None, 1, None)),
     (["dp", "--rounds", "3"], ("dp", None, 3, None)),
+    (["step", "--other", "x", "--path", "g"], ("step", Path("x").resolve(), 1, "g")),
+    (["step", "--other", "x", "--rounds", "2", "--path", "h0"],
+     ("step", Path("x").resolve(), 2, "h0")),
 ])
 def test_parse(argv, want):
     assert ab._parse(argv) == want
@@ -40,7 +43,7 @@ def test_parse(argv, want):
     ["kernels"], ["tc", "--rounds", "2"], ["step", "--other", "x", "--path", "z"], ["gates"],
     ["rows", "--rounds", "2"], ["step", "--other", "x", "--other", "y"],
     ["fwd"], ["fwd", "--other", "x", "--path", "d"], ["fwd", "--rounds", "2"],
-    ["dp", "--other", "x"], ["dp", "--path", "g"], ["step", "--other", "x", "--path", "g"],
+    ["dp", "--other", "x"], ["dp", "--path", "g"], ["step", "--other", "x", "--path", "g1"],
     ["step", "--graph", "--other", "x"], ["step", "--graph", "--path", "g"], ["fwd", "--graph"],
     ["dp", "--graph"], ["drift", "--rounds", "2"], ["drift", "--path", "a"],
 ])

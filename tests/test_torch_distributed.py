@@ -14,6 +14,12 @@ configuration in turn.  The bars:
   global batches: 1e-5 (the bars of ``tests/test_training.py``);
 - ``--sharded-update`` against ``--no-sharded-update``, and every rank
   against rank 0: bit for bit.
+
+The runs at INFO take the device-resident step body (``training/base.py``
+``_step_body``, uncaptured over gloo); each has a twin at ``--log DEBUG``,
+the per-batch loop, which it must equal bit for bit.  ``--fuse-run``
+(``--no-validation``) is held against the per-epoch path at 1e-5 and
+against JAX's fused trainers at 1e-4.
 """
 
 import json
@@ -29,14 +35,22 @@ from pytorch_distributed_rnn_tpu.data import MotionDataset as JaxDataset
 from pytorch_distributed_rnn_tpu.evaluation.analysis import PERF_LINE_RE
 from pytorch_distributed_rnn_tpu.models import MotionModel as JaxMotionModel
 from pytorch_distributed_rnn_tpu.parallel import make_mesh
+from pytorch_distributed_rnn_tpu.resilience import FaultSchedule as JaxFaults
 from pytorch_distributed_rnn_tpu.training import DDPTrainer as JaxDDPTrainer
 from pytorch_distributed_rnn_tpu.training import HorovodTrainer as JaxHorovodTrainer
 from pytorch_distributed_rnn_tpu_torch import interop
 from pytorch_distributed_rnn_tpu_torch import main as port_main
-from pytorch_distributed_rnn_tpu_torch.data import MotionDataset, write_synthetic_har_cache
+from pytorch_distributed_rnn_tpu_torch.data import (
+    MotionDataset,
+    generate_har_arrays,
+    write_synthetic_har_cache,
+)
 from pytorch_distributed_rnn_tpu_torch.models import MotionModel
 from pytorch_distributed_rnn_tpu_torch.ops.adam import DeviceStepAdam
 from pytorch_distributed_rnn_tpu_torch.parallel import collectives, launch
+from pytorch_distributed_rnn_tpu_torch.resilience import FaultSchedule
+from pytorch_distributed_rnn_tpu_torch.training import DDPTrainer, HorovodTrainer
+from pytorch_distributed_rnn_tpu_torch.training.base import FUSE_RUN_UNFUSABLE
 from pytorch_distributed_rnn_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 
 SEED = 123456789
@@ -45,7 +59,10 @@ LOCAL_TOL = 1e-5  # port against port
 FLAVOURS = ("distributed", "horovod")
 SHARDING = ("--sharded-update", "--no-sharded-update")
 JAX_TRAINERS = {"distributed": JaxDDPTrainer, "horovod": JaxHorovodTrainer}
+PORT_TRAINERS = {"distributed": DDPTrainer, "horovod": HorovodTrainer}
 EPOCHS = 2
+FUSE_RTOL = 1e-5  # --fuse-run against the per-epoch path (tests/test_torch_graph_step.py)
+UNCAPTURED = "gloo collectives cannot be captured: the step body runs uncaptured on cpu"
 
 
 @pytest.fixture(scope="module")
@@ -86,9 +103,9 @@ def _argv(data, *extra, epochs=EPOCHS, resume=None):
             "--resume", str(resume), *extra]
 
 
-def _config_jobs(work, data, world):
-    return [{"dir": str(work / f"w{world}" / f"{flavour}{sharding}"),
-             "argv": _argv(data, "--checkpoint-every", "1", sharding, flavour)}
+def _config_jobs(work, data, world, suffix="", *flags):
+    return [{"dir": str(work / f"w{world}" / f"{flavour}{sharding}{suffix}"),
+             "argv": _argv(data, "--checkpoint-every", "1", sharding, *flags, flavour)}
             for flavour in FLAVOURS for sharding in SHARDING]
 
 
@@ -114,21 +131,36 @@ def _init_checkpoints_by_rank(work, data, world):
 
 @pytest.fixture(scope="module")
 def world2(work, data):
-    """World 2: the four configurations, horovod from rank-offset weights
-    (0 epochs), the char LM and the attention classifier under
-    ``distributed``, and the kernel build's ordering."""
+    """World 2: the four configurations and their per-batch-loop twins
+    (``--log DEBUG``), horovod from rank-offset weights (0 epochs), the
+    char LM and the attention classifier under ``distributed`` and their
+    twins, ``--fuse-run`` under both strategies beside their per-epoch
+    runs (``--no-validation``), and the kernel build's ordering."""
     cache, _, _ = data
     jobs = _config_jobs(work, data, 2)
+    debug = _config_jobs(work, data, 2, "-debug", "--log", "DEBUG")
+    fused = {(flavour, mode): {"dir": str(work / "w2" / f"{flavour}-{mode}"),
+                               "argv": _argv(data, "--no-validation", *flags, flavour)}
+             for flavour in FLAVOURS
+             for mode, flags in (("fused", ["--fuse-run"]), ("epochs", []))}
+    families = {(family, mode): {"dir": str(work / "w2" / f"{family}-{mode}"),
+                                 "argv": _family_argv(work, family, cache, *flags)}
+                for family in ("char", "attention")
+                for mode, flags in (("step", []), ("debug", ["--log", "DEBUG"]))}
     extra = {
         "perturbed": {"dir": str(work / "w2" / "perturbed"),
                       "argv": _argv(data, "horovod", epochs=0,
                                     resume=_init_checkpoints_by_rank(work, data, 2))},
-        "char": {"dir": str(work / "w2" / "char"), "argv": _family_argv(work, "char")},
-        "attention": {"dir": str(work / "w2" / "attention"),
-                      "argv": _family_argv(work, "attention", cache)},
+        "char": families["char", "step"],
+        "attention": families["attention", "step"],
         "build": {"dir": str(work / "w2" / "build"), "build_once": True},
+        "debug": debug,
+        "fused": fused,
+        "families": families,
     }
-    launch.spawn(2, jobs + list(extra.values()), work / "w2", device="cpu", timeout=300)
+    runs = [*jobs, extra["perturbed"], *families.values(), extra["build"], *debug,
+            *fused.values()]
+    launch.spawn(2, runs, work / "w2", device="cpu", timeout=300)
     return jobs, extra
 
 
@@ -277,6 +309,50 @@ def test_sharded_matches_replicated_bitwise(request, world, flavour):
     _assert_state_equal(sharded, replicated)
 
 
+def _final_adam_state(job):
+    """The Adam state of rank 0's last epoch checkpoint."""
+    _, opt_state, _ = load_checkpoint(f"{job['dir']}/rank0/models/checkpoint-epoch-{EPOCHS}.ckpt")
+    return opt_state["state"]
+
+
+def _assert_step_body_equals_loop(step_job, loop_job, adam=True):
+    """Two world-2 runs, the step body and the per-batch loop: the same
+    history, every rank's parameters and (``adam``) rank 0's last Adam
+    state bit for bit; only the step body's ranks log, once each, that
+    their gloo world runs it uncaptured."""
+    (step, h_step), (loop, h_loop) = _results(step_job, 2), _results(loop_job, 2)
+    assert h_step == h_loop
+    for a, b in zip(step, loop, strict=True):
+        _assert_state_equal(a["state"], b["state"])
+        assert a["buffers"] == ["epoch"] and b["buffers"] == []
+        assert sum(UNCAPTURED in m for m in a["log"]) == 1
+        assert not any(UNCAPTURED in m for m in b["log"])
+    if adam:
+        want = _final_adam_state(loop_job)
+        for i, state in _final_adam_state(step_job).items():
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(state[key], want[i][key]), (i, key)
+
+
+@pytest.mark.parametrize("sharding", SHARDING)
+@pytest.mark.parametrize("flavour", FLAVOURS)
+def test_step_body_matches_the_per_batch_loop_bitwise(world2, flavour, sharding):
+    """The step body that the card captures, uncaptured over gloo at world
+    2, against the per-batch loop (``--log DEBUG``): under ``distributed``
+    with the replicated update the body averages the bare model's
+    gradients itself, where the loop goes through DDP's hook."""
+    jobs, extra = world2
+    _assert_step_body_equals_loop(_job(jobs, flavour, sharding),
+                                  _job(extra["debug"], flavour, f"{sharding}-debug"))
+
+
+@pytest.mark.parametrize("family", ["char", "attention"])
+def test_other_families_step_body_matches_the_per_batch_loop_bitwise(world2, family):
+    _, extra = world2
+    runs = extra["families"]
+    _assert_step_body_equals_loop(runs[family, "step"], runs[family, "debug"], adam=False)
+
+
 @pytest.mark.parametrize("world", [2, 4])
 def test_every_rank_ends_with_rank0_parameters(request, world):
     for job in _world_runs(request, world):
@@ -312,6 +388,108 @@ def test_only_rank0_writes_and_logs_are_rank_tagged(world2):
         evaluations = [m for m in result["log"] if "Evaluation" in m]
         assert len(evaluations) == (EPOCHS + 1 if rank == 0 else 0)
         assert any(m.startswith(f"Rank: {rank:02d}   Start Epoch") for m in result["log"])
+
+
+# ---------------------------------------------------------------------------
+# --fuse-run
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_fused(data):
+    """JAX's fused trainers at world 2, from the same initial weights."""
+    _, sets, _ = data
+    runs = {}
+    for flavour in FLAVOURS:
+        jt = JAX_TRAINERS[flavour](
+            JaxMotionModel(hidden_dim=16, layer_dim=2), JaxDataset(*_arrays(sets[0])),
+            batch_size=48, learning_rate=2.5e-3, seed=SEED, mesh=make_mesh({"dp": 2}),
+            fuse_run=True)
+        params, train, _ = jt.train(epochs=EPOCHS)
+        runs[flavour] = (jax.tree.map(np.array, params), train)
+    return runs
+
+
+@pytest.mark.parametrize("flavour", FLAVOURS)
+def test_fuse_run_matches_the_per_epoch_path(world2, flavour):
+    """``--fuse-run --no-validation`` through the CLI takes the fused run
+    on every rank, each over its own shard padded with zero-weight rows,
+    within 1e-5 of the per-epoch path; the ranks end alike."""
+    _, extra = world2
+    (fused, h_fused), (epochs, h_epochs) = (_results(extra["fused"][flavour, mode], 2)
+                                            for mode in ("fused", "epochs"))
+    np.testing.assert_allclose(h_fused["train_history"], h_epochs["train_history"],
+                               rtol=FUSE_RTOL)
+    assert h_fused["validation_history"] == h_epochs["validation_history"] == []
+    for a, b in zip(fused, epochs, strict=True):
+        assert a["buffers"] == ["run"] and b["buffers"] == ["epoch"]
+        _assert_state_equal(a["state"], fused[0]["state"])
+    _assert_state_close(fused[0]["state"], epochs[0]["state"], FUSE_RTOL, FUSE_RTOL)
+
+
+@pytest.mark.parametrize("flavour", FLAVOURS)
+def test_fuse_run_matches_jax_fused_trainer(world2, jax_fused, flavour):
+    _, extra = world2
+    ranks, history = _results(extra["fused"][flavour, "fused"], 2)
+    params, train = jax_fused[flavour]
+    np.testing.assert_allclose(history["train_history"], train, rtol=HISTORY_RTOL)
+    final = interop.state_dict_to_jax_params(ranks[0]["state"])
+    for a, b in zip(jax.tree.leaves(final), jax.tree.leaves(params), strict=True):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture
+def group1(monkeypatch):
+    """A world of 1 over gloo in this process."""
+    for var in LAUNCHER_ENV:
+        monkeypatch.delenv(var, raising=False)
+    group = collectives.init_process_group("cpu")
+    yield group
+    collectives.destroy(group)
+
+
+@pytest.mark.parametrize("case", ["validation", "checkpoint-every", "dropout-partial-batch",
+                                  "faults", "epoch-offset-resume"])
+@pytest.mark.parametrize("flavour", FLAVOURS)
+def test_fuse_run_refuses_where_jax_does(group1, flavour, case, tmp_path):
+    """The strategies' gate of ``--fuse-run`` against JAX's trainers at
+    ``dp`` 2 (the port's at world 1, in this process): the same
+    ``ValueError``, before any step.  ``grad_accum`` above 1 both refuse
+    earlier, at construction (``tests/test_torch_resilience.py``)."""
+    X, y = generate_har_arrays(100, seq_length=8, seed=0)  # a partial last batch, both worlds
+    Xv, yv = generate_har_arrays(16, seq_length=8, seed=1)
+    kw = dict(batch_size=48, learning_rate=1e-3, seed=SEED, fuse_run=True)
+    dropout, jax_kw, port_kw = 0.0, {}, {}
+    if case == "validation":
+        jax_kw, port_kw = {"validation_set": JaxDataset(Xv, yv)}, {"validation_set":
+                                                                   MotionDataset(Xv, yv)}
+    elif case == "checkpoint-every":
+        jax_kw = port_kw = {"checkpoint_every": 1, "checkpoint_dir": tmp_path}
+    elif case == "faults":
+        jax_kw = {"faults": JaxFaults.parse("epoch:9:stall")}
+        port_kw = {"faults": FaultSchedule.parse("epoch:9:stall")}
+    elif case == "dropout-partial-batch":
+        dropout = 0.1
+    jt = JAX_TRAINERS[flavour](JaxMotionModel(hidden_dim=8, dropout=dropout),
+                               JaxDataset(X, y), mesh=make_mesh({"dp": 2}), **kw, **jax_kw)
+    trainer = PORT_TRAINERS[flavour](MotionModel(hidden_dim=8, dropout=dropout),
+                                     MotionDataset(X, y), group=group1, **kw, **port_kw)
+    epochs = 1
+    if case == "epoch-offset-resume":
+        # each resumes its own checkpoint of epoch 1, and trains from there
+        for t, directory in ((jt, tmp_path / "jax"), (trainer, tmp_path / "port")):
+            directory.mkdir()
+            t.checkpoint_dir = directory
+            t._save_checkpoint(0, 1.0)
+            t.resume_from(directory / "checkpoint-epoch-1.ckpt", advance_epoch=True)
+        assert jt._start_epoch == trainer._start_epoch == 1
+        epochs = 2
+    with pytest.raises(ValueError, match="--fuse-run") as theirs:
+        jt.train(epochs=epochs)
+    with pytest.raises(ValueError, match="--fuse-run") as ours:
+        trainer.train(epochs=epochs)
+    assert str(ours.value) == str(theirs.value) == FUSE_RUN_UNFUSABLE
+    assert not trainer._buffers  # refused before any step
 
 
 # ---------------------------------------------------------------------------
@@ -363,13 +541,13 @@ def test_cli_distributed_runs_at_world_1_without_a_launcher(world1):
     assert not dist.is_initialized()  # each run ended the group it made
 
 
-def _family_argv(work, family, cache=None):
+def _family_argv(work, family, cache=None, *extra):
     flags = {"char": ["--model", "char", "--seq-length", "16", "--hidden-units", "16",
                       "--batch-size", "32", "--dataset-path", str(work / "no-corpus")],
              "attention": ["--model", "attention", "--hidden-units", "16", "--num-heads", "2",
                            "--batch-size", "48", "--dataset-path", str(cache)]}[family]
     return ["--device", "cpu", "--epochs", "2", "--seed", "3", "--dropout", "0",
-            "--stacked-layer", "2", *flags, "distributed"]
+            "--stacked-layer", "2", *flags, *extra, "distributed"]
 
 
 @pytest.mark.parametrize("family", ["char", "attention"])

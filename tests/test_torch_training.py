@@ -220,15 +220,13 @@ def test_main_without_device_cpu_needs_cuda(cache_dir, monkeypatch):
 
 @pytest.mark.parametrize(
     "flags,command",
-    # --fuse-run is ported for local (tests/test_torch_graph_step.py), not
-    # for the data-parallel strategies; --grad-accum, --max-bad-steps,
-    # --faults, --remat and --resume auto are ported
-    # (tests/test_torch_resilience.py, and the case below), and so are the
-    # telemetry flags (tests/test_torch_obs.py, and the case below); the
-    # two checkpoint flags stay rejected on every strategy that does not
-    # name its own reason
-    [(["--fuse-run"], "distributed"), (["--fuse-run"], "horovod"),
-     (["--checkpoint-format", "sharded"], "distributed"),
+    # --fuse-run is ported for local, distributed and horovod (the case
+    # below); --grad-accum, --max-bad-steps, --faults, --remat and --resume
+    # auto are ported (tests/test_torch_resilience.py, and the case below),
+    # and so are the telemetry flags (tests/test_torch_obs.py, and the case
+    # below); the two checkpoint flags stay rejected on every strategy that
+    # does not name its own reason
+    [(["--checkpoint-format", "sharded"], "distributed"),
      (["--checkpoint-format", "sharded"], "horovod"), (["--checkpoint-async"], "distributed"),
      (["--checkpoint-async"], "horovod"), (["--checkpoint-format", "sharded"], "parameter-server"),
      (["--checkpoint-async"], "parameter-server"), (["--checkpoint-format", "sharded"], "local"),
@@ -249,6 +247,16 @@ def test_telemetry_flags_pass_the_gate(flags, command):
     """The six telemetry flags of ROADMAP A5's second part pass the gate
     on every strategy."""
     port_main.reject_unported(port_main.build_parser().parse_args([*flags, command]))
+
+
+@pytest.mark.parametrize("command", ["local", "distributed", "horovod"])
+def test_fuse_run_passes_the_gate(command):
+    """``--fuse-run --no-validation`` passes the gate on the strategies
+    that have the device-resident step (``distributed-native`` and
+    ``parameter-server`` refuse it with their own reasons:
+    ``tests/test_torch_native_ddp.py``, ``tests/test_torch_param_server.py``)."""
+    port_main.reject_unported(
+        port_main.build_parser().parse_args(["--fuse-run", "--no-validation", command]))
 
 
 @pytest.mark.parametrize("flags", [["--grad-accum", "2"], ["--max-bad-steps", "3"],
